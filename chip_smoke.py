@@ -19,14 +19,22 @@ line each, after the ``nvidia-smi`` name/power-limit line):
 4. pagerank -- ``pagerank(backend="device")`` on a 2^18-vertex, 2 M-edge
    power-law graph over M=64 nodes, degrees (16, 4), 10 rounds, against
    the float64 dense reference; then per-round wall time of the engine;
-5. kernels -- each kernel on the inputs it got in phases 2-4, against its
-   plain version (ranks exact, scatter bit-exact and repeatable, SpMV
-   rtol 1e-5), with CUDA-event times of kernel, plain version and the
-   nearest single PyTorch call, and the least time the card needs.
+5. union_wire -- ``union_reduce`` at mini-batch scale: 64 nodes x
+   262,144 Zipf(1.1) draws over 2^24 hashed features each (about 103,000
+   unique per node, a ~3.96 M-entry union), for all 12 (merge, wire)
+   pairs: indices exact everywhere, raw/delta values exact against the
+   float64 oracle, delta+bf16 bit-identical across merges, delta+int8ef
+   merges within 1e-5 x max|union| of each other and 0.05 x max|union|
+   of the exact sum; CUDA-event ms and launches per reduce of each pair;
+6. kernels -- each kernel on the inputs it got on the main path (phases
+   2-5, layer 0 / first round), against its plain version (ranks exact,
+   scatters bit-exact on dyadic inputs else rtol 1e-6, and repeatable,
+   SpMV rtol 1e-5), with CUDA-event times of kernel, plain version and
+   the nearest single PyTorch call, and the least time the card needs.
 
 The launch counts of the ``kernels`` line are those of the main-path
 calls alone (``config`` + ``reduce``, the first ``union_reduce`` of each
-merge, the ``pagerank`` entry point): each starts with every count at 0
+(merge, wire), the ``pagerank`` entry point): each starts with every count at 0
 and is read right after, before any timing loop runs.
 The last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU;
 exits non-zero without one or outside a checkout of the repository.
@@ -45,6 +53,9 @@ DEVICE = "cuda"
 M, DEGREES = 64, (16, 4)
 N_VERTICES, N_EDGES, ROUNDS, DAMPING = 262_144, 2_000_000, 10, 0.85
 UNION_C, UNION_RANGE, UNION_ALPHA = 16_384, 1 << 22, 1.4
+WIRE_DRAWS, WIRE_C, WIRE_RANGE, WIRE_ALPHA = 262_144, 131_072, 1 << 24, 1.1
+MERGES = ("sort", "fused", "banded")
+WIRES = ("raw", "delta", "delta+bf16", "delta+int8ef")
 
 
 def emit(obj) -> None:
@@ -79,21 +90,28 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 class Recorder:
     """Wraps a kernel wrapper where the main path looks it up and keeps
-    the arguments of its first call (the layer-0 / first-round shapes)."""
+    the arguments of its first call of each variant (``key(args,
+    kwargs)``), i.e. the layer-0 / first-round inputs of that variant."""
 
-    def __init__(self, module, name):
-        self.module, self.name = module, name
+    def __init__(self, module, name, key=lambda args, kwargs: "first"):
+        self.module, self.name, self.key = module, name, key
         self.fn = getattr(module, name)
-        self.args = None
+        self.args = {}
         setattr(module, name, self)
 
     def __call__(self, *args, **kwargs):
-        if self.args is None:
-            self.args = (args, kwargs)
+        self.args.setdefault(self.key(args, kwargs), (args, kwargs))
         return self.fn(*args, **kwargs)
 
     def restore(self):
         setattr(self.module, self.name, self.fn)
+
+
+def scatter_variant(args, kwargs):
+    """Recorder key of a scatter call: ``scaled`` or the value dtype."""
+    if kwargs.get("scale") is not None:
+        return "scaled"
+    return "bf16" if args[1].dtype.itemsize == 2 else "f32"
 
 
 def phase_planned(torch, parts):
@@ -186,6 +204,102 @@ def phase_union(torch):
             for k in launches["fused"]}
 
 
+def union_wire_inputs():
+    """[M, WIRE_C] hashed sorted coalesced indices of WIRE_DRAWS Zipf draws
+    per node, values ``randint(-8, 9) / 1024`` summed per index, and the
+    float64 union oracle."""
+    from repro_torch.core.sparse_vec import SENTINEL, HashPerm
+    rng = np.random.RandomState(5)
+    perm = HashPerm.make(6)
+    idx = np.full((M, WIRE_C), SENTINEL, np.int64)
+    val = np.zeros((M, WIRE_C), np.float32)
+    all_h, all_v = [], []
+    for n in range(M):
+        raw = (rng.zipf(WIRE_ALPHA, WIRE_DRAWS) - 1) % WIRE_RANGE
+        h = perm.fwd_np(raw.astype(np.uint32)).astype(np.int64)
+        v = rng.randint(-8, 9, WIRE_DRAWS).astype(np.float64) / 1024
+        u, inv = np.unique(h, return_inverse=True)
+        s = np.bincount(inv, weights=v)
+        assert len(u) <= WIRE_C, (n, len(u))
+        idx[n, : len(u)] = u
+        val[n, : len(u)] = s
+        all_h.append(u)
+        all_v.append(s)
+    want_idx, inv = np.unique(np.concatenate(all_h), return_inverse=True)
+    vals = np.concatenate(all_v)
+    # every partial f32 sum of these multiples of 2^-10 is exact
+    assert np.bincount(inv, weights=np.abs(vals)).max() < 2.0 ** 14
+    want_val = np.bincount(inv, weights=vals)
+    return idx, val, want_idx, want_val
+
+
+def phase_union_wire(torch):
+    """Union reduce at mini-batch scale for every (merge, wire) pair."""
+    from repro_torch.core.allreduce import shape_bucket
+    from repro_torch.core.api import SparseAllreduce
+    from repro_torch.core.sparse_vec import SENTINEL
+    t0 = time.perf_counter()
+    idx, val, want_idx, want_val = union_wire_inputs()
+    inputs_s = time.perf_counter() - t0
+    n = len(want_idx)
+    out_cap = shape_bucket(n)
+    torch.cuda.reset_peak_memory_stats()
+    ti = torch.as_tensor(idx, device=DEVICE)
+    tv = torch.as_tensor(val, device=DEVICE)
+    want_i = torch.as_tensor(want_idx, device=DEVICE).expand(M, n)
+    want_v = torch.as_tensor(want_val.astype(np.float32),
+                             device=DEVICE).expand(M, n)
+    amax = float(np.abs(want_val).max())
+    first, pairs, total = {}, [], {}
+    for wire in WIRES:
+        for merge in MERGES:
+            ar = SparseAllreduce(M, DEGREES, backend="device", merge=merge,
+                                 wire=wire, device=DEVICE)
+            (oi, ov, of), launches = main_path(
+                lambda: ar.union_reduce(ti, tv, out_cap))
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            assert int(of.sum()) == 0, (merge, wire, of.tolist())
+            assert torch.equal(oi[:, :n], want_i), (merge, wire, "idx")
+            assert bool((oi[:, n:] == SENTINEL).all()), (merge, wire)
+            got = ov[:, :n]
+            err = float((got - want_v).abs().max())
+            if wire in ("raw", "delta"):
+                assert torch.equal(got, want_v), (merge, wire, err)
+            elif wire in first:
+                gap = float((got - first[wire]).abs().max())
+                bound = 0.0 if wire == "delta+bf16" else 1e-5 * amax
+                assert gap <= bound, (merge, wire, gap, bound)
+            else:
+                first[wire] = got.clone()
+            if wire == "delta+int8ef":
+                assert err <= 0.05 * amax, (merge, wire, err, amax)
+            del oi, ov, of, got
+            ms = cuda_ms(lambda: ar.union_reduce(ti, tv, out_cap), reps=3,
+                         warmup=1)
+            pairs.append({"merge": merge, "wire": wire, "ms": ms,
+                          "max_abs_err": err,
+                          "launches": {k: v for k, v in launches.items()
+                                       if v}})
+    peak = torch.cuda.max_memory_allocated()
+    banded_i8 = next(p["launches"] for p in pairs
+                     if p["merge"] == "banded" and p["wire"] == "delta+int8ef")
+    assert banded_i8 == {"rank_counts_banded": len(DEGREES),
+                         "banded_onehot_scatter_add_scaled": len(DEGREES)}, \
+        banded_i8
+    emit({"phase": "union_wire", "ok": True, "union_count": n,
+          "out_capacity": out_cap, "in_capacity": WIRE_C,
+          "draws_per_node": WIRE_DRAWS,
+          "valid_per_node_mean": float((idx != SENTINEL).sum(1).mean()),
+          "max_abs_union": amax, "inputs_s": inputs_s,
+          "max_memory_allocated": int(peak), "pairs": pairs,
+          "tolerance": "idx exact; raw/delta exact vs float64; bf16 equal "
+                       "across merges; int8ef merges within 1e-5 x max, "
+                       "each within 0.05 x max of exact"})
+    del first, ti, tv, want_i, want_v
+    return total
+
+
 def phase_pagerank(torch, edges, parts):
     """PageRank through the device entry point vs the float64 reference,
     then the engine's wall time per round after a warm-up run."""
@@ -224,91 +338,184 @@ def phase_pagerank(torch, edges, parts):
     return launches
 
 
-def kernel_rows(torch, rec, launches):
-    """Each kernel on its recorded main-path inputs vs its plain version."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.onehot_scatter import onehot_scatter_add
-    from repro_torch.kernels.rank_merge import merge_ranks, rank_counts
-    from repro_torch.kernels.spmv_ell import spmv_ell
-    rows = []
+def bound_ms(nbytes: int) -> float:
+    """Least milliseconds to move ``nbytes`` at the card's memory rate."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
-    # row 1: merge ranks of layer 0 (the main path's launch form)
-    (runs,), _ = rec["rank"].args
-    got = merge_ranks(runs)
-    assert torch.equal(got, ref.merge_ranks_ref(runs)), "merge ranks differ"
+
+def index_add_call(torch, pos, val, num_rows):
+    """One ``index_add_`` computing the same scatter (library yardstick),
+    its flat destinations and buffer built outside the timed call."""
+    b2 = pos.shape[0]
+    flat = (torch.arange(b2, device=pos.device).unsqueeze(1) * (num_rows + 1)
+            + torch.where((pos < 0) | (pos >= num_rows), num_rows,
+                          pos.long())).reshape(-1)
+    buf = torch.zeros(b2 * (num_rows + 1), val.shape[-1], device=pos.device)
+    vflat = val.reshape(-1, val.shape[-1]).float()
+    return lambda: buf.index_add_(0, flat, vflat)
+
+
+def rank_row(torch, runs, banded, launches):
+    """Merge ranks of one layer (the main path's launch form) vs plain."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rank_merge import BM, merge_ranks, rank_counts
+    got = merge_ranks(runs, banded=banded)
+    plain = lambda: ref.merge_ranks_ref(runs, BM if banded else None)
+    assert torch.equal(got, plain()), "merge ranks differ from plain"
+    assert torch.equal(got, ref.merge_ranks_ref(runs)), "ranks differ"
+    assert torch.equal(got, merge_ranks(runs, banded=banded)), "not repeatable"
     a, b = runs[:, 0].contiguous(), runs[:, 1].contiguous()
     for strict, side in ((True, "left"), (False, "right")):
-        assert torch.equal(rank_counts(a, b, strict=strict),
+        assert torch.equal(rank_counts(a, b, strict=strict, banded=banded),
                            ref.rank_counts_ref(a, b, side)), "counts differ"
     g, k, cap = runs.shape
     # the same k*k searches as one library call over stacked run pairs
     seq = runs.unsqueeze(1).expand(g, k, k, cap).contiguous()
     qry = runs.unsqueeze(2).expand(g, k, k, cap).contiguous()
-    rows.append({
-        "name": "rank_counts", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/rank_merge.cu",
-        "replaces": "src/repro/kernels/rank_merge.py:142",
-        "launches": launches["rank_counts"], "max_abs_err": 0,
-        "shape": list(runs.shape),
-        "ms": cuda_ms(lambda: merge_ranks(runs), reps=20),
-        "plain_ms": cuda_ms(lambda: ref.merge_ranks_ref(runs), reps=5),
-        "bound_ms": (runs.numel() * 8 + got.numel() * 4)
-        / HBM_BYTES_PER_S * 1e3,
+    name = "rank_counts_banded" if banded else "rank_counts"
+    row = {
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/"
+                  + ("rank_merge_banded.cu" if banded else "rank_merge.cu"),
+        "replaces": "src/repro/kernels/rank_merge.py:"
+                    + ("165" if banded else "142"),
+        "launches": launches[name], "max_abs_err": 0,
+        "check": "exact, repeat identical", "shape": list(runs.shape),
+        "ms": cuda_ms(lambda: merge_ranks(runs, banded=banded), reps=10),
+        "plain_ms": cuda_ms(plain, reps=3, warmup=1),
+        "bound_ms": bound_ms(runs.numel() * 8 + got.numel() * 4),
         "bound_by": "bytes",
-        "library_ms": cuda_ms(lambda: torch.searchsorted(seq, qry), reps=5)})
+        "library_ms": cuda_ms(lambda: torch.searchsorted(seq, qry), reps=3,
+                              warmup=1)}
     del seq, qry
+    return row
 
-    # row 3: the fused merge's scatter-add at layer 0
-    (pos, val, num_rows), _ = rec["scatter"].args
-    got = onehot_scatter_add(pos, val, num_rows)
-    assert torch.equal(got, ref.onehot_scatter_add_ref(pos, val, num_rows)), \
-        "scatter differs from plain"
-    assert torch.equal(got, onehot_scatter_add(pos, val, num_rows)), \
-        "scatter not repeatable"
+
+def scatter_row(torch, name, fn, args, kwargs, launches, library):
+    """One scatter kernel on its recorded inputs vs its plain version:
+    bit-exact on dyadic inputs; with a general scale, bit-exact against
+    the plain version on the CPU (``index_add_`` there sums in source
+    order, the kernel's) and within rtol 1e-6 + 1e-6 x max|out| of the
+    plain version on the card (whose ``index_add_`` sums in atomic order,
+    so sums that cancel to ~0 differ in absolute terms); two launches
+    bit-identical."""
+    from repro_torch.kernels import ref
+    pos, val, num_rows = args
+    scale = kwargs.get("scale")
+    got = fn(*args, **kwargs)
+    want = ref.onehot_scatter_add_ref(pos, val, num_rows, scale)
+    if scale is None:
+        assert torch.equal(got, want), f"{name} differs from plain"
+        check = "bit-exact (dyadic), repeat identical"
+    else:
+        on_cpu = ref.onehot_scatter_add_ref(
+            pos.cpu(), val.cpu(), num_rows, scale.cpu())
+        assert torch.equal(got.cpu(), on_cpu), f"{name} differs from CPU plain"
+        torch.testing.assert_close(got, want, rtol=1e-6,
+                                   atol=1e-6 * float(want.abs().max()))
+        check = ("bit-exact vs plain on CPU; rtol 1e-6 + 1e-6 x max vs plain "
+                 "on card (general scale); repeat identical")
+    assert torch.equal(got, fn(*args, **kwargs)), f"{name} not repeatable"
     b2, c = pos.shape
-    flat = (torch.arange(b2, device=pos.device).unsqueeze(1) * (num_rows + 1)
-            + torch.where((pos < 0) | (pos >= num_rows), num_rows,
-                          pos.long())).reshape(-1)
-    buf = torch.zeros(b2 * (num_rows + 1), val.shape[-1], device=pos.device)
-    vflat = val.reshape(-1, val.shape[-1])
-    rows.append({
-        "name": "onehot_scatter_add", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/onehot_scatter.cu",
-        "replaces": "src/repro/kernels/onehot_scatter.py:80",
-        "launches": launches["onehot_scatter_add"], "max_abs_err": 0,
+    nbytes = (pos.numel() * 4 + val.numel() * val.element_size()
+              + (0 if scale is None else scale.numel() * 4) + got.numel() * 4)
+    kernel = "onehot_scatter_add" if name.startswith("onehot") \
+        else "banded_onehot_scatter_add"
+    source = {"onehot_scatter_add": "onehot_scatter.cu",
+              "banded_onehot_scatter_add": "banded_onehot_scatter.cu"}[kernel]
+    line = {"onehot_scatter_add": "80", "onehot_scatter_add_scaled": "58",
+            "banded_onehot_scatter_add": "177",
+            "banded_onehot_scatter_add_scaled": "156"}[name]
+    return {
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/" + source,
+        "replaces": "src/repro/kernels/onehot_scatter.py:" + line,
+        "launches": launches[name],
+        "max_abs_err": float((got - want).abs().max()), "check": check,
         "shape": [b2, c, int(val.shape[-1]), int(num_rows)],
-        "ms": cuda_ms(lambda: onehot_scatter_add(pos, val, num_rows), reps=10),
-        "plain_ms": cuda_ms(
-            lambda: ref.onehot_scatter_add_ref(pos, val, num_rows), reps=10),
-        "bound_ms": (pos.numel() * 4 + val.numel() * 4 + got.numel() * 4)
-        / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes",
-        "library_ms": cuda_ms(lambda: buf.index_add_(0, flat, vflat), reps=10)})
+        "val_dtype": str(val.dtype).replace("torch.", ""),
+        "ms": cuda_ms(lambda: fn(*args, **kwargs), reps=10),
+        "plain_ms": cuda_ms(lambda: ref.onehot_scatter_add_ref(
+            pos, val, num_rows, scale), reps=10),
+        "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+        "library_ms": None if library is None else cuda_ms(library, reps=10)}
 
-    # row 7: the first PageRank round's SpMV on the stacked ELL tables
-    (cols, wts, x), _ = rec["spmv"].args
+
+def spmv_row(torch, cols, wts, x, launches):
+    """The first PageRank round's SpMV on the stacked ELL tables, with one
+    CSR matvec over the same nonzeros as the library yardstick."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.spmv_ell import spmv_ell
     got = spmv_ell(cols, wts, x)
-    nnz = int((cols >= 0).sum())
+    valid = cols >= 0
+    nnz = int(valid.sum())
     # plain version in slices of nodes (its gathers would not fit at once)
     step = 8
-    want = torch.cat([ref.spmv_ell_ref(cols[i:i + step], wts[i:i + step],
-                                       x[i:i + step])
-                      for i in range(0, cols.shape[0], step)])
+    plain = lambda: torch.cat([ref.spmv_ell_ref(
+        cols[i:i + step], wts[i:i + step], x[i:i + step])
+        for i in range(0, cols.shape[0], step)])
+    want = plain()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-9)
-    rows.append({
+    # block-diagonal CSR of the 64 nodes' nonzeros times the flattened x
+    b, r, n = cols.shape[0], cols.shape[1], x.shape[-1]
+    crow = torch.zeros(b * r + 1, dtype=torch.int64, device=cols.device)
+    crow[1:] = torch.cumsum(valid.sum(-1).reshape(-1), 0)
+    node = torch.arange(b, device=cols.device).view(b, 1, 1).expand(
+        cols.shape)[valid]
+    csr = torch.sparse_csr_tensor(crow, cols[valid].long() + node * n,
+                                  wts[valid], size=(b * r, b * n))
+    del node, valid
+    xv = x.reshape(-1, 1)
+    lib = (csr @ xv).reshape(b, r)
+    torch.testing.assert_close(lib, got, rtol=1e-5, atol=1e-9)
+    row = {
         "name": "spmv_ell", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/spmv_ell.cu",
         "replaces": "src/repro/kernels/spmv_ell.py:34",
         "launches": launches["spmv_ell"],
         "max_abs_err": float((got - want).abs().max()),
+        "check": "rtol 1e-5 vs plain and vs CSR",
         "shape": list(cols.shape), "nnz": nnz,
         "ms": cuda_ms(lambda: spmv_ell(cols, wts, x), reps=5),
-        "plain_ms": cuda_ms(lambda: [ref.spmv_ell_ref(
-            cols[i:i + step], wts[i:i + step], x[i:i + step])
-            for i in range(0, cols.shape[0], step)], reps=2, warmup=1),
-        "bound_ms": (nnz * 8 + x.numel() * 4 + got.numel() * 4)
-        / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes", "library_ms": None})
+        "plain_ms": cuda_ms(plain, reps=2, warmup=1),
+        "bound_ms": bound_ms(nnz * 8 + x.numel() * 4 + got.numel() * 4),
+        "bound_by": "bytes",
+        "library_ms": cuda_ms(lambda: csr @ xv, reps=5)}
+    del csr, lib
+    return row
+
+
+def kernel_rows(torch, rec, launches):
+    """Every kernel on its recorded main-path inputs vs its plain version,
+    in the order of the TPU kernel table."""
+    from repro_torch.kernels.onehot_scatter import (banded_onehot_scatter_add,
+                                                    onehot_scatter_add)
+    ranks, scat, band = (rec["rank"].args, rec["scatter"].args,
+                         rec["banded"].args)
+    rows = [rank_row(torch, ranks["dense"][0][0], False, launches),
+            rank_row(torch, ranks["banded"][0][0], True, launches)]
+    (args, kwargs) = scat["f32"]
+    bf16 = scat["bf16"]
+    row = scatter_row(torch, "onehot_scatter_add", onehot_scatter_add, args,
+                      kwargs, launches, index_add_call(torch, *args))
+    got = onehot_scatter_add(*bf16[0], **bf16[1])
+    from repro_torch.kernels import ref
+    assert torch.equal(got, ref.onehot_scatter_add_ref(*bf16[0])), "bf16"
+    row["bf16_shape"] = list(bf16[0][0].shape)
+    row["bf16_ms"] = cuda_ms(lambda: onehot_scatter_add(*bf16[0], **bf16[1]),
+                             reps=10)
+    rows.append(row)
+    rows.append(scatter_row(torch, "onehot_scatter_add_scaled",
+                            onehot_scatter_add, *scat["scaled"], launches,
+                            None))
+    (args, kwargs) = band["f32"]
+    rows.append(scatter_row(torch, "banded_onehot_scatter_add",
+                            banded_onehot_scatter_add, args, kwargs, launches,
+                            index_add_call(torch, *args)))
+    rows.append(scatter_row(torch, "banded_onehot_scatter_add_scaled",
+                            banded_onehot_scatter_add, *band["scaled"],
+                            launches, None))
+    rows.append(spmv_row(torch, *rec["spmv"].args["first"][0], launches))
     return rows
 
 
@@ -341,14 +548,18 @@ def main() -> int:
     parts = build_partitions(edges, N_VERTICES, M)
     graph_s = time.perf_counter() - t0
 
-    rec = {"rank": Recorder(ops, "merge_ranks"),
-           "scatter": Recorder(ops, "onehot_scatter_add"),
+    rec = {"rank": Recorder(ops, "merge_ranks", key=lambda a, kw:
+                            "banded" if kw.get("banded") else "dense"),
+           "scatter": Recorder(ops, "onehot_scatter_add", scatter_variant),
+           "banded": Recorder(ops, "banded_onehot_scatter_add",
+                              scatter_variant),
            "spmv": Recorder(engine, "spmv_ell")}
     per_phase = {"planned": phase_planned(torch, parts),
                  "union": phase_union(torch),
-                 "pagerank": phase_pagerank(torch, edges, parts)}
+                 "pagerank": phase_pagerank(torch, edges, parts),
+                 "union_wire": phase_union_wire(torch)}
     torch.cuda.synchronize()
-    launches = {k: sum(p[k] for p in per_phase.values())
+    launches = {k: sum(p.get(k, 0) for p in per_phase.values())
                 for k in _build.LAUNCHES}
     for r in rec.values():
         r.restore()

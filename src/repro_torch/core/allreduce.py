@@ -11,12 +11,16 @@ nodes), with the group exchanges done by
 * the hash-permuted sorted-range partition is a static-shape
   ``bucket_partition``;
 * the tree-merge sum is a stable re-sort + segment compaction
-  (``merge="sort"``) or the fused rank-merge pipeline of
-  ``repro_torch.kernels.ops.merge_sorted_runs`` (``merge="fused"``).
+  (``merge="sort"``) or the rank-merge pipelines of
+  ``repro_torch.kernels.ops.merge_sorted_runs`` (``merge="fused"`` or
+  ``"banded"``);
+* ``wire=`` picks the payload of every exchange
+  (``repro_torch.kernels.wirecodec``): bit-packed index offsets and f32,
+  bf16 or per-row int8 values, decoded against the stage subrange base
+  the receiver knows.
 
 Static capacities make overflow a counted, returned quantity, as in the
-reference.  Replication, the banded merge, wire codecs and the dense
-baselines are later slices.
+reference.  Replication and the dense baselines are later slices.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ import torch
 from .sparse_vec import (SENTINEL, SparseChunk, _drop_last_row, _mask_val,
                          _put_rows, bucket_partition, compact_overflow,
                          concat_sorted_groups, segment_compact)
-from .topology import ButterflyPlan
+from .topology import ButterflyPlan, check_wire
 from .transport import StackedTransport
 
 
@@ -158,24 +162,21 @@ def shape_bucket(n: int, floor: int = 8) -> int:
     return b
 
 
-# Per-layer merge strategies of the reference; "banded" is not ported yet.
+# Per-layer merge strategies of the union path.
 MERGE_MODES = ("sort", "fused", "banded")
 
 
 def check_merge(merge: str) -> str:
-    """Validate a merge-mode name for the port; returns it for chaining."""
+    """Validate a merge-mode name; returns it for chaining."""
     if merge not in MERGE_MODES:
         raise ValueError(f"merge must be one of {MERGE_MODES}, got {merge!r}")
-    if merge == "banded":
-        raise NotImplementedError(
-            "merge='banded' is not ported yet (ROADMAP Queue 1 item 7)")
     return merge
 
 
 def sparse_allreduce_union(chunk: SparseChunk, plan: DevicePlan,
                            edges: Sequence[torch.Tensor],
                            transport: StackedTransport,
-                           merge: str = "sort"
+                           merge: str = "sort", wire: str = "raw"
                            ) -> Tuple[SparseChunk, torch.Tensor]:
     """Nested butterfly sparse allreduce; every node gets the full union sum.
 
@@ -183,38 +184,100 @@ def sparse_allreduce_union(chunk: SparseChunk, plan: DevicePlan,
     val [M, C] or [M, C, W].  ``edges``: per-stage [M, k_l + 1] range
     edges (:meth:`DevicePlan.edges_tensors`).  ``merge`` picks the
     per-layer merge of the k sorted runs arriving at each layer: ``"sort"``
-    concatenates, stably re-sorts and segment-compacts; ``"fused"``
-    rank-merges the runs and scatter-adds in one pass through the CUDA
-    kernels (``repro_torch.kernels.ops.merge_sorted_runs``).  Both give
-    the same indices and overflow, and the same values on dyadic inputs.
-    One layer costs one transport exchange down and one up.
+    concatenates, stably re-sorts and segment-compacts; ``"fused"`` and
+    ``"banded"`` rank-merge the runs and scatter-add in one pass through
+    the CUDA kernels (``repro_torch.kernels.ops.merge_sorted_runs``).  All
+    give the same indices and overflow, and the same values on dyadic
+    inputs.  ``wire`` picks the exchanged payload: ``"raw"`` ships int64
+    indices and the values; the ``"delta"`` family ships indices as
+    bit-packed int32 words of offsets from the stage subrange base --
+    down: bucket d from ``e[d]``, decoded against the receiver's own
+    ``e[j]``; up: from the sender's ``e[j]``, gathered row t decoded
+    against ``e[t]`` -- and values as f32 (``delta``, bit-identical to
+    raw), bf16 (``delta+bf16``) or per-row int8 with an f32 scale
+    (``delta+int8ef``).  The kernel merges take the narrow values and the
+    scale as they are; the sort merge dequantizes first.  One layer costs
+    one transport exchange down and one up, whatever the wire.
     Returns (union chunk of capacity ``out_capacity`` per node, overflow
     [M] -- entries dropped to capacity anywhere in the network).
     """
     check_merge(merge)
+    check_wire(wire)
     overflow = torch.zeros(chunk.idx.shape[0], dtype=torch.int64,
                            device=chunk.idx.device)
+    compute_dtype = chunk.val.dtype
+    if wire != "raw":
+        from repro_torch.kernels import wirecodec as _wc
+        widths = _wc.stage_index_bits(plan)
 
     # ---- down: scatter-reduce through the layers --------------------------
     for l, st in enumerate(plan.stages):
-        buckets, ovf = bucket_partition(chunk, edges[l], st.degree,
-                                        st.bucket_capacity)
+        k, e = st.degree, edges[l]
+        buckets, ovf = bucket_partition(chunk, e, k, st.bucket_capacity)
         overflow = overflow + ovf
-        r_idx, r_val = transport.all_to_all(l, buckets.idx, buckets.val)
-        if merge == "fused":
+        if wire == "raw":
+            r_idx, r_val = transport.all_to_all(l, buckets.idx, buckets.val)
+            r_scale = None
+        else:
+            # bucket d covers [e[d], e[d+1]): ship offsets from e[d]
+            send_words = _wc.pack_indices(buckets.idx, e[:, :k], widths[l])
+            send_val, scale = buckets.val, None
+            if wire == "delta+bf16":
+                send_val = send_val.to(torch.bfloat16)
+            elif wire == "delta+int8ef":
+                m = send_val.shape[0]
+                q, scale = _wc.quant8_rows(send_val.reshape(
+                    (m * k,) + send_val.shape[2:]))
+                send_val, scale = q.reshape(send_val.shape), scale.reshape(m, k)
+            sent = (send_words, send_val) + (() if scale is None else (scale,))
+            got = transport.all_to_all(l, *sent)
+            r_scale = got[2] if scale is not None else None
+            # every received row is a bucket of this node's own subrange,
+            # whose base is e[j], j = its position in the stage group
+            base = torch.gather(e, 1, transport.position(l).unsqueeze(1))
+            r_idx = _wc.unpack_indices(got[0], base.expand(-1, k),
+                                       st.bucket_capacity, widths[l])
+            r_val = got[1]
+        if merge in ("fused", "banded"):
             from repro_torch.kernels import ops as _kops
-            chunk, movf = _kops.merge_sorted_runs(r_idx, r_val,
-                                                  st.merged_capacity)
+            chunk, movf = _kops.merge_sorted_runs(
+                r_idx, r_val, st.merged_capacity, mode=merge,
+                row_scale=r_scale,
+                out_dtype=compute_dtype if wire != "raw" else None)
             overflow = overflow + movf
         else:
-            cat = concat_sorted_groups(r_idx, r_val)
+            if r_scale is not None:
+                r_val = _wc.dequant8_rows(r_val, r_scale)
+            cat = concat_sorted_groups(r_idx, r_val.to(compute_dtype))
             overflow = overflow + compact_overflow(cat, st.merged_capacity)
             chunk = segment_compact(cat, st.merged_capacity)
 
     # ---- up: allgather back through the same nodes (nested) ---------------
     for li in range(len(plan.stages) - 1, -1, -1):
-        idx, val = transport.all_gather(li, chunk.idx, chunk.val)
-        chunk = SparseChunk(idx=idx, val=val)  # concat of sorted disjoint ranges
+        if wire == "raw":
+            idx, val = transport.all_gather(li, chunk.idx, chunk.val)
+            chunk = SparseChunk(idx=idx, val=val)
+            continue
+        # the sender's chunk covers its own subrange [e[j], e[j+1]); after
+        # the gather, row t covers subrange t of the group-shared edges
+        k, e = plan.stages[li].degree, edges[li]
+        m, cap = chunk.idx.shape[0], chunk.capacity
+        base = torch.gather(e, 1, transport.position(li).unsqueeze(1))[:, 0]
+        send_words = _wc.pack_indices(chunk.idx, base, widths[li])
+        if wire == "delta+int8ef":
+            q, scale = _wc.quant8_rows(chunk.val)
+            words, gq, gs = transport.all_gather(li, send_words, q,
+                                                 scale.unsqueeze(1))
+            val = _wc.dequant8_rows(
+                gq.reshape((m, k, cap) + gq.shape[2:]), gs).reshape(gq.shape)
+        else:
+            send_val = chunk.val
+            if wire == "delta+bf16":
+                send_val = send_val.to(torch.bfloat16)
+            words, val = transport.all_gather(li, send_words, send_val)
+        idx = _wc.unpack_indices(words.reshape(m, k, -1), e[:, :k], cap,
+                                 widths[li]).reshape(m, k * cap)
+        chunk = SparseChunk(idx=idx, val=val.to(compute_dtype))
 
     if chunk.capacity != plan.out_capacity:
         chunk = _trim_sorted(chunk, plan.out_capacity)
@@ -239,12 +302,13 @@ def _trim_sorted(chunk: SparseChunk, cap: int) -> SparseChunk:
 
 
 def run_union_allreduce(plan: DevicePlan, idx: torch.Tensor, val: torch.Tensor,
-                        merge: str = "sort",
+                        merge: str = "sort", wire: str = "raw",
                         transport: Optional[StackedTransport] = None):
     """Run the union allreduce on stacked tensors on their device.
 
     idx: int64 [M, C] hashed *sorted* indices per node (SENTINEL padded);
-    val: [M, C] or [M, C, W].  ``transport`` defaults to a fresh
+    val: [M, C] or [M, C, W].  ``merge`` / ``wire``: see
+    :func:`sparse_allreduce_union`.  ``transport`` defaults to a fresh
     :class:`StackedTransport` over ``plan.logical`` on ``idx``'s device.
     Returns (idx [M, out_cap], val [M, out_cap(,W)], overflow [M]).
     """
@@ -259,5 +323,5 @@ def run_union_allreduce(plan: DevicePlan, idx: torch.Tensor, val: torch.Tensor,
         transport = StackedTransport(plan.logical, idx.device)
     chunk, ovf = sparse_allreduce_union(
         SparseChunk(idx=idx, val=val), plan, plan.edges_tensors(idx.device),
-        transport, merge=merge)
+        transport, merge=merge, wire=wire)
     return chunk.idx, chunk.val, ovf

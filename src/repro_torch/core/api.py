@@ -12,11 +12,14 @@ Backends:
     ``device="cpu"`` (which the tests do); without a CUDA device and
     without ``device=``, it raises.
 
+``merge`` ("sort" | "fused" | "banded") and ``wire`` ("raw" | "delta" |
+"delta+bf16" | "delta+int8ef") shape :meth:`SparseAllreduce.union_reduce`;
+the lossy wires have no meaning on the sim backend or the planned
+``reduce`` and are refused there, as in the reference.
 ``degrees="auto"`` resolves through ``topology.tune``.  Not ported yet,
 each raising ``NotImplementedError`` with its ROADMAP item: the persistent
-plan cache and ``retune`` (Queue 1 item 10), replication and ``dead`` on
-the device backend (item 8), ``merge="banded"`` (item 7) and wire formats
-other than ``"raw"`` (item 9).
+plan cache and ``retune`` (Queue 1 item 10), and replication and ``dead``
+on the device backend (item 8).
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ from typing import List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.wirecodec import LOSSY_WIRE
 
 from .allreduce import check_merge, make_device_plan, run_union_allreduce
 from .netmodel import EC2_2013, Fabric
@@ -48,14 +53,18 @@ class SparseAllreduce:
                  expected_nnz: float = 1e5, index_range: float = 1e6,
                  merge: str = "sort", wire: str = "raw",
                  plan_cache: bool = False, retune: bool = False):
-        """``merge`` ("sort" | "fused") picks the per-layer merge of
-        :meth:`union_reduce`; the planned :meth:`reduce` has no merge
-        stage.  ``device`` binds the device backend (default: the current
-        CUDA device, raising without one)."""
+        """``merge`` ("sort" | "fused" | "banded") picks the per-layer
+        merge of :meth:`union_reduce` and ``wire`` its exchanged payload
+        (``repro_torch.kernels.wirecodec``); the planned :meth:`reduce`
+        has neither.  ``device`` binds the device backend (default: the
+        current CUDA device, raising without one)."""
         check_merge(merge)
-        if check_wire(wire) != "raw":
+        check_wire(wire)
+        if backend == "sim" and wire in LOSSY_WIRE:
             raise NotImplementedError(
-                f"wire={wire!r} is not ported yet (ROADMAP Queue 1 item 9)")
+                f"backend='sim' models message bytes, not value precision; "
+                f"wire={wire!r} has no sim semantics (use 'raw' or "
+                f"'delta', or backend='device')")
         if plan_cache or retune:
             raise NotImplementedError(
                 "the persistent plan cache and retune are not ported yet "
@@ -118,6 +127,12 @@ class SparseAllreduce:
         if self.backend == "sim":
             self._sim = sim
             return stats
+        if self.wire in LOSSY_WIRE:
+            raise NotImplementedError(
+                f"the planned reduce path ships pre-routed values only (no "
+                f"index stream), and quantized planned payloads are not "
+                f"implemented; wire={self.wire!r} is only supported on the "
+                f"union path (union_reduce)")
         dplan = make_device_plan(
             [("nodes", self.num_nodes)], {"nodes": self.plan.degrees},
             in_capacity=max(self._out_lens),
@@ -160,8 +175,9 @@ class SparseAllreduce:
         (idx int64 [num_nodes, out_capacity], val, overflow [num_nodes]) —
         every node gets the full union sum.  The device plan and its
         transport are cached per (shape, out_capacity).  ``merge`` alone
-        picks the plain (``"sort"``) or kernel (``"fused"``) merge; the
-        reference's ``use_kernel`` argument is not taken.
+        picks the plain (``"sort"``) or a kernel (``"fused"``,
+        ``"banded"``) merge -- the reference's ``use_kernel`` argument is
+        not taken -- and ``wire`` the exchanged payload.
         """
         dev = self._device()
         idx = as_index_tensor(idx, dev)
@@ -183,7 +199,7 @@ class SparseAllreduce:
                 dplan, StackedTransport(dplan.logical, dev))
         dplan, transport = hit
         return run_union_allreduce(dplan, idx, val, merge=self.merge,
-                                   transport=transport)
+                                   wire=self.wire, transport=transport)
 
     # ------------------------------------------------------------------
     def planned_parts(self) -> Tuple[PlannedSparseAllreduce, torch.device]:

@@ -222,15 +222,19 @@ def segment_compact(chunk: SparseChunk, out_capacity: Optional[int] = None,
     """Coalesce duplicate indices of a *sorted* chunk; pad to out_capacity.
 
     Plain torch path (the sort path's oracle); ``use_kernel`` switches to
-    the kernel-backed ``repro_torch.kernels.ops.segment_compact``.  On
-    CUDA the value sum is a float ``scatter_add_`` (atomics), so it may
-    differ from run to run in the last ulp; on dyadic values it is exact.
+    the kernel-backed ``repro_torch.kernels.ops.segment_compact``.  Each
+    output row sums its duplicate group in stream order, ``((0 + v0) +
+    v1) + ...``, with gathers and no float atomics, so the result has the
+    same bits on every run and on every device, and the same as the kernel
+    merges wherever they sum the same rows in the same order.  The loop
+    runs once per duplicate depth (the largest group, read back once).
     """
     if use_kernel:
         from repro_torch.kernels import ops as _kops
         return _kops.segment_compact(chunk, out_capacity)
     idx, val = chunk.idx, chunk.val
     out_capacity = out_capacity or idx.shape[-1]
+    c = idx.shape[-1]
     valid = idx != SENTINEL
     is_head = head_flags(idx)
     pos = torch.cumsum(is_head, -1) - 1
@@ -238,12 +242,23 @@ def segment_compact(chunk: SparseChunk, out_capacity: Optional[int] = None,
     lead = idx.shape[:-1]
     out_idx = torch.full(lead + (out_capacity + 1,), SENTINEL,
                          dtype=torch.int64, device=idx.device)
-    out_idx.scatter_(-1, torch.where(is_head, pos, out_capacity), idx)
-    out_val = torch.zeros(lead + (out_capacity + 1,) + val.shape[idx.ndim:],
+    heads = torch.where(is_head, pos, out_capacity)
+    out_idx.scatter_(-1, heads, idx)
+    # first stream row and size of every output row's duplicate group
+    first = torch.zeros(lead + (out_capacity + 1,), dtype=torch.int64,
+                        device=idx.device).scatter_(
+        -1, heads, torch.arange(c, device=idx.device).expand(idx.shape))
+    size = torch.zeros(lead + (out_capacity + 1,), dtype=torch.int64,
+                       device=idx.device).scatter_add_(
+        -1, pos, valid.to(torch.int64))
+    first, size = first[..., :-1], size[..., :-1]
+    depth = int(size.max()) if size.numel() else 0
+    out_val = torch.zeros(lead + (out_capacity,) + val.shape[idx.ndim:],
                           dtype=val.dtype, device=val.device)
-    _put_rows(out_val, pos, _mask_val(valid, val), add=True)
-    return SparseChunk(idx=out_idx[..., :-1],
-                       val=_drop_last_row(out_val, val.ndim - idx.ndim + 1))
+    for j in range(depth):
+        row = _take_rows(val, (first + j).clamp_(max=c - 1))
+        out_val = out_val + _mask_val(size > j, row)
+    return SparseChunk(idx=out_idx[..., :-1], val=out_val)
 
 
 def compact_overflow(chunk: SparseChunk, out_capacity: int) -> torch.Tensor:

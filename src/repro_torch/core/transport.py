@@ -15,8 +15,13 @@ permutation of the stacked tensor, precomputed once per stage:
   ``[k*C, ...]``.
 
 Results are therefore bit for bit those of the reference's collectives.
-``calls`` counts exchanges (one per call, however many tensors it moves),
-so a test can hold a reduce to its ``2 * depth`` exchanges.
+An exchange moves each tensor in its own dtype (int32 packed words, bf16
+or int8 values, f32 scales), and ``calls`` counts exchanges (one per call,
+however many tensors it moves), so a test can hold a reduce to its
+``2 * depth`` exchanges.  :meth:`StackedTransport.position` is each
+node's position in its stage group, the reference's ``(axis_index //
+stride) % degree``, which a receiver of the wire codecs needs to find its
+subrange base.
 """
 from __future__ import annotations
 
@@ -47,8 +52,8 @@ class StackedTransport:
     """Group exchanges of a butterfly over stacked ``[M, ...]`` tensors.
 
     Built once per (plan, device): for every layer l of ``plan`` it holds
-    the all_to_all row permutation (``[M*k]``) and the all_gather row
-    table (``[M*k]``) on ``device``.
+    the all_to_all row permutation (``[M*k]``), the all_gather row table
+    (``[M*k]``) and each node's group position (``[M]``) on ``device``.
     """
 
     def __init__(self, plan: ButterflyPlan, device=None):
@@ -56,7 +61,7 @@ class StackedTransport:
         self.device = resolve_device(device)
         self.calls = 0
         m = plan.num_nodes
-        self._a2a, self._gather = [], []
+        self._a2a, self._gather, self._position = [], [], []
         for l in range(plan.depth):
             k = plan.degrees[l]
             members = np.array([plan.group_members(n, l) for n in range(m)],
@@ -66,11 +71,17 @@ class StackedTransport:
                 (members * k + digit[:, None]).reshape(-1), device=self.device))
             self._gather.append(torch.as_tensor(members.reshape(-1),
                                                 device=self.device))
+            self._position.append(torch.as_tensor(digit, device=self.device))
 
     @property
     def num_nodes(self) -> int:
         """Stacked node count M."""
         return self.plan.num_nodes
+
+    def position(self, layer: int) -> torch.Tensor:
+        """int64 [M]: each node's position j in its layer-``layer`` group
+        (digit ``layer`` of its node id, most-significant first)."""
+        return self._position[layer]
 
     def all_to_all(self, layer: int, *xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """Group all_to_all of layer ``layer`` on each ``[M, k, ...]``

@@ -1,9 +1,13 @@
 // Deterministic row scatter-add (Hopper, sm_90a).
 //
-// Replaces the TPU kernel `onehot_scatter_add(scale=None)` of
-// src/repro/kernels/onehot_scatter.py (Pallas body `_kernel`):
-// out[p, :] = sum_{i : pos_i = p} val[i, :], with every pos outside
-// [0, num_rows) dropped (-1 pads and the num_rows drop bin).
+// Replaces the TPU kernels `onehot_scatter_add(scale=None)` (Pallas body
+// `_kernel`) and `onehot_scatter_add(scale=...)` (`_scaled_kernel`) of
+// src/repro/kernels/onehot_scatter.py:
+// out[p, :] = sum_{i : pos_i = p} val[i, :] (* scale[i]), with every pos
+// outside [0, num_rows) dropped (-1 pads and the num_rows drop bin).  The
+// values arrive in their wire type -- f32, bf16 or int8 (int8 only with a
+// scale) -- and are widened and scaled in registers only, so the narrow
+// payload is never rebuilt as 4-byte values in memory; sums are f32.
 //
 // What bounds it on the card: the TPU version multiplies a one-hot tile by
 // the values on the matrix unit, O(rows * C) work.  A float atomicAdd
@@ -18,7 +22,10 @@
 // destinations ascend, so a block's sources sit in about one window per
 // run and most chunks are skipped; the compare work stays O(rows * C) only
 // for adversarial orders.  It is bounded by those compares, not by bytes.
+// The scaled product is rounded once (__fmul_rn, never fused into the
+// add), as the plain version computes it.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -26,9 +33,18 @@ namespace {
 
 constexpr int BM = 256;  // output rows per block == threads == chunk length
 
-// pos: [batch, c] int32; val: [batch, c, w] f32; out: [batch, rows, w] f32.
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float widen(int8_t v) { return (float)v; }
+
+// pos: [batch, c] int32; val: [batch, c, w] T; scale: [batch, c] f32 or
+// null; out: [batch, rows, w] f32.
+template <typename T, bool SCALED>
 __global__ void onehot_scatter_kernel(const int32_t* __restrict__ pos,
-                                      const float* __restrict__ val,
+                                      const T* __restrict__ val,
+                                      const float* __restrict__ scale,
                                       float* __restrict__ out, int64_t c,
                                       int64_t rows, int w) {
   __shared__ int32_t spos[BM];
@@ -37,7 +53,8 @@ __global__ void onehot_scatter_kernel(const int32_t* __restrict__ pos,
   const int64_t p0 = (int64_t)blockIdx.x * BM;
   const int64_t p = p0 + threadIdx.x;
   const int32_t* gp = pos + g * c;
-  const float* gv = val + g * c * w;
+  const T* gv = val + g * c * w;
+  const float* gs = SCALED ? scale + g * c : nullptr;
   for (int col = 0; col < w; ++col) {
     float acc = 0.f;
     for (int64_t c0 = 0; c0 < c; c0 += BM) {
@@ -47,11 +64,16 @@ __global__ void onehot_scatter_kernel(const int32_t* __restrict__ pos,
       __syncthreads();  // the previous chunk's scan is done with spos/sval
       spos[threadIdx.x] = q;
       if (__syncthreads_or(mine)) {
-        sval[threadIdx.x] = e < c ? gv[e * w + col] : 0.f;
+        float v = 0.f;
+        if (e < c) {
+          v = widen(gv[e * w + col]);
+          if (SCALED) v = __fmul_rn(v, gs[e]);
+        }
+        sval[threadIdx.x] = v;
         __syncthreads();
         const int n = (int)((c - c0) < BM ? (c - c0) : BM);
         for (int j = 0; j < n; ++j) {
-          if (spos[j] == p) acc += sval[j];
+          if (spos[j] == p) acc = __fadd_rn(acc, sval[j]);
         }
       }
     }
@@ -59,17 +81,42 @@ __global__ void onehot_scatter_kernel(const int32_t* __restrict__ pos,
   }
 }
 
+template <typename T, bool SCALED>
+void launch(const void* pos, const void* val, const void* scale, void* out,
+            long long batch, long long c, long long rows, int w,
+            cudaStream_t stream) {
+  dim3 grid((unsigned)((rows + BM - 1) / BM), (unsigned)batch);
+  onehot_scatter_kernel<T, SCALED><<<grid, BM, 0, stream>>>(
+      (const int32_t*)pos, (const T*)val, (const float*)scale, (float*)out, c,
+      rows, w);
+}
+
 }  // namespace
 
+// dtype: 0 = f32, 1 = bf16, 2 = int8 (int8 needs a scale).  scale: [batch,
+// c] f32 per-source factor, or null.
 extern "C" int repro_onehot_scatter_add(const void* pos, const void* val,
-                                        void* out, long long batch,
-                                        long long c, long long rows, int w,
+                                        const void* scale, void* out,
+                                        long long batch, long long c,
+                                        long long rows, int w, int dtype,
                                         void* stream) {
   if (batch > 0 && rows > 0 && w > 0) {
     if (batch > 65535) return (int)cudaErrorInvalidValue;
-    dim3 grid((unsigned)((rows + BM - 1) / BM), (unsigned)batch);
-    onehot_scatter_kernel<<<grid, BM, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)pos, (const float*)val, (float*)out, c, rows, w);
+    cudaStream_t s = (cudaStream_t)stream;
+    const bool scaled = scale != nullptr;
+    if (dtype == 0 && !scaled) {
+      launch<float, false>(pos, val, scale, out, batch, c, rows, w, s);
+    } else if (dtype == 0) {
+      launch<float, true>(pos, val, scale, out, batch, c, rows, w, s);
+    } else if (dtype == 1 && !scaled) {
+      launch<__nv_bfloat16, false>(pos, val, scale, out, batch, c, rows, w, s);
+    } else if (dtype == 1) {
+      launch<__nv_bfloat16, true>(pos, val, scale, out, batch, c, rows, w, s);
+    } else if (dtype == 2 && scaled) {
+      launch<int8_t, true>(pos, val, scale, out, batch, c, rows, w, s);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -1,50 +1,117 @@
-"""Deterministic row scatter-add, the merge-sum of the fused pipeline (reference: ``repro.kernels.onehot_scatter``).
+"""Deterministic row scatter-add, the merge-sum of the kernel merges (reference: ``repro.kernels.onehot_scatter``).
 
 Once each source row's destination ``pos`` is known (sorted indices make
 it a cumsum), the paper's coherent merge-sum is
 
-    out[p, :] = sum_{i : pos_i = p} val[i, :]
+    out[p, :] = sum_{i : pos_i = p} val[i, :] (* scale[i])
 
-The TPU computes it as a one-hot matmul on the matrix unit (TPU row 3,
-``onehot_scatter_add(scale=None)``).  The port's CUDA kernel
-(``csrc/onehot_scatter.cu``) sums each output row over its sources in
-increasing source order with no float atomics, so two launches on the same
-input give the same bits.  The plain version is in ``ref``.  The scaled
-(wire-decode) and banded TPU variants are not ported yet.
+The TPU computes it as a one-hot matmul on the matrix unit.  The port's
+CUDA kernels sum each output row over its sources in increasing source
+order with no float atomics, so two launches on the same input give the
+same bits:
+
+* :func:`onehot_scatter_add` (``csrc/onehot_scatter.cu``, TPU rows 3 and
+  4): any order of ``pos``; each block walks all sources and skips the
+  chunks without a source of its rows;
+* :func:`banded_onehot_scatter_add` (``csrc/banded_onehot_scatter.cu``,
+  TPU rows 5 and 6): non-decreasing ``pos`` with at most ``band`` sources
+  per row; each block binary-searches its own window of sources and reads
+  it once.
+
+``val`` arrives in its wire type -- f32, bf16, or int8 with ``scale`` --
+and is widened (and scaled) in registers only; sums are f32.  The plain
+versions are in ``ref``.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 from . import _build
-from .ref import onehot_scatter_add_ref
+from .ref import banded_onehot_scatter_add_ref, onehot_scatter_add_ref
 
-_KERNEL = "onehot_scatter_add"
+# the reference's default tile shapes (out-rows, width, in-rows)
+BM, BN, BK = 128, 128, 512
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
-def onehot_scatter_add(pos: torch.Tensor, val: torch.Tensor,
-                       num_rows: int) -> torch.Tensor:
-    """out[..., num_rows, W] (f32) = scatter-add of val [..., C, W] at rows
-    pos [..., C] (int32), batched over the leading dims.  Any pos outside
-    [0, num_rows) is dropped.  CUDA tensors launch the kernel (val must be
-    float32), CPU tensors run the plain version."""
+def band_inner_tiles(band: int, bm: int, bk: int) -> int:
+    """Static bound on input tiles any bm-row output tile of the TPU banded
+    kernel draws from: its <= band*bm source rows are contiguous, so they
+    span at most ceil(band*bm/bk) blocks plus one for misalignment."""
+    return -(-band * bm // bk) + 1
+
+
+def _check(name: str, pos: torch.Tensor, val: torch.Tensor,
+           scale: Optional[torch.Tensor]) -> None:
     if pos.dtype != torch.int32:
-        raise TypeError(f"onehot_scatter_add: pos must be int32, got {pos.dtype}")
+        raise TypeError(f"{name}: pos must be int32, got {pos.dtype}")
     if val.shape[:-1] != pos.shape:
-        raise ValueError(f"onehot_scatter_add: val {tuple(val.shape)} does not "
-                         f"match pos {tuple(pos.shape)} + (W,)")
-    if pos.device.type == "cpu":
-        return onehot_scatter_add_ref(pos, val, num_rows)
-    if val.dtype != torch.float32:
-        raise TypeError(f"onehot_scatter_add: val must be float32, got {val.dtype}")
+        raise ValueError(f"{name}: val {tuple(val.shape)} does not match "
+                         f"pos {tuple(pos.shape)} + (W,)")
+    if val.dtype not in _DTYPES:
+        raise TypeError(f"{name}: val must be float32, bfloat16 or int8, "
+                        f"got {val.dtype}")
+    if scale is None:
+        if val.dtype == torch.int8:
+            raise TypeError(f"{name}: int8 values need a scale")
+    elif scale.shape != pos.shape or scale.dtype != torch.float32:
+        raise ValueError(f"{name}: scale must be float32 {tuple(pos.shape)}, "
+                         f"got {scale.dtype} {tuple(scale.shape)}")
+
+
+def _launch(kernel: str, entry: str, pos: torch.Tensor, val: torch.Tensor,
+            scale: Optional[torch.Tensor], num_rows: int) -> torch.Tensor:
     lead, c, w = pos.shape[:-1], pos.shape[-1], val.shape[-1]
     out = torch.empty(lead + (num_rows, w), dtype=torch.float32,
                       device=pos.device)
-    _build.check_cuda(_KERNEL, pos, val, out)
+    tensors = (pos, val, out) if scale is None else (pos, val, scale, out)
+    if scale is not None:
+        kernel += "_scaled"
+    _build.check_cuda(kernel, *tensors)
     with torch.cuda.device(pos.device):
-        _build.launch(_KERNEL, "repro_onehot_scatter_add", pos.data_ptr(),
-                      val.data_ptr(), out.data_ptr(), math.prod(lead), c,
-                      num_rows, w, _build.stream_of(pos))
+        _build.launch(kernel, entry, pos.data_ptr(), val.data_ptr(),
+                      None if scale is None else scale.data_ptr(),
+                      out.data_ptr(), math.prod(lead), c, num_rows, w,
+                      _DTYPES[val.dtype], _build.stream_of(pos))
     return out
+
+
+def onehot_scatter_add(pos: torch.Tensor, val: torch.Tensor, num_rows: int,
+                       scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """out[..., num_rows, W] (f32) = scatter-add of val [..., C, W] (f32,
+    bf16, or int8 with ``scale``) at rows pos [..., C] (int32), each source
+    row times ``scale[..., i]`` (f32 [..., C]) when given, batched over the
+    leading dims.  Any pos outside [0, num_rows) is dropped.  CUDA tensors
+    launch the kernel (``onehot_scatter_add``, or
+    ``onehot_scatter_add_scaled`` with a scale), CPU tensors run the plain
+    version."""
+    _check("onehot_scatter_add", pos, val, scale)
+    if pos.device.type == "cpu":
+        return onehot_scatter_add_ref(pos, val, num_rows, scale)
+    return _launch("onehot_scatter_add", "repro_onehot_scatter_add", pos, val,
+                   scale, num_rows)
+
+
+def banded_onehot_scatter_add(pos: torch.Tensor, val: torch.Tensor,
+                              num_rows: int, *, band: int,
+                              scale: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """Band-limited :func:`onehot_scatter_add`: requires ``pos``
+    non-decreasing along C with at most ``band`` sources per row in
+    [0, num_rows) (rows parked at >= num_rows -- drop bin, padding -- sit
+    at the tail); then the result equals the dense scatter's.  The kernel
+    does not check the precondition.  CUDA tensors launch
+    ``banded_onehot_scatter_add`` (``_scaled`` with a scale), CPU tensors
+    run the plain version."""
+    _check("banded_onehot_scatter_add", pos, val, scale)
+    if band < 1:
+        raise ValueError(f"band must be >= 1, got {band}")
+    if pos.device.type == "cpu":
+        return banded_onehot_scatter_add_ref(pos, val, num_rows, band, scale)
+    return _launch("banded_onehot_scatter_add",
+                   "repro_banded_onehot_scatter_add", pos, val, scale,
+                   num_rows)

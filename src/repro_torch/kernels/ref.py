@@ -8,27 +8,48 @@ They repeat the kernels' arithmetic and are no yardstick of speed.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 
 def onehot_scatter_add_ref(pos: torch.Tensor, val: torch.Tensor,
-                           num_rows: int) -> torch.Tensor:
-    """out[..., p, :] = sum_{i: pos[..., i] == p} val[..., i, :] in f32;
-    pos entries outside [0, num_rows) are dropped.  pos: [..., C], val:
-    [..., C, W] -> out [..., num_rows, W].  On the CPU ``index_add_`` sums
-    each row's sources in increasing i, the kernel's order."""
+                           num_rows: int,
+                           scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """out[..., p, :] = sum_{i: pos[..., i] == p} val[..., i, :] (times
+    ``scale[..., i]`` when given) in f32; pos entries outside [0, num_rows)
+    are dropped.  pos: [..., C], val: [..., C, W] (f32, bf16 or int8),
+    scale: [..., C] f32 -> out [..., num_rows, W].  Each source row is
+    widened (and scaled) in f32 first, then summed; on the CPU
+    ``index_add_`` sums each row's sources in increasing i, the kernels'
+    order."""
     lead, c, w = pos.shape[:-1], pos.shape[-1], val.shape[-1]
     b = math.prod(lead)
     p = pos.reshape(b, c).to(torch.int64)
     p = torch.where((p < 0) | (p >= num_rows), num_rows, p)
     flat = (torch.arange(b, device=pos.device).unsqueeze(1) * (num_rows + 1)
             + p).reshape(-1)
+    src = val.reshape(b * c, w).to(torch.float32)
+    if scale is not None:
+        src = src * scale.reshape(b * c, 1).to(torch.float32)
     out = torch.zeros(b * (num_rows + 1), w, dtype=torch.float32,
                       device=val.device)
-    out.index_add_(0, flat, val.reshape(b * c, w).to(torch.float32))
+    out.index_add_(0, flat, src)
     return out.reshape(b, num_rows + 1, w)[:, :num_rows].reshape(
         lead + (num_rows, w))
+
+
+def banded_onehot_scatter_add_ref(pos: torch.Tensor, val: torch.Tensor,
+                                  num_rows: int, band: int,
+                                  scale: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
+    """The banded scatter's result: for non-decreasing ``pos`` with at
+    most ``band`` sources per row in [0, num_rows) -- the kernel's
+    precondition, under which each block's source window holds every
+    source of its rows -- it is :func:`onehot_scatter_add_ref`."""
+    if band < 1:
+        raise ValueError(f"band must be >= 1, got {band}")
+    return onehot_scatter_add_ref(pos, val, num_rows, scale)
 
 
 def rank_counts_ref(a: torch.Tensor, b: torch.Tensor, side: str) -> torch.Tensor:
@@ -38,10 +59,33 @@ def rank_counts_ref(a: torch.Tensor, b: torch.Tensor, side: str) -> torch.Tensor
                               right=(side == "right")).to(torch.int32)
 
 
-def merge_ranks_ref(runs: torch.Tensor) -> torch.Tensor:
+def rank_counts_banded_ref(a: torch.Tensor, b: torch.Tensor, side: str,
+                           bm: int) -> torch.Tensor:
+    """The banded kernel's counts, through its window arithmetic: query
+    tile t of ``bm`` entries of a, with edges ``lo``/``hi`` (its first and
+    last entry), counts every b before the window ``[w0, w1) =
+    [search(lo), search(hi))`` in full and none after it, and searches
+    only inside it.  Equal to :func:`rank_counts_ref` for sorted a, b."""
+    a, b = a.contiguous(), b.contiguous()
+    ca = a.shape[-1]
+    first = torch.arange(0, ca, bm, device=a.device)
+    last = (first + bm).clamp(max=ca) - 1
+    right = side == "right"
+    w0 = torch.searchsorted(b, a[..., first].contiguous(), right=right)
+    w1 = torch.searchsorted(b, a[..., last].contiguous(), right=right)
+    tile = torch.arange(ca, device=a.device) // bm
+    inside = torch.searchsorted(b, a, right=right)
+    return torch.minimum(torch.maximum(inside, w0[..., tile]),
+                         w1[..., tile]).to(torch.int32)
+
+
+def merge_ranks_ref(runs: torch.Tensor, banded_bm: Optional[int] = None
+                    ) -> torch.Tensor:
     """Stable merge rank of every entry of k sorted runs [..., k, cap]:
     ``i + sum_{s != r} #{j : runs[s][j] (<= if s < r else <) runs[r][i]}``,
-    int32 [..., k, cap] (a bijection onto [0, k*cap) per group)."""
+    int32 [..., k, cap] (a bijection onto [0, k*cap) per group).
+    ``banded_bm`` takes the counts through :func:`rank_counts_banded_ref`
+    with that query tile."""
     k, cap = runs.shape[-2], runs.shape[-1]
     ranks = []
     for r in range(k):
@@ -49,8 +93,10 @@ def merge_ranks_ref(runs: torch.Tensor) -> torch.Tensor:
             runs.shape[:-2] + (cap,))
         for s in range(k):
             if s != r:
-                rk = rk + rank_counts_ref(runs[..., r, :], runs[..., s, :],
-                                          "right" if s < r else "left")
+                side = "right" if s < r else "left"
+                a, b = runs[..., r, :], runs[..., s, :]
+                rk = rk + (rank_counts_ref(a, b, side) if banded_bm is None
+                           else rank_counts_banded_ref(a, b, side, banded_bm))
         ranks.append(rk)
     return torch.stack(ranks, -2)
 

@@ -266,7 +266,8 @@ def test_api_sim_backend_keeps_replication():
 
 @pytest.mark.parametrize("kwargs,item", [
     ({"plan_cache": True}, "item 10"), ({"retune": True}, "item 10"),
-    ({"merge": "banded"}, "item 7"), ({"wire": "delta"}, "item 9"),
+    ({"backend": "device", "replication": 2, "merge": "banded"}, "item 8"),
+    ({"backend": "device", "dead": {1}, "wire": "delta+int8ef"}, "item 8"),
     ({"backend": "device", "replication": 2}, "item 8"),
     ({"backend": "device", "dead": {1}}, "item 8")])
 def test_api_unported_options_raise(kwargs, item):

@@ -7,16 +7,20 @@ only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Ranks and the scatter are compared exactly (the scatter on dyadic values,
-plus a second launch bit-identical to the first); the SpMV within rtol
-1e-5 (float32 sums in another order).
+Ranks are compared exactly (dense and banded kernels); the scatters
+bit for bit on dyadic values and dyadic scales, plus a second launch
+bit-identical to the first, and within rtol 1e-6 of the plain version
+where a general scale is applied (the plain version's ``index_add_`` sums
+with atomics on the card); the SpMV within rtol 1e-5 (float32 sums in
+another order).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.onehot_scatter import onehot_scatter_add
+from repro_torch.kernels.onehot_scatter import (banded_onehot_scatter_add,
+                                                onehot_scatter_add)
 from repro_torch.kernels.rank_merge import merge_ranks, rank_counts
 from repro_torch.kernels.spmv_ell import spmv_ell
 
@@ -117,3 +121,115 @@ def test_pagerank_runs_on_cuda_by_default(cuda):
     np.testing.assert_allclose(got, pagerank_dense_reference(edges, 2000, 10),
                                rtol=1e-4, atol=1e-10)
     assert stats["engine"]["rounds"] == 10
+
+
+@pytest.mark.gpu
+def test_banded_rank_counts_kernel_matches_plain_on_gpu(cuda):
+    rng = np.random.RandomState(4)
+    for g, k, cap, bm in [(3, 4, 700, 512), (2, 16, 33, 128), (64, 4, 513, 7)]:
+        runs = np.stack([np.stack([_sorted_stream(rng, cap,
+                                                  rng.randint(0, cap + 1))
+                                   for _ in range(k)]) for _ in range(g)])
+        x = torch.as_tensor(runs.astype(np.int64), device=cuda)
+        assert torch.equal(merge_ranks(x, banded=True, bm=bm),
+                           ref.merge_ranks_ref(x))
+        a, b = x[:, 0].contiguous(), x[:, -1].contiguous()
+        for strict, side in ((True, "left"), (False, "right")):
+            assert torch.equal(rank_counts(a, b, strict=strict, banded=True,
+                                           bm=bm, bn=64),
+                               ref.rank_counts_ref(a, b, side))
+    for fill in (77, SENT):          # all-equal and SENTINEL-only streams
+        a = torch.full((2, 600), fill, dtype=torch.int64, device=cuda)
+        b = torch.full((2, 530), fill, dtype=torch.int64, device=cuda)
+        for strict, side in ((True, "left"), (False, "right")):
+            assert torch.equal(rank_counts(a, b, strict=strict, banded=True),
+                               ref.rank_counts_ref(a, b, side))
+
+
+def _wire_values(rng, shape, dtype, cuda):
+    """(values, scale or None): dyadic f32 / bf16, or int8 + dyadic scale."""
+    if dtype == torch.int8:
+        q = torch.as_tensor(rng.randint(-127, 128, shape).astype(np.int8),
+                            device=cuda)
+        s = torch.as_tensor((2.0 ** rng.randint(-8, 0, shape[:-1]))
+                            .astype(np.float32), device=cuda)
+        return q, s
+    v = torch.as_tensor((rng.randint(-512, 512, shape) / 64.0)
+                        .astype(np.float32), device=cuda)
+    return v.to(dtype), None
+
+
+@pytest.mark.gpu
+def test_wire_typed_scatter_kernels_match_plain_on_gpu(cuda):
+    """Rows 3 (bf16 values) and 4 (int8 + scale) on arbitrary pos; rows 5
+    and 6 on monotone pos, with a C that is a multiple of the kernel's
+    chunk and empty output blocks past the last destination."""
+    rng = np.random.RandomState(5)
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        b, c, w, rows = 3, 1500, 2, 400
+        pos = torch.as_tensor(rng.randint(-1, rows + 2, (b, c))
+                              .astype(np.int32), device=cuda)
+        val, scale = _wire_values(rng, (b, c, w), dtype, cuda)
+        got = onehot_scatter_add(pos, val, rows, scale=scale)
+        assert torch.equal(got, ref.onehot_scatter_add_ref(pos, val, rows,
+                                                           scale))
+        assert torch.equal(got, onehot_scatter_add(pos, val, rows, scale=scale))
+        for band, mult_rows, rows in [(4, 300, 1000), (16, 128, 128),
+                                      (1, 4096, 4096)]:
+            mono = np.sort(np.concatenate([
+                np.repeat(np.arange(mult_rows),
+                          rng.randint(0, band + 1, mult_rows)),
+                np.full(rng.randint(0, 50), rows)]))
+            mono = np.broadcast_to(mono, (2, len(mono))).astype(np.int32)
+            pos = torch.as_tensor(np.ascontiguousarray(mono), device=cuda)
+            val, scale = _wire_values(rng, pos.shape + (w,), dtype, cuda)
+            got = banded_onehot_scatter_add(pos, val, rows, band=band,
+                                            scale=scale)
+            assert torch.equal(got, ref.onehot_scatter_add_ref(pos, val, rows,
+                                                               scale))
+            assert torch.equal(got, banded_onehot_scatter_add(
+                pos, val, rows, band=band, scale=scale))
+    pos = torch.arange(2048, device=cuda, dtype=torch.int32).reshape(1, -1)
+    val = torch.ones(1, 2048, 1, device=cuda)
+    got = banded_onehot_scatter_add(pos // 8, val, 4096, band=8)
+    assert got[0, :256, 0].eq(8).all() and got[0, 256:].eq(0).all()
+    scale = torch.as_tensor(rng.rand(2, 700).astype(np.float32), device=cuda)
+    q = torch.as_tensor(rng.randint(-127, 128, (2, 700, 1)).astype(np.int8),
+                        device=cuda)
+    pos = torch.as_tensor(np.sort(rng.randint(0, 300, (2, 700)), axis=1)
+                          .astype(np.int32), device=cuda)
+    torch.testing.assert_close(
+        banded_onehot_scatter_add(pos, q, 300, band=700, scale=scale),
+        ref.onehot_scatter_add_ref(pos, q, 300, scale), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_union_banded_bf16_equals_fused_on_gpu(cuda):
+    """The banded merge equals the fused merge bit for bit on the card
+    under the bf16 wire, and each launches its own kernels."""
+    from repro_torch.core.api import SparseAllreduce
+    from repro_torch.kernels import _build
+    rng = np.random.RandomState(6)
+    m, c = 16, 512
+    idx = np.full((m, c), SENT, np.int64)
+    val = np.zeros((m, c), np.float32)
+    for n in range(m):
+        u = np.sort(rng.permutation(np.unique(rng.randint(
+            0, 2**32 - 1, c, dtype=np.uint64)))[:c // 2]).astype(np.int64)
+        idx[n, : len(u)] = u
+        val[n, : len(u)] = rng.randint(-64, 64, len(u)) / 64.0
+    out, launches = {}, {}
+    for merge in ("fused", "banded"):
+        ar = SparseAllreduce(m, (4, 4), backend="device", merge=merge,
+                             wire="delta+bf16")
+        _build.reset_launches()
+        out[merge] = ar.union_reduce(idx, val, m * c)
+        torch.cuda.synchronize()
+        launches[merge] = dict(_build.LAUNCHES)
+    for a, b in zip(out["fused"], out["banded"]):
+        assert torch.equal(a, b)
+    assert int(out["banded"][2].sum()) == 0
+    assert launches["banded"]["rank_counts_banded"] == 2
+    assert launches["banded"]["banded_onehot_scatter_add"] == 2
+    assert launches["banded"]["rank_counts"] == 0
+    assert launches["fused"]["onehot_scatter_add"] == 2

@@ -266,7 +266,21 @@ def test_kernel_merge_add_and_compact_match_reference():
     _assert_chunk(sv.merge_add(ta, tb, use_kernel=True), jsv.merge_add(ja, jb))
     _assert_chunk(sv.segment_compact(ta, 20, use_kernel=True),
                   jsv.segment_compact(ja, 20, use_kernel=True))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ops.merge_sorted_runs(_t(np.stack([ia, ib])),
-                              torch.as_tensor(np.stack([va, vb])), 60,
-                              mode="banded")
+    # banded mode (unique indices per chunk: at most 2 sources per row)
+    (ua, uva), (ub, uvb) = (_chunk(rng, 30, 0, dup=False) for _ in range(2))
+    ju = [jsv.SparseChunk(idx=jnp.asarray(i), val=jnp.asarray(v))
+          for i, v in ((ua, uva), (ub, uvb))]
+    tu = [sv.SparseChunk(idx=_t(i), val=torch.as_tensor(v))
+          for i, v in ((ua, uva), (ub, uvb))]
+    _assert_chunk(ops.merge_add(*tu, mode="banded"),
+                  jops.merge_add(*ju, mode="banded"))
+    tc, tovf = ops.merge_sorted_runs(_t(np.stack([ua, ub])),
+                                     torch.as_tensor(np.stack([uva, uvb])),
+                                     40, mode="banded")
+    jc, jovf = jops.merge_sorted_runs(jnp.asarray(np.stack([ua, ub])),
+                                      jnp.asarray(np.stack([uva, uvb])), 40,
+                                      mode="banded")
+    _assert_chunk(tc, jc)
+    assert int(tovf) == int(jovf)
+    with pytest.raises(ValueError, match="mode"):
+        ops.merge_add(*tu, mode="sorted")
