@@ -17,20 +17,32 @@ line each, after the ``nvidia-smi`` name/power-limit line):
    hashed indices with dyadic values: ``merge="fused"`` equals
    ``merge="sort"`` bit for bit, and both equal a numpy dense oracle;
 4. pagerank -- ``pagerank(backend="device")`` on a 2^18-vertex, 2 M-edge
-   power-law graph over M=64 nodes, degrees (16, 4), 10 rounds, against
-   the float64 dense reference; then per-round wall time of the engine;
-5. union_wire -- ``union_reduce`` at mini-batch scale: 64 nodes x
+   power-law graph over M=64 nodes, degrees (16, 4), 10 rounds, through
+   the stacked-CSR SpMV kernel, against the float64 dense reference; the
+   CSR's nonzeros and bytes, peak device memory during the entry point
+   (``max_memory_allocated``: all that is allocated, the earlier phases'
+   leftovers included, as PR 12's smoke reported it; and its rise over
+   what was allocated before the call), then per-round wall time;
+5. pagerank_large -- the same at 2^20 vertices and 10 M edges, a graph
+   whose padded ELL tables would need some 288 GB: rtol 1e-4 against the
+   float64 dense reference, round wall time, peak memory, host set-up;
+6. union_wire -- ``union_reduce`` at mini-batch scale: 64 nodes x
    262,144 Zipf(1.1) draws over 2^24 hashed features each (about 103,000
    unique per node, a ~3.96 M-entry union), for all 12 (merge, wire)
    pairs: indices exact everywhere, raw/delta values exact against the
    float64 oracle, delta+bf16 bit-identical across merges, delta+int8ef
    merges within 1e-5 x max|union| of each other and 0.05 x max|union|
    of the exact sum; CUDA-event ms and launches per reduce of each pair;
-6. kernels -- each kernel on the inputs it got on the main path (phases
-   2-5, layer 0 / first round), against its plain version (ranks exact,
-   scatters bit-exact on dyadic inputs else rtol 1e-6, and repeatable,
-   SpMV rtol 1e-5), with CUDA-event times of kernel, plain version and
-   the nearest single PyTorch call, and the least time the card needs.
+7. kernels -- each kernel on the inputs it got on the main path (phases
+   2-6, layer 0 / first round), against its plain version (ranks exact,
+   scatters bit-exact on dyadic inputs else rtol 1e-6, and repeatable;
+   the dense scatter at the wire shape also bit-exact on general floats
+   against its plain version on a CPU copy, with its layout equal to a
+   stable argsort; SpMVs rtol 1e-5, the CSR kernel repeatable), with
+   CUDA-event times of kernel, plain version and the nearest single
+   PyTorch call, and the least time the card needs.  The ELL kernel, off
+   the main path now, is held to its plain version on ELL tables built
+   for that row alone from the same graph.
 
 The launch counts of the ``kernels`` line are those of the main-path
 calls alone (``config`` + ``reduce``, the first ``union_reduce`` of each
@@ -52,6 +64,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 DEVICE = "cuda"
 M, DEGREES = 64, (16, 4)
 N_VERTICES, N_EDGES, ROUNDS, DAMPING = 262_144, 2_000_000, 10, 0.85
+LARGE_VERTICES, LARGE_EDGES = 1_048_576, 10_000_000
 UNION_C, UNION_RANGE, UNION_ALPHA = 16_384, 1 << 22, 1.4
 WIRE_DRAWS, WIRE_C, WIRE_RANGE, WIRE_ALPHA = 262_144, 131_072, 1 << 24, 1.1
 MERGES = ("sort", "fused", "banded")
@@ -61,6 +74,10 @@ WIRES = ("raw", "delta", "delta+bf16", "delta+int8ef")
 def emit(obj) -> None:
     """One JSON line on stdout."""
     print(json.dumps(obj), flush=True)
+
+
+# the phase the main path is in, read by the Recorders' keys
+PHASE = {"name": None}
 
 
 def main_path(call):
@@ -108,10 +125,16 @@ class Recorder:
 
 
 def scatter_variant(args, kwargs):
-    """Recorder key of a scatter call: ``scaled`` or the value dtype."""
+    """Recorder key of a scatter call: the phase, and ``scaled`` or the
+    value dtype."""
     if kwargs.get("scale") is not None:
-        return "scaled"
-    return "bf16" if args[1].dtype.itemsize == 2 else "f32"
+        return PHASE["name"], "scaled"
+    return PHASE["name"], "bf16" if args[1].dtype.itemsize == 2 else "f32"
+
+
+def rank_variant(args, kwargs):
+    """Recorder key of a merge-rank call: the phase and the kernel."""
+    return PHASE["name"], "banded" if kwargs.get("banded") else "dense"
 
 
 def phase_planned(torch, parts):
@@ -300,38 +323,62 @@ def phase_union_wire(torch):
     return total
 
 
-def phase_pagerank(torch, edges, parts):
+def phase_pagerank(torch, edges, parts, n_vertices):
     """PageRank through the device entry point vs the float64 reference,
     then the engine's wall time per round after a warm-up run."""
-    from repro_torch.graph.pagerank import (make_pagerank_engine, pagerank,
-                                            pagerank_dense_reference)
-    ref = pagerank_dense_reference(edges, N_VERTICES, iters=ROUNDS,
+    from repro_torch.graph.engine import GraphEngine
+    from repro_torch.graph.pagerank import (make_pagerank_app, pagerank,
+                                            pagerank_dense_reference,
+                                            pagerank_state)
+    t0 = time.perf_counter()
+    ref = pagerank_dense_reference(edges, n_vertices, iters=ROUNDS,
                                    damping=DAMPING)
+    reference_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     (got, stats), launches = main_path(lambda: pagerank(
-        edges, N_VERTICES, m=M, degrees=DEGREES, iters=ROUNDS,
+        edges, n_vertices, m=M, degrees=DEGREES, iters=ROUNDS,
         damping=DAMPING, backend="device", device=DEVICE))
     total_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-10)
     rel = float(np.max(np.abs(got - ref) / np.abs(ref)))
-    engine, extras, p0 = make_pagerank_engine(parts, N_VERTICES, DEGREES,
-                                              DAMPING, device=DEVICE)
+    assert launches["spmv_csr"] == ROUNDS and launches["spmv_ell"] == 0, \
+        launches
+    t0 = time.perf_counter()
+    app, out_sets, in_sets = make_pagerank_app(parts, n_vertices, DAMPING)
+    engine = GraphEngine(out_sets, in_sets, app, degrees=DEGREES,
+                         device=DEVICE)
+    config_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    extras, p0 = pagerank_state(parts, n_vertices, engine.u_cap,
+                                engine.uin_cap, device=DEVICE)
+    torch.cuda.synchronize()
+    state_s = time.perf_counter() - t0
     engine.run(ROUNDS, p0, extras)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, last_q, _ = engine.run(ROUNDS, p0, extras)
     torch.cuda.synchronize()
     round_s = (time.perf_counter() - t0) / ROUNDS
-    cols = extras["cols"]
-    emit({"phase": "pagerank", "ok": True, "vertices": N_VERTICES,
+    csr_bytes = sum(int(t.numel() * t.element_size())
+                    for t in extras.values())
+    emit({"phase": PHASE["name"], "ok": True, "vertices": n_vertices,
           "edges": int(len(edges)), "nodes": M, "degrees": list(DEGREES),
           "rounds": ROUNDS, "max_abs_err": float(np.max(np.abs(got - ref))),
           "max_rel_err": rel, "tolerance": "rtol 1e-4 vs float64 dense",
-          "ell_shape": list(cols.shape),
-          "ell_bytes": int(cols.numel() * 8),
-          "max_memory_allocated": int(peak), "entry_point_s": total_s,
+          "csr_nnz": int(extras["cols"].numel()),
+          "csr_rows": int(extras["row_ptr"].numel() - 1),
+          "csr_bins": int(extras["bins"].numel() - 1),
+          "csr_bytes": csr_bytes, "u_cap": engine.u_cap,
+          "uin_cap": engine.uin_cap,
+          "max_memory_allocated": int(peak),
+          "max_memory_over_call": int(peak - base),
+          "memory_allocated_before": int(base), "entry_point_s": total_s,
+          "host_config_s": config_s, "csr_state_s": state_s,
+          "reference_s": reference_s,
           "round_wall_s": round_s, "engine": stats["engine"],
           "launches": launches})
     del engine, extras, p0, last_q
@@ -355,23 +402,39 @@ def index_add_call(torch, pos, val, num_rows):
     return lambda: buf.index_add_(0, flat, vflat)
 
 
-def rank_row(torch, runs, banded, launches):
-    """Merge ranks of one layer (the main path's launch form) vs plain."""
+def rank_timing(torch, runs, banded):
+    """Kernel, plain and library (``searchsorted`` over the same k*k run
+    pairs) ms of one layer's merge ranks, after an exactness check."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rank_merge import BM, merge_ranks, rank_counts
+    from repro_torch.kernels.rank_merge import BM, merge_ranks
     got = merge_ranks(runs, banded=banded)
     plain = lambda: ref.merge_ranks_ref(runs, BM if banded else None)
     assert torch.equal(got, plain()), "merge ranks differ from plain"
     assert torch.equal(got, ref.merge_ranks_ref(runs)), "ranks differ"
     assert torch.equal(got, merge_ranks(runs, banded=banded)), "not repeatable"
+    g, k, cap = runs.shape
+    seq = runs.unsqueeze(1).expand(g, k, k, cap).contiguous()
+    qry = runs.unsqueeze(2).expand(g, k, k, cap).contiguous()
+    out = {"shape": list(runs.shape),
+           "ms": cuda_ms(lambda: merge_ranks(runs, banded=banded), reps=10),
+           "plain_ms": cuda_ms(plain, reps=3, warmup=1),
+           "bound_ms": bound_ms(runs.numel() * 8 + got.numel() * 4),
+           "library_ms": cuda_ms(lambda: torch.searchsorted(seq, qry), reps=3,
+                                 warmup=1)}
+    del seq, qry
+    return out
+
+
+def rank_row(torch, runs, banded, launches, large=None):
+    """Merge ranks of one layer (the main path's launch form) vs plain;
+    ``large``: the dense kernel's runs at the union_wire layer-0 shape,
+    timed beside it."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rank_merge import rank_counts
     a, b = runs[:, 0].contiguous(), runs[:, 1].contiguous()
     for strict, side in ((True, "left"), (False, "right")):
         assert torch.equal(rank_counts(a, b, strict=strict, banded=banded),
                            ref.rank_counts_ref(a, b, side)), "counts differ"
-    g, k, cap = runs.shape
-    # the same k*k searches as one library call over stacked run pairs
-    seq = runs.unsqueeze(1).expand(g, k, k, cap).contiguous()
-    qry = runs.unsqueeze(2).expand(g, k, k, cap).contiguous()
     name = "rank_counts_banded" if banded else "rank_counts"
     row = {
         "name": name, "route": "cuda",
@@ -380,15 +443,67 @@ def rank_row(torch, runs, banded, launches):
         "replaces": "src/repro/kernels/rank_merge.py:"
                     + ("165" if banded else "142"),
         "launches": launches[name], "max_abs_err": 0,
-        "check": "exact, repeat identical", "shape": list(runs.shape),
-        "ms": cuda_ms(lambda: merge_ranks(runs, banded=banded), reps=10),
-        "plain_ms": cuda_ms(plain, reps=3, warmup=1),
-        "bound_ms": bound_ms(runs.numel() * 8 + got.numel() * 4),
-        "bound_by": "bytes",
-        "library_ms": cuda_ms(lambda: torch.searchsorted(seq, qry), reps=3,
-                              warmup=1)}
-    del seq, qry
+        "check": "exact, repeat identical", "bound_by": "bytes"}
+    row.update(rank_timing(torch, runs, banded))
+    if large is not None:
+        row["large"] = rank_timing(torch, large, banded)
     return row
+
+
+def general_inputs(torch, pos, val, scale):
+    """General floats at the main path's positions: normal f32 / bf16
+    values, or int8 values with a uniform (0, 1) scale."""
+    gen = torch.Generator(device=pos.device).manual_seed(11)
+    if scale is None:
+        v = torch.randn(val.shape, generator=gen, device=pos.device)
+        return v.to(val.dtype), None
+    q = torch.randint(-127, 128, val.shape, generator=gen, device=pos.device,
+                      dtype=torch.int32).to(torch.int8)
+    return q, torch.rand(scale.shape, generator=gen, device=pos.device)
+
+
+def stage_ms(torch, fn, reps: int = 5):
+    """Device ms per call of each kernel ``fn`` launches, by name, from a
+    ``torch.profiler`` trace of ``reps`` calls (empty if the trace holds
+    no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0)
+        if us > 0:
+            name = evt.key.split("::")[-1].split("(")[0].split("<")[0]
+            out[name] = out.get(name, 0.0) + us / 1e3 / reps
+    return out
+
+
+def dense_scatter_large(torch, fn, pos, val, num_rows, scale):
+    """The dense scatter at the union_wire layer-0 shape on general
+    floats: bit for bit against its plain version on a CPU copy, two
+    launches identical, its layout equal to a stable argsort; returns
+    the check and ``index_add_``'s ms on the same inputs."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.onehot_scatter import row_order
+    gv, gs = general_inputs(torch, pos, val, scale)
+    got = fn(pos, gv, num_rows, scale=gs)
+    want = ref.onehot_scatter_add_ref(pos.cpu(), gv.cpu(), num_rows,
+                                      None if gs is None else gs.cpu())
+    assert torch.equal(got.cpu(), want), "dense scatter != plain on CPU"
+    assert torch.equal(got, fn(pos, gv, num_rows, scale=gs)), "not repeatable"
+    perm, off = row_order(pos, num_rows)
+    wperm, woff = ref.row_order_ref(pos, num_rows)
+    assert torch.equal(perm, wperm) and torch.equal(off, woff), "layout"
+    del perm, off, wperm, woff, want, got
+    return ("bit-exact vs plain on a CPU copy on general floats, repeat "
+            "identical, layout equal to a stable argsort")
 
 
 def scatter_row(torch, name, fn, args, kwargs, launches, library):
@@ -417,8 +532,6 @@ def scatter_row(torch, name, fn, args, kwargs, launches, library):
                  "on card (general scale); repeat identical")
     assert torch.equal(got, fn(*args, **kwargs)), f"{name} not repeatable"
     b2, c = pos.shape
-    nbytes = (pos.numel() * 4 + val.numel() * val.element_size()
-              + (0 if scale is None else scale.numel() * 4) + got.numel() * 4)
     kernel = "onehot_scatter_add" if name.startswith("onehot") \
         else "banded_onehot_scatter_add"
     source = {"onehot_scatter_add": "onehot_scatter.cu",
@@ -432,7 +545,23 @@ def scatter_row(torch, name, fn, args, kwargs, launches, library):
         "replaces": "src/repro/kernels/onehot_scatter.py:" + line,
         "launches": launches[name],
         "max_abs_err": float((got - want).abs().max()), "check": check,
-        "shape": [b2, c, int(val.shape[-1]), int(num_rows)],
+        **scatter_timing(torch, fn, args, kwargs, library)}
+
+
+def scatter_timing(torch, fn, args, kwargs, library):
+    """Shape, dtype, kernel / plain / library ms and byte bound of one
+    scatter call."""
+    from repro_torch.kernels import ref
+    pos, val, num_rows = args
+    scale = kwargs.get("scale")
+    # every destination is read; values and scales of kept sources only
+    kept = int(((pos >= 0) & (pos < num_rows)).sum())
+    nbytes = (pos.numel() * 4 + kept * val.shape[-1] * val.element_size()
+              + (0 if scale is None else kept * 4)
+              + pos.shape[0] * num_rows * val.shape[-1] * 4)
+    return {
+        "shape": [pos.shape[0], pos.shape[1], int(val.shape[-1]),
+                  int(num_rows)],
         "val_dtype": str(val.dtype).replace("torch.", ""),
         "ms": cuda_ms(lambda: fn(*args, **kwargs), reps=10),
         "plain_ms": cuda_ms(lambda: ref.onehot_scatter_add_ref(
@@ -441,81 +570,137 @@ def scatter_row(torch, name, fn, args, kwargs, launches, library):
         "library_ms": None if library is None else cuda_ms(library, reps=10)}
 
 
-def spmv_row(torch, cols, wts, x, launches):
-    """The first PageRank round's SpMV on the stacked ELL tables, with one
-    CSR matvec over the same nonzeros as the library yardstick."""
+def csr_library(torch, row_ptr, cols, wts, x):
+    """One library CSR matvec over the same nonzeros (block-diagonal CSR of
+    all nodes times the flattened x): ``(call, its result)``."""
+    m, n = x.shape
+    r = row_ptr.numel() - 1
+    lens = (row_ptr[1:] - row_ptr[:-1]).long()
+    node = torch.repeat_interleave(
+        torch.arange(r, device=x.device) // (r // m), lens)
+    csr = torch.sparse_csr_tensor(row_ptr.long(), cols.long() + node * n, wts,
+                                  size=(r, m * n))
+    xv = x.reshape(-1, 1)
+    call = lambda: csr @ xv
+    return call, call().reshape(m, r // m)
+
+
+def spmv_csr_row(torch, row_ptr, cols, wts, x, bins, launches):
+    """The first PageRank round's SpMV on the stacked CSR (main path)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.spmv_ell import spmv_ell
-    got = spmv_ell(cols, wts, x)
-    valid = cols >= 0
-    nnz = int(valid.sum())
-    # plain version in slices of nodes (its gathers would not fit at once)
-    step = 8
-    plain = lambda: torch.cat([ref.spmv_ell_ref(
-        cols[i:i + step], wts[i:i + step], x[i:i + step])
-        for i in range(0, cols.shape[0], step)])
+    from repro_torch.kernels.spmv_csr import spmv_csr
+    got = spmv_csr(row_ptr, cols, wts, x, bins)
+    plain = lambda: ref.spmv_csr_ref(row_ptr, cols, wts, x)
     want = plain()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-9)
-    # block-diagonal CSR of the 64 nodes' nonzeros times the flattened x
-    b, r, n = cols.shape[0], cols.shape[1], x.shape[-1]
-    crow = torch.zeros(b * r + 1, dtype=torch.int64, device=cols.device)
-    crow[1:] = torch.cumsum(valid.sum(-1).reshape(-1), 0)
-    node = torch.arange(b, device=cols.device).view(b, 1, 1).expand(
-        cols.shape)[valid]
-    csr = torch.sparse_csr_tensor(crow, cols[valid].long() + node * n,
-                                  wts[valid], size=(b * r, b * n))
-    del node, valid
-    xv = x.reshape(-1, 1)
-    lib = (csr @ xv).reshape(b, r)
+    library, lib = csr_library(torch, row_ptr, cols, wts, x)
     torch.testing.assert_close(lib, got, rtol=1e-5, atol=1e-9)
+    assert torch.equal(got, spmv_csr(row_ptr, cols, wts, x, bins)), \
+        "spmv_csr not repeatable"
+    nnz = int(cols.numel())
+    nbytes = (nnz * 8 + row_ptr.numel() * row_ptr.element_size()
+              + x.numel() * 4 + got.numel() * 4)
+    return {
+        "name": "spmv_csr", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/spmv_csr.cu",
+        "replaces": "src/repro/kernels/spmv_ell.py:34",
+        "launches": launches["spmv_csr"],
+        "max_abs_err": float((got - want).abs().max()),
+        "check": "rtol 1e-5 vs plain and vs CSR library, repeat identical",
+        "shape": [int(row_ptr.numel() - 1), int(x.shape[-1])], "nnz": nnz,
+        "bins": int(bins.numel() - 1),
+        "ms": cuda_ms(lambda: spmv_csr(row_ptr, cols, wts, x, bins), reps=20),
+        "plain_ms": cuda_ms(plain, reps=5, warmup=1),
+        "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+        "library_ms": cuda_ms(library, reps=20)}
+
+
+def spmv_ell_row(torch, parts, row_ptr, cols, wts, x, launches):
+    """The ELL kernel, off the main path: stacked ELL tables of the same
+    partitions built for this row alone (and freed after), the first
+    round's x, against its plain version and the CSR library matvec."""
+    from repro_torch.graph.engine import stack_ell
+    from repro_torch.graph.pagerank import LazyTables
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.spmv_ell import spmv_ell
+    m, n = x.shape
+    u_cap = (row_ptr.numel() - 1) // m
+    ec, ew = stack_ell(LazyTables(parts, "ell"), u_cap,
+                       kmax=max(p.ell_width() for p in parts), device=DEVICE,
+                       n_cols=n)
+    got = spmv_ell(ec, ew, x)
+    step = 8  # plain version in slices of nodes (its gathers are large)
+    plain = lambda: torch.cat([ref.spmv_ell_ref(
+        ec[i:i + step], ew[i:i + step], x[i:i + step])
+        for i in range(0, m, step)])
+    want = plain()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-9)
+    library, lib = csr_library(torch, row_ptr, cols, wts, x)
+    torch.testing.assert_close(lib, got, rtol=1e-5, atol=1e-9)
+    nnz = int(cols.numel())
     row = {
         "name": "spmv_ell", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/spmv_ell.cu",
         "replaces": "src/repro/kernels/spmv_ell.py:34",
-        "launches": launches["spmv_ell"],
+        "launches": launches["spmv_ell"], "main_path": False,
         "max_abs_err": float((got - want).abs().max()),
-        "check": "rtol 1e-5 vs plain and vs CSR",
-        "shape": list(cols.shape), "nnz": nnz,
-        "ms": cuda_ms(lambda: spmv_ell(cols, wts, x), reps=5),
+        "check": "rtol 1e-5 vs plain and vs CSR library",
+        "shape": list(ec.shape), "nnz": nnz,
+        "ell_bytes": int(ec.numel() * 8),
+        "ms": cuda_ms(lambda: spmv_ell(ec, ew, x), reps=5),
         "plain_ms": cuda_ms(plain, reps=2, warmup=1),
         "bound_ms": bound_ms(nnz * 8 + x.numel() * 4 + got.numel() * 4),
         "bound_by": "bytes",
-        "library_ms": cuda_ms(lambda: csr @ xv, reps=5)}
-    del csr, lib
+        "library_ms": cuda_ms(library, reps=5)}
+    del ec, ew, got, want
+    torch.cuda.empty_cache()
     return row
 
 
-def kernel_rows(torch, rec, launches):
+def kernel_rows(torch, rec, launches, parts):
     """Every kernel on its recorded main-path inputs vs its plain version,
     in the order of the TPU kernel table."""
+    from repro_torch.kernels import ref
     from repro_torch.kernels.onehot_scatter import (banded_onehot_scatter_add,
                                                     onehot_scatter_add)
     ranks, scat, band = (rec["rank"].args, rec["scatter"].args,
                          rec["banded"].args)
-    rows = [rank_row(torch, ranks["dense"][0][0], False, launches),
-            rank_row(torch, ranks["banded"][0][0], True, launches)]
-    (args, kwargs) = scat["f32"]
-    bf16 = scat["bf16"]
+    rows = [rank_row(torch, ranks[("union", "dense")][0][0], False, launches,
+                     large=ranks[("union_wire", "dense")][0][0]),
+            rank_row(torch, ranks[("union_wire", "banded")][0][0], True,
+                     launches)]
+    args, kwargs = scat[("union", "f32")]
     row = scatter_row(torch, "onehot_scatter_add", onehot_scatter_add, args,
                       kwargs, launches, index_add_call(torch, *args))
-    got = onehot_scatter_add(*bf16[0], **bf16[1])
-    from repro_torch.kernels import ref
-    assert torch.equal(got, ref.onehot_scatter_add_ref(*bf16[0])), "bf16"
-    row["bf16_shape"] = list(bf16[0][0].shape)
-    row["bf16_ms"] = cuda_ms(lambda: onehot_scatter_add(*bf16[0], **bf16[1]),
-                             reps=10)
+    (pos, val, num_rows), kw = scat[("union_wire", "bf16")]
+    assert torch.equal(onehot_scatter_add(pos, val, num_rows, **kw),
+                       ref.onehot_scatter_add_ref(pos, val, num_rows)), "bf16"
+    row["large"] = {
+        "check": dense_scatter_large(torch, onehot_scatter_add, pos, val,
+                                     num_rows, None)
+        + "; bit-exact vs plain on card (dyadic)",
+        "stage_ms": stage_ms(torch, lambda: onehot_scatter_add(
+            pos, val, num_rows, **kw)),
+        "dropped_sources": int(((pos < 0) | (pos >= num_rows)).sum()),
+        **scatter_timing(torch, onehot_scatter_add, (pos, val, num_rows), kw,
+                         index_add_call(torch, pos, val, num_rows))}
     rows.append(row)
-    rows.append(scatter_row(torch, "onehot_scatter_add_scaled",
-                            onehot_scatter_add, *scat["scaled"], launches,
-                            None))
-    (args, kwargs) = band["f32"]
+    args, kwargs = scat[("union_wire", "scaled")]
+    row = scatter_row(torch, "onehot_scatter_add_scaled", onehot_scatter_add,
+                      args, kwargs, launches, index_add_call(torch, *args))
+    row["check"] += "; " + dense_scatter_large(
+        torch, onehot_scatter_add, *args, kwargs["scale"])
+    rows.append(row)
+    args, kwargs = band[("union_wire", "f32")]
     rows.append(scatter_row(torch, "banded_onehot_scatter_add",
                             banded_onehot_scatter_add, args, kwargs, launches,
                             index_add_call(torch, *args)))
     rows.append(scatter_row(torch, "banded_onehot_scatter_add_scaled",
-                            banded_onehot_scatter_add, *band["scaled"],
-                            launches, None))
-    rows.append(spmv_row(torch, *rec["spmv"].args["first"][0], launches))
+                            banded_onehot_scatter_add,
+                            *band[("union_wire", "scaled")], launches, None))
+    csr_args = rec["spmv"].args[("pagerank", "first")][0]
+    rows.append(spmv_ell_row(torch, parts, *csr_args[:4], launches))
+    rows.append(spmv_csr_row(torch, *csr_args, launches))
     return rows
 
 
@@ -548,16 +733,30 @@ def main() -> int:
     parts = build_partitions(edges, N_VERTICES, M)
     graph_s = time.perf_counter() - t0
 
-    rec = {"rank": Recorder(ops, "merge_ranks", key=lambda a, kw:
-                            "banded" if kw.get("banded") else "dense"),
+    rec = {"rank": Recorder(ops, "merge_ranks", rank_variant),
            "scatter": Recorder(ops, "onehot_scatter_add", scatter_variant),
            "banded": Recorder(ops, "banded_onehot_scatter_add",
                               scatter_variant),
-           "spmv": Recorder(engine, "spmv_ell")}
-    per_phase = {"planned": phase_planned(torch, parts),
-                 "union": phase_union(torch),
-                 "pagerank": phase_pagerank(torch, edges, parts),
-                 "union_wire": phase_union_wire(torch)}
+           "spmv": Recorder(engine, "spmv_csr",
+                            lambda a, kw: (PHASE["name"], "first"))}
+
+    def run(name, fn, *args):
+        PHASE["name"] = name
+        return fn(torch, *args)
+
+    per_phase = {"planned": run("planned", phase_planned, parts),
+                 "union": run("union", phase_union),
+                 "pagerank": run("pagerank", phase_pagerank, edges, parts,
+                                 N_VERTICES)}
+    t0 = time.perf_counter()
+    big = powerlaw_graph(LARGE_VERTICES, LARGE_EDGES, alpha=2.0, seed=0)
+    big_parts = build_partitions(big, LARGE_VERTICES, M)
+    emit({"phase": "pagerank_large_graph", "seconds":
+          time.perf_counter() - t0})
+    per_phase["pagerank_large"] = run("pagerank_large", phase_pagerank, big,
+                                      big_parts, LARGE_VERTICES)
+    del big, big_parts
+    per_phase["union_wire"] = run("union_wire", phase_union_wire)
     torch.cuda.synchronize()
     launches = {k: sum(p.get(k, 0) for p in per_phase.values())
                 for k in _build.LAUNCHES}
@@ -565,9 +764,14 @@ def main() -> int:
         r.restore()
     emit({"phase": "main_path_launches", "launches": launches,
           "per_phase": per_phase, "graph_s": graph_s})
-    assert all(v > 0 for v in launches.values()), launches
+    # off the main path: the ELL kernel (PageRank runs the CSR kernel) and
+    # the dense scatter's layout stages launched on their own
+    off_path = ("spmv_ell", "row_order")
+    assert all(launches[k] == 0 for k in off_path), launches
+    assert all(v > 0 for k, v in launches.items() if k not in off_path), \
+        launches
 
-    rows = kernel_rows(torch, rec, launches)
+    rows = kernel_rows(torch, rec, launches, parts)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

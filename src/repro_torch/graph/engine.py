@@ -4,7 +4,7 @@ The paper's headline workloads are iterative: PageRank amortizes one
 ``config`` over many ``reduce`` rounds.  The engine keeps all state on the
 device and runs k rounds per :meth:`GraphEngine.run`, each round
 
-    out = app.out_fn(state, extras)         # local SpMV (ELL CUDA kernel)
+    out = app.out_fn(state, extras)         # local SpMV (CSR CUDA kernel)
     in  = planned.reduce_on_device(out)     # 2*depth stacked-mesh exchanges
     state = app.update_fn(state, in, extras, transport)
 
@@ -14,12 +14,16 @@ the k rounds into one ``lax.scan`` dispatch, ``run(k)`` here is a Python
 loop of k rounds of eager launches; capturing it as one CUDA graph is a
 later PR.  ``report`` keeps the reference's keys.
 
-Scaling caveat (as in the reference): the stacked ELL tables pad every
-partition to the global max rows x max per-row nonzeros.  The hash
-permutation balances columns, not row degrees, so power-law hub rows
-inflate ``K`` and the padded tables, not the edges, set the memory and the
-SpMV's time.  :func:`stack_ell` writes each node's table straight into a
-preallocated device tensor, so the host never holds the whole stack.
+Layouts.  The reference stacks ELL tables, which pad every partition to
+the global max rows x max per-row nonzeros; the hash permutation balances
+columns, not row degrees, so power-law hub rows inflate ``K`` and the
+padding, not the edges, sets the memory and the SpMV's time.  The port
+keeps that API (:func:`build_ell`, :func:`stack_ell`, :func:`ell_matvec`)
+and adds its unpadded counterpart, which PageRank runs on:
+:func:`build_csr`, :func:`stack_csr` (one block-diagonal CSR over all
+stacked rows, with the kernel's work split) and :func:`csr_matvec`.  Both
+stack functions write each node's table straight into preallocated
+device tensors, so the host never holds the whole stack.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import torch
 from repro_torch.core.api import SparseAllreduce
 from repro_torch.core.netmodel import EC2_2013, Fabric
 from repro_torch.core.transport import resolve_device
+from repro_torch.kernels.spmv_csr import csr_bins, spmv_csr
 from repro_torch.kernels.spmv_ell import spmv_ell
 
 
@@ -117,6 +122,88 @@ def ell_matvec(cols: torch.Tensor, wts: torch.Tensor, x: torch.Tensor,
     g = torch.gather(x.reshape(b, -1, w), 1, safe.expand(b, r * k, w))
     mw = (wts * (cols >= 0)).reshape(b, r * k, 1)
     return (mw * g).reshape(b, r, k, w).sum(2).reshape(lead + (r, w))
+
+
+def build_csr(rows: np.ndarray, cols: np.ndarray, weights: np.ndarray,
+              n_rows: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Vectorized CSR build, the counterpart of :func:`build_ell`: COO
+    triplets -> ``(row_ptr int64 [n_rows + 1], cols int32 [nnz], wts
+    float32 [nnz])``.  Entries within a row keep their original (stable)
+    edge order, the order :func:`build_ell` gives them."""
+    rows = np.asarray(rows, np.int64)
+    if rows.size and (rows.min() < 0 or rows.max() >= n_rows):
+        raise ValueError(f"build_csr: row ids must lie in [0, {n_rows})")
+    order = np.argsort(rows, kind="stable")
+    row_ptr = np.zeros(n_rows + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=n_rows), out=row_ptr[1:])
+    return (row_ptr, np.asarray(cols)[order].astype(np.int32),
+            np.asarray(weights)[order].astype(np.float32))
+
+
+def stack_csr(tables: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]],
+              n_rows: int, nnz: Optional[int] = None, device=None,
+              n_cols: Optional[int] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                         torch.Tensor]:
+    """Stack per-node :func:`build_csr` outputs into one block-diagonal
+    CSR over the ``[M * n_rows]`` stacked rows on ``device``, the
+    counterpart of :func:`stack_ell`: returns ``(row_ptr, cols, wts,
+    bins)``.  Row ``r`` belongs to node ``r // n_rows`` (a node with fewer
+    rows gets empty ones); ``cols`` stay node-local, so the product reads x
+    at ``node * N + col``.  ``row_ptr`` is int32, or int64 once nnz
+    reaches 2**31; ``bins`` is the kernel's work split
+    (:func:`repro_torch.kernels.spmv_csr.csr_bins`), computed here once.
+
+    The nonzeros are preallocated on the device and each node's are
+    copied as soon as ``tables[i]`` yields them, so a lazy sequence keeps
+    one node's table at a time on the host; give ``nnz`` (the total) with
+    a lazy sequence, otherwise it is read off the tables.  With ``n_cols``
+    a column ``>= n_cols`` (or < 0) raises ``ValueError``: the kernel
+    reads x unchecked."""
+    device = resolve_device(device)
+    m = len(tables)
+    if nnz is None:
+        nnz = sum(len(tables[i][1]) for i in range(m))
+    cols = torch.empty(nnz, dtype=torch.int32, device=device)
+    wts = torch.empty(nnz, dtype=torch.float32, device=device)
+    row_ptr = np.zeros(m * n_rows + 1, np.int64)
+    at = 0
+    for i in range(m):
+        rp, c, w = tables[i]
+        k = len(c)
+        if len(rp) - 1 > n_rows or int(rp[-1]) != k or len(w) != k:
+            raise ValueError(f"stack_csr: node {i} has {len(rp) - 1} rows "
+                             f"(> {n_rows}?) or row_ptr[-1] {int(rp[-1])} "
+                             f"!= {k} nonzeros")
+        if at + k > nnz:
+            raise ValueError(f"stack_csr: more than nnz={nnz} nonzeros")
+        if n_cols is not None and k and (int(c.max()) >= n_cols
+                                         or int(c.min()) < 0):
+            raise ValueError(f"stack_csr: node {i} has column "
+                             f"{int(c.max())} >= n_cols {n_cols} or < 0")
+        base = i * n_rows
+        row_ptr[base + 1: base + len(rp)] = at + rp[1:]
+        row_ptr[base + len(rp): base + n_rows + 1] = at + k
+        cols[at: at + k] = torch.from_numpy(np.ascontiguousarray(c, np.int32))
+        wts[at: at + k] = torch.from_numpy(
+            np.ascontiguousarray(w, np.float32))
+        at += k
+    if at != nnz:
+        raise ValueError(f"stack_csr: {at} nonzeros, expected {nnz}")
+    bins = csr_bins(row_ptr, n_rows)
+    rp_dtype = np.int64 if nnz >= 2**31 else np.int32
+    return (torch.as_tensor(row_ptr.astype(rp_dtype), device=device), cols,
+            wts, torch.as_tensor(bins, device=device))
+
+
+def csr_matvec(row_ptr: torch.Tensor, cols: torch.Tensor, wts: torch.Tensor,
+               x: torch.Tensor, bins: torch.Tensor) -> torch.Tensor:
+    """``y[m, r] = sum_j wts[j] * x[m, cols[j]]`` over row ``m * n_rows +
+    r`` of a :func:`stack_csr` CSR, x one vector per node ``[M, N]`` ->
+    ``[M, n_rows]``: the CSR SpMV kernel (``repro_torch.kernels.spmv_csr.
+    spmv_csr``; its plain version for CPU tensors), the counterpart of
+    :func:`ell_matvec` with ``bins`` its work split."""
+    return spmv_csr(row_ptr, cols, wts, x, bins)
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,10 @@ edges read; ``config`` once (static graph), then per iteration
 
 ``backend="sim"`` is the float64 numpy loop through the message-level
 simulator (the oracle).  ``backend="device"`` runs all rounds on one torch
-device through the graph engine: the ELL SpMV CUDA kernel and the planned
-reduce over the stacked mesh, float32.
+device through the graph engine: the stacked-CSR SpMV CUDA kernel (no hub
+padding; the reference's ELL tables stay available as
+:meth:`Partition.ell_tables`) and the planned reduce over the stacked
+mesh, float32.
 """
 from __future__ import annotations
 
@@ -42,10 +44,18 @@ class Partition:
     def ell_tables(self, weights: Optional[np.ndarray] = None
                    ) -> Tuple[np.ndarray, np.ndarray]:
         """Padded ELL ``(cols, wts)`` of this partition's SpMV
-        (``engine.build_ell``), the layout the device engine stacks."""
+        (``engine.build_ell``), the reference engine's layout."""
         from .engine import build_ell
         w = self.inv_outdeg if weights is None else weights
         return build_ell(self.dst_pos, self.src_pos, w, len(self.out_idx))
+
+    def csr_tables(self, weights: Optional[np.ndarray] = None
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """CSR ``(row_ptr, cols, wts)`` of this partition's SpMV
+        (``engine.build_csr``), the layout the device engine stacks."""
+        from .engine import build_csr
+        w = self.inv_outdeg if weights is None else weights
+        return build_csr(self.dst_pos, self.src_pos, w, len(self.out_idx))
 
     def ell_width(self) -> int:
         """K of :meth:`ell_tables` (the largest row count), without
@@ -85,7 +95,7 @@ def pagerank(edges: np.ndarray, n_vertices: int, m: int,
     (default: the current CUDA device, raising without one) through the
     graph engine, float32; ``stats["engine"]`` carries its report.
     ``use_kernel`` is kept for signature parity: the device path always
-    runs the ELL kernel, the sim path always the numpy product.
+    runs the CSR kernel, the sim path always the numpy product.
     """
     parts = build_partitions(edges, n_vertices, m, seed=seed)
     if backend == "device":
@@ -120,11 +130,12 @@ def make_pagerank_app(parts: List[Partition], n_vertices: int,
                       damping: float = 0.85, use_kernel: bool = False):
     """The engine-agnostic PageRank pieces: ``(app, out_sets, in_sets)``.
     ``use_kernel`` is kept for signature parity: the app's product always
-    runs the ELL kernel (its plain version for CPU tensors)."""
+    runs the CSR kernel (its plain version for CPU tensors)."""
     from . import engine as eng
     app = eng.EngineApp(
         name="pagerank",
-        out_fn=lambda s, e: eng.ell_matvec(e["cols"], e["wts"], s),
+        out_fn=lambda s, e: eng.csr_matvec(e["row_ptr"], e["cols"], e["wts"],
+                                           s, e["bins"]),
         update_fn=lambda s, in_raw, e, tr:
             (1.0 - damping) / n_vertices + damping * in_raw)
     return (app,
@@ -132,39 +143,44 @@ def make_pagerank_app(parts: List[Partition], n_vertices: int,
             [p.in_idx.astype(np.uint32) for p in parts])
 
 
-class _LazyEllTables:
-    """``tables[i]`` builds partition i's ELL tables on access, so
-    ``stack_ell`` holds one node's tables at a time on the host."""
+class LazyTables:
+    """``tables[i]`` builds partition i's tables on access (``layout`` is
+    ``"csr"`` or ``"ell"``), so ``stack_csr`` / ``stack_ell`` hold one
+    node's tables at a time on the host."""
 
-    def __init__(self, parts: List[Partition]):
-        self.parts = parts
+    def __init__(self, parts: List[Partition], layout: str = "csr"):
+        if layout not in ("csr", "ell"):
+            raise ValueError(f"layout must be 'csr' or 'ell', got {layout!r}")
+        self.parts, self.layout = parts, layout
 
     def __len__(self) -> int:
         return len(self.parts)
 
     def __getitem__(self, i):
-        return self.parts[i].ell_tables()
+        p = self.parts[i]
+        return p.csr_tables() if self.layout == "csr" else p.ell_tables()
 
 
 def pagerank_state(parts: List[Partition], n_vertices: int,
                    u_cap: int, uin_cap: int, device=None):
-    """Stacked ELL extras + the uniform initial state for a PageRank run
+    """Stacked CSR extras (``row_ptr``, ``cols``, ``wts``, ``bins`` of
+    ``engine.stack_csr``) + the uniform initial state for a PageRank run
     over ``parts``, sized to an engine's frozen ``u_cap`` / ``uin_cap``,
     built straight on ``device`` (default: the current CUDA device): the
-    ``[M, u_cap, K]`` tables are preallocated there and filled one node
-    at a time."""
+    nonzeros are preallocated there and filled one node at a time."""
     import torch
 
     from . import engine as eng
     from repro_torch.core.transport import resolve_device
     device = resolve_device(device)
-    kmax = max(p.ell_width() for p in parts)
-    cols, wts = eng.stack_ell(_LazyEllTables(parts), u_cap, kmax=kmax,
-                              device=device, n_cols=uin_cap)
+    row_ptr, cols, wts, bins = eng.stack_csr(
+        LazyTables(parts), u_cap, nnz=sum(len(p.src) for p in parts),
+        device=device, n_cols=uin_cap)
     p0 = np.zeros((len(parts), uin_cap), np.float32)
     for i, p in enumerate(parts):
         p0[i, : len(p.in_idx)] = 1.0 / n_vertices
-    return {"cols": cols, "wts": wts}, torch.as_tensor(p0, device=device)
+    return ({"row_ptr": row_ptr, "cols": cols, "wts": wts, "bins": bins},
+            torch.as_tensor(p0, device=device))
 
 
 def make_pagerank_engine(parts: List[Partition], n_vertices: int,

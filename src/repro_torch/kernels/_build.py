@@ -25,16 +25,18 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("rank_merge.cu", "rank_merge_banded.cu", "onehot_scatter.cu",
-           "banded_onehot_scatter.cu", "spmv_ell.cu")
+           "banded_onehot_scatter.cu", "spmv_ell.cu", "spmv_csr.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# One entry per TPU kernel (scaled variants apart from their unscaled ones).
+# One entry per TPU kernel (scaled variants apart from their unscaled ones),
+# plus ``row_order``, the dense scatter's layout stages launched on their own.
 LAUNCHES: Dict[str, int] = {
     "rank_counts": 0, "rank_counts_banded": 0, "onehot_scatter_add": 0,
     "onehot_scatter_add_scaled": 0, "banded_onehot_scatter_add": 0,
-    "banded_onehot_scatter_add_scaled": 0, "spmv_ell": 0}
+    "banded_onehot_scatter_add_scaled": 0, "spmv_ell": 0, "spmv_csr": 0,
+    "row_order": 0}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point -> argtypes (pointers and the stream as c_void_p).
@@ -42,11 +44,17 @@ _SIGNATURES = {
     "repro_rank_counts": (_P, _P, _P, _LL, _I, _LL, _I, _LL, _I, _P),
     "repro_rank_counts_banded": (_P, _P, _P, _LL, _I, _LL, _I, _LL, _I, _I,
                                  _I, _P),
-    "repro_onehot_scatter_add": (_P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _P),
+    "repro_onehot_scatter_add": (_P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _P,
+                                 _P, _P),
+    "repro_row_order": (_P, _LL, _LL, _LL, _P, _P, _P),
     "repro_banded_onehot_scatter_add": (_P, _P, _P, _P, _LL, _LL, _LL, _I,
                                         _I, _P),
     "repro_spmv_ell": (_P, _P, _P, _P, _LL, _LL, _LL, _LL, _P),
+    "repro_spmv_csr": (_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _I,
+                       _I, _P),
 }
+# C entry points that return a count, not a CUDA error
+_SIZES = {"repro_row_order_scratch": (_LL, _LL)}
 
 _lib = None
 _lock = threading.Lock()
@@ -123,6 +131,10 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            for name, argtypes in _SIZES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_longlong
             _lib = lib
     return _lib
 

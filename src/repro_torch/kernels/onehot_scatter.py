@@ -11,8 +11,10 @@ order with no float atomics, so two launches on the same input give the
 same bits:
 
 * :func:`onehot_scatter_add` (``csrc/onehot_scatter.cu``, TPU rows 3 and
-  4): any order of ``pos``; each block walks all sources and skips the
-  chunks without a source of its rows;
+  4): any order of ``pos``; a stable counting layout (radix passes over
+  the destination's digits, :func:`row_order`) puts each row's sources
+  next to each other in increasing source order, and each row then sums
+  its run;
 * :func:`banded_onehot_scatter_add` (``csrc/banded_onehot_scatter.cu``,
   TPU rows 5 and 6): non-decreasing ``pos`` with at most ``band`` sources
   per row; each block binary-searches its own window of sources and reads
@@ -25,12 +27,13 @@ versions are in ``ref``.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
-from .ref import banded_onehot_scatter_add_ref, onehot_scatter_add_ref
+from .ref import (banded_onehot_scatter_add_ref, onehot_scatter_add_ref,
+                  row_order_ref)
 
 # the reference's default tile shapes (out-rows, width, in-rows)
 BM, BN, BK = 128, 128, 512
@@ -63,8 +66,21 @@ def _check(name: str, pos: torch.Tensor, val: torch.Tensor,
                          f"got {scale.dtype} {tuple(scale.shape)}")
 
 
+def _layout_buffers(pos: torch.Tensor, num_rows: int):
+    """Scratch and permutation [B, C] (int32) of the counting layout,
+    allocated on ``pos``'s device."""
+    b, c = math.prod(pos.shape[:-1]), pos.shape[-1]
+    if c >= 2**31 - 1 or num_rows >= 2**31 - 1:
+        raise ValueError(f"counting layout needs C and num_rows < 2**31 - 1,"
+                         f" got {c} and {num_rows}")
+    n = _build.library().repro_row_order_scratch(b, c)
+    kw = dict(dtype=torch.int32, device=pos.device)
+    return torch.empty(n, **kw), torch.empty(b, c, **kw)
+
+
 def _launch(kernel: str, entry: str, pos: torch.Tensor, val: torch.Tensor,
-            scale: Optional[torch.Tensor], num_rows: int) -> torch.Tensor:
+            scale: Optional[torch.Tensor], num_rows: int,
+            *scratch: torch.Tensor) -> torch.Tensor:
     lead, c, w = pos.shape[:-1], pos.shape[-1], val.shape[-1]
     out = torch.empty(lead + (num_rows, w), dtype=torch.float32,
                       device=pos.device)
@@ -76,8 +92,40 @@ def _launch(kernel: str, entry: str, pos: torch.Tensor, val: torch.Tensor,
         _build.launch(kernel, entry, pos.data_ptr(), val.data_ptr(),
                       None if scale is None else scale.data_ptr(),
                       out.data_ptr(), math.prod(lead), c, num_rows, w,
-                      _DTYPES[val.dtype], _build.stream_of(pos))
+                      _DTYPES[val.dtype], *(t.data_ptr() for t in scratch),
+                      _build.stream_of(pos))
     return out
+
+
+def row_order(pos: torch.Tensor, num_rows: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stable counting layout of :func:`onehot_scatter_add`, exposed
+    on its own: ``(perm, offsets)`` with ``perm`` int32 [..., C] the source
+    indices sorted by destination (a stable sort: each row's sources in
+    increasing index; sources outside [0, num_rows) last, in index order)
+    and ``offsets`` int32 [..., num_rows + 1], row p's sources being
+    ``perm[offsets[p]:offsets[p + 1]]`` (``offsets[num_rows]`` = sources
+    kept).  CUDA tensors launch the kernel's layout stages (counted as
+    ``row_order``) and derive the offsets from the sorted destinations
+    with one ``searchsorted``; CPU tensors run the plain version."""
+    if pos.dtype != torch.int32:
+        raise TypeError(f"row_order: pos must be int32, got {pos.dtype}")
+    if pos.device.type == "cpu":
+        return row_order_ref(pos, num_rows)
+    _build.check_cuda("row_order", pos)
+    lead, c = pos.shape[:-1], pos.shape[-1]
+    scratch, perm = _layout_buffers(pos, num_rows)
+    with torch.cuda.device(pos.device):
+        _build.launch("row_order", "repro_row_order", pos.data_ptr(),
+                      math.prod(lead), c, num_rows, scratch.data_ptr(),
+                      perm.data_ptr(), _build.stream_of(pos))
+    flat = pos.reshape(perm.shape)
+    keys = torch.where((flat >= 0) & (flat < num_rows), flat,
+                       num_rows).gather(1, perm.long())
+    rows = torch.arange(num_rows + 1, dtype=torch.int32, device=pos.device)
+    rows = rows.expand(perm.shape[0], -1).contiguous()
+    off = torch.searchsorted(keys, rows, out_int32=True)
+    return perm.reshape(lead + (c,)), off.reshape(lead + (num_rows + 1,))
 
 
 def onehot_scatter_add(pos: torch.Tensor, val: torch.Tensor, num_rows: int,
@@ -93,7 +141,7 @@ def onehot_scatter_add(pos: torch.Tensor, val: torch.Tensor, num_rows: int,
     if pos.device.type == "cpu":
         return onehot_scatter_add_ref(pos, val, num_rows, scale)
     return _launch("onehot_scatter_add", "repro_onehot_scatter_add", pos, val,
-                   scale, num_rows)
+                   scale, num_rows, *_layout_buffers(pos, num_rows))
 
 
 def banded_onehot_scatter_add(pos: torch.Tensor, val: torch.Tensor,

@@ -8,7 +8,7 @@ They repeat the kernels' arithmetic and are no yardstick of speed.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -37,6 +37,28 @@ def onehot_scatter_add_ref(pos: torch.Tensor, val: torch.Tensor,
     out.index_add_(0, flat, src)
     return out.reshape(b, num_rows + 1, w)[:, :num_rows].reshape(
         lead + (num_rows, w))
+
+
+def row_order_ref(pos: torch.Tensor, num_rows: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scatter's counting layout: ``perm`` = a stable argsort of the
+    destinations (those outside [0, num_rows) sorted last as ``num_rows``)
+    and ``offsets`` = the exclusive cumsum of each row's source count,
+    int32 [..., C] and [..., num_rows + 1]."""
+    lead, c = pos.shape[:-1], pos.shape[-1]
+    b = math.prod(lead)
+    key = pos.reshape(b, c).to(torch.int64)
+    key = torch.where((key < 0) | (key >= num_rows), num_rows, key)
+    perm = torch.argsort(key, dim=-1, stable=True)
+    flat = (torch.arange(b, device=pos.device).unsqueeze(1) * (num_rows + 1)
+            + key).reshape(-1)
+    counts = torch.bincount(flat, minlength=b * (num_rows + 1)).reshape(
+        b, num_rows + 1)
+    offsets = torch.zeros(b, num_rows + 1, dtype=torch.int64,
+                          device=pos.device)
+    offsets[:, 1:] = torch.cumsum(counts[:, :-1], -1)
+    return (perm.to(torch.int32).reshape(lead + (c,)),
+            offsets.to(torch.int32).reshape(lead + (num_rows + 1,)))
 
 
 def banded_onehot_scatter_add_ref(pos: torch.Tensor, val: torch.Tensor,
@@ -99,6 +121,23 @@ def merge_ranks_ref(runs: torch.Tensor, banded_bm: Optional[int] = None
                            else rank_counts_banded_ref(a, b, side, banded_bm))
         ranks.append(rk)
     return torch.stack(ranks, -2)
+
+
+def spmv_csr_ref(row_ptr: torch.Tensor, cols: torch.Tensor,
+                 wts: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Stacked-CSR SpMV: y[r] = sum_{j in [row_ptr[r], row_ptr[r+1])}
+    wts[j] * x[node(r), cols[j]] with node(r) = r // n_rows, where x is
+    [M, N] and row_ptr [M * n_rows + 1]: a gather and a segment sum
+    (``index_add_`` over each nonzero's row) -> f32 [M, n_rows]."""
+    m = x.shape[0]
+    r = row_ptr.shape[0] - 1
+    n_rows = r // m if m else 0
+    lens = (row_ptr[1:] - row_ptr[:-1]).to(torch.int64)
+    row = torch.repeat_interleave(torch.arange(r, device=x.device), lens)
+    xi = (row // max(n_rows, 1)) * x.shape[-1] + cols.to(torch.int64)
+    prod = wts.to(torch.float32) * x.reshape(-1).to(torch.float32)[xi]
+    y = torch.zeros(r, dtype=torch.float32, device=x.device)
+    return y.index_add_(0, row, prod).reshape(m, n_rows)
 
 
 def spmv_ell_ref(cols: torch.Tensor, weights: torch.Tensor,

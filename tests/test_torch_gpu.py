@@ -11,17 +11,21 @@ Ranks are compared exactly (dense and banded kernels); the scatters
 bit for bit on dyadic values and dyadic scales, plus a second launch
 bit-identical to the first, and within rtol 1e-6 of the plain version
 where a general scale is applied (the plain version's ``index_add_`` sums
-with atomics on the card); the SpMV within rtol 1e-5 (float32 sums in
-another order).
+with atomics on the card); the dense scatter also bit for bit against its
+plain version run on a CPU copy (which sums in source order, the kernel's
+order) on general floats, and its counting layout (``row_order``) exactly
+against a stable argsort; the SpMVs within rtol 1e-5 (float32 sums in
+another order), the CSR kernel also bit-identical across two launches.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import _build, ref
 from repro_torch.kernels.onehot_scatter import (banded_onehot_scatter_add,
-                                                onehot_scatter_add)
+                                                onehot_scatter_add, row_order)
 from repro_torch.kernels.rank_merge import merge_ranks, rank_counts
+from repro_torch.kernels.spmv_csr import spmv_csr
 from repro_torch.kernels.spmv_ell import spmv_ell
 
 SENT = 0xFFFFFFFF
@@ -116,11 +120,144 @@ def test_pagerank_runs_on_cuda_by_default(cuda):
     from repro_torch.data.pipeline import powerlaw_graph
     from repro_torch.graph.pagerank import pagerank, pagerank_dense_reference
     edges = powerlaw_graph(2000, 12000, seed=1)
+    _build.reset_launches()
     got, stats = pagerank(edges, 2000, m=8, degrees=(4, 2), iters=10,
                           backend="device")
     np.testing.assert_allclose(got, pagerank_dense_reference(edges, 2000, 10),
                                rtol=1e-4, atol=1e-10)
     assert stats["engine"]["rounds"] == 10
+    assert _build.LAUNCHES["spmv_csr"] == 10
+    assert _build.LAUNCHES["spmv_ell"] == 0
+
+
+def _random_stacked_csr(rng, m, n_rows, n, hub):
+    """Per-node COO with empty rows, one hub row of ``hub`` entries and
+    power-law-ish short rows, stacked by ``stack_csr`` on the CPU."""
+    from repro_torch.graph.engine import build_csr, stack_csr
+    tables = []
+    for i in range(m):
+        rows = np.minimum(rng.zipf(1.8, 40 * n_rows) - 1, n_rows - 1)
+        rows = rows[rows % 7 != 3]                  # empty rows
+        rows = np.concatenate([rows, np.full(hub if i % 2 else 0, 5)])
+        cols = rng.randint(0, n, len(rows))
+        tables.append(build_csr(rows, cols, rng.rand(len(rows)), n_rows))
+    return stack_csr(tables, n_rows, device="cpu", n_cols=n)
+
+
+@pytest.mark.gpu
+def test_spmv_csr_kernel_matches_plain_on_gpu(cuda):
+    """Short bins, hub rows (own bins, block-wide sums), empty rows, nodes
+    of different sizes; int32 and int64 row offsets; repeat identical.
+    Held to a float64 oracle, and to the plain version where hub rows stay
+    within 3,000 entries (the plain version's sequential f32 sum of a
+    20,000-entry row is itself ~1e-5 off)."""
+    rng = np.random.RandomState(7)
+    for m, n_rows, n, hub in [(3, 500, 97, 3000), (8, 4000, 5000, 20000),
+                              (64, 257, 300, 700)]:
+        rp, cols, wts, bins = (t.to(cuda) for t in
+                               _random_stacked_csr(rng, m, n_rows, n, hub))
+        x = torch.rand(m, n, device=cuda)
+        plain = ref.spmv_csr_ref(rp, cols, wts, x)
+        rows = np.repeat(np.arange(m * n_rows), np.diff(rp.cpu().numpy()))
+        exact = np.zeros(m * n_rows)
+        np.add.at(exact, rows, wts.cpu().double().numpy() * x.cpu().double()
+                  .numpy().reshape(-1)[(rows // n_rows) * n
+                                       + cols.cpu().numpy()])
+        exact = torch.as_tensor(exact.reshape(m, n_rows), dtype=torch.float32)
+        for row_ptr in (rp, rp.to(torch.int64)):
+            got = spmv_csr(row_ptr, cols, wts, x, bins)
+            torch.testing.assert_close(got.cpu(), exact, rtol=1e-5, atol=1e-6)
+            if hub <= 3000:
+                torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-6)
+            assert torch.equal(got, spmv_csr(row_ptr, cols, wts, x, bins))
+    empty = torch.zeros(4 * 10 + 1, dtype=torch.int32, device=cuda)
+    nothing = torch.zeros(0, dtype=torch.int32, device=cuda)
+    got = spmv_csr(empty, nothing, nothing.float(), torch.rand(4, 3,
+                                                               device=cuda),
+                   torch.as_tensor([0, 10, 20, 30, 40], dtype=torch.int32,
+                                   device=cuda))
+    assert got.shape == (4, 10) and not got.any()
+
+
+def _general_values(rng, shape, dtype, cuda):
+    """(values, scale or None) of general floats: f32 / bf16 normals, or
+    int8 with a uniform (0, 1) scale."""
+    if dtype == torch.int8:
+        q = torch.as_tensor(rng.randint(-127, 128, shape).astype(np.int8),
+                            device=cuda)
+        s = torch.as_tensor(rng.rand(*shape[:-1]).astype(np.float32),
+                            device=cuda)
+        return q, s
+    return torch.as_tensor(rng.randn(*shape).astype(np.float32),
+                           device=cuda).to(dtype), None
+
+
+def _check_dense_scatter(pos, val, rows, scale):
+    """The dense scatter equals its plain version on a CPU copy bit for
+    bit, twice; its layout equals the stable argsort exactly, counted as
+    one ``row_order`` launch."""
+    got = onehot_scatter_add(pos, val, rows, scale=scale)
+    want = ref.onehot_scatter_add_ref(
+        pos.cpu(), val.cpu(), rows, None if scale is None else scale.cpu())
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, onehot_scatter_add(pos, val, rows, scale=scale))
+    before = dict(_build.LAUNCHES)
+    perm, off = row_order(pos, rows)
+    wperm, woff = ref.row_order_ref(pos.cpu(), rows)
+    assert torch.equal(perm.cpu(), wperm) and torch.equal(off.cpu(), woff)
+    assert {k: v - before[k] for k, v in _build.LAUNCHES.items()
+            if v != before[k]} == {"row_order": 1}
+
+
+@pytest.mark.gpu
+def test_onehot_scatter_counting_layout_on_gpu(cuda):
+    """Adversarial inputs of the counting layout: every source to one row,
+    C not a multiple of the 2,048-source tile, batch 64, rows needing one
+    to four digit passes, drop bins; f32, bf16 and int8 + scale on general
+    floats."""
+    rng = np.random.RandomState(8)
+    cases = [(2, 5000, 1, "one"), (3, 4097, 300, "one"),
+             (64, 3000, 2500, "random"), (2, 2048, 70000, "random"),
+             (1, 9000, 2**24 + 5, "random"), (2, 1000, 64, "dropped"),
+             (2, 0, 10, "random")]
+    for b, c, rows, kind in cases:
+        if kind == "one":
+            pos = np.full((b, c), rows // 2)
+        elif kind == "dropped":
+            pos = rng.choice([-1, rows], (b, c))
+        else:
+            pos = rng.randint(-1, rows + 2, (b, c))
+        pos = torch.as_tensor(pos.astype(np.int32), device=cuda)
+        for dtype in (torch.float32, torch.bfloat16, torch.int8):
+            val, scale = _general_values(rng, (b, c, 2), dtype, cuda)
+            _check_dense_scatter(pos, val, rows, scale)
+
+
+@pytest.mark.gpu
+def test_onehot_scatter_on_fused_merge_positions_on_gpu(cuda, monkeypatch):
+    """The dense scatter on the positions a real fused merge hands it
+    (k runs of hashed indices, ranks gathered through the compaction)."""
+    from repro_torch.kernels import ops
+    rng = np.random.RandomState(9)
+    g, k, cap = 4, 8, 1500
+    runs = np.stack([np.stack([_sorted_stream(rng, cap,
+                                              rng.randint(cap // 2, cap + 1))
+                               for _ in range(k)]) for _ in range(g)])
+    # shared indices across runs, so rows get several sources
+    runs[:, 1::2, : cap // 4] = runs[:, 0:1, : cap // 4]
+    runs = np.sort(runs, -1)
+    seen = []
+    inner = ops.onehot_scatter_add
+    monkeypatch.setattr(ops, "onehot_scatter_add",
+                        lambda *a, **kw: seen.append((a, kw)) or inner(*a, **kw))
+    idx = torch.as_tensor(runs.astype(np.int64), device=cuda)
+    val = torch.as_tensor(rng.randn(g, k, cap).astype(np.float32),
+                          device=cuda)
+    ops.merge_sorted_runs(idx, val, k * cap, mode="fused")
+    (pos, v, rows), kw = seen[0]
+    assert kw.get("scale") is None and pos.shape == (g, k * cap)
+    _check_dense_scatter(pos, v, rows, None)
+    _check_dense_scatter(pos, v.to(torch.bfloat16), rows, None)
 
 
 @pytest.mark.gpu
@@ -208,7 +345,6 @@ def test_union_banded_bf16_equals_fused_on_gpu(cuda):
     """The banded merge equals the fused merge bit for bit on the card
     under the bf16 wire, and each launches its own kernels."""
     from repro_torch.core.api import SparseAllreduce
-    from repro_torch.kernels import _build
     rng = np.random.RandomState(6)
     m, c = 16, 512
     idx = np.full((m, c), SENT, np.int64)
