@@ -34,7 +34,10 @@ line each, after the ``nvidia-smi`` name/power-limit line):
    merges within 1e-5 x max|union| of each other and 0.05 x max|union|
    of the exact sum; CUDA-event ms and launches per reduce of each pair;
 7. kernels -- each kernel on the inputs it got on the main path (phases
-   2-6, layer 0 / first round), against its plain version (ranks exact,
+   2-6, layer 0 / first round; the two merge-rank kernels at every shape
+   the main path handed them, both butterfly layers), against its plain
+   version (ranks exact, the banded kernel's own tile counts equal to
+   ``rank_tile_stats`` summed over the layer-0 run pairs,
    scatters bit-exact on dyadic inputs else rtol 1e-6, and repeatable;
    the dense scatter at the wire shape also bit-exact on general floats
    against its plain version on a CPU copy, with its layout equal to a
@@ -53,6 +56,7 @@ exits non-zero without one or outside a checkout of the repository.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -76,8 +80,9 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-# the phase the main path is in, read by the Recorders' keys
-PHASE = {"name": None}
+# the phase the main path is in, read by the Recorders' keys, and whether
+# a main-path call is running (the Recorders count only those calls)
+PHASE = {"name": None, "main": False}
 
 
 def main_path(call):
@@ -85,7 +90,11 @@ def main_path(call):
     main-path call, zeroed just before it and read just after."""
     from repro_torch.kernels import _build
     _build.reset_launches()
-    out = call()
+    PHASE["main"] = True
+    try:
+        out = call()
+    finally:
+        PHASE["main"] = False
     return out, dict(_build.LAUNCHES)
 
 
@@ -108,16 +117,20 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 class Recorder:
     """Wraps a kernel wrapper where the main path looks it up and keeps
     the arguments of its first call of each variant (``key(args,
-    kwargs)``), i.e. the layer-0 / first-round inputs of that variant."""
+    kwargs)``), i.e. the layer-0 / first-round inputs of that variant,
+    and the number of main-path calls of each variant."""
 
     def __init__(self, module, name, key=lambda args, kwargs: "first"):
         self.module, self.name, self.key = module, name, key
         self.fn = getattr(module, name)
-        self.args = {}
+        self.args, self.calls = {}, {}
         setattr(module, name, self)
 
     def __call__(self, *args, **kwargs):
-        self.args.setdefault(self.key(args, kwargs), (args, kwargs))
+        key = self.key(args, kwargs)
+        self.args.setdefault(key, (args, kwargs))
+        if PHASE["main"]:
+            self.calls[key] = self.calls.get(key, 0) + 1
         return self.fn(*args, **kwargs)
 
     def restore(self):
@@ -133,8 +146,10 @@ def scatter_variant(args, kwargs):
 
 
 def rank_variant(args, kwargs):
-    """Recorder key of a merge-rank call: the phase and the kernel."""
-    return PHASE["name"], "banded" if kwargs.get("banded") else "dense"
+    """Recorder key of a merge-rank call: the phase, the kernel and the
+    runs' shape (each butterfly layer hands the kernels its own)."""
+    return (PHASE["name"], "banded" if kwargs.get("banded") else "dense",
+            tuple(args[0].shape))
 
 
 def phase_planned(torch, parts):
@@ -402,40 +417,71 @@ def index_add_call(torch, pos, val, num_rows):
     return lambda: buf.index_add_(0, flat, vflat)
 
 
-def rank_timing(torch, runs, banded):
-    """Kernel, plain and library (``searchsorted`` over the same k*k run
-    pairs) ms of one layer's merge ranks, after an exactness check."""
+def rank_timing(torch, runs, banded, calls):
+    """One shape of a merge-rank kernel (``calls`` main-path calls there):
+    exact against its plain version and the dense plain version, two calls
+    bit-identical, then kernel, plain and library (``searchsorted`` over
+    the same k*k run pairs) ms, the byte bound, and the CUDA launches and
+    device ms per kernel stage of one call (profiler)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rank_merge import BM, merge_ranks
+    from repro_torch.kernels.rank_merge import BM, BN, merge_ranks
     got = merge_ranks(runs, banded=banded)
-    plain = lambda: ref.merge_ranks_ref(runs, BM if banded else None)
+    plain = lambda: ref.merge_ranks_ref(runs, (BM, BN) if banded else None)
     assert torch.equal(got, plain()), "merge ranks differ from plain"
     assert torch.equal(got, ref.merge_ranks_ref(runs)), "ranks differ"
     assert torch.equal(got, merge_ranks(runs, banded=banded)), "not repeatable"
     g, k, cap = runs.shape
     seq = runs.unsqueeze(1).expand(g, k, k, cap).contiguous()
     qry = runs.unsqueeze(2).expand(g, k, k, cap).contiguous()
-    out = {"shape": list(runs.shape),
-           "ms": cuda_ms(lambda: merge_ranks(runs, banded=banded), reps=10),
+    # calls of tens of microseconds need many reps to be timed; the
+    # profiler runs after the timings (its tracing slows launches)
+    reps = min(200, max(10, (1 << 25) // runs.numel()))
+    out = {"shape": list(runs.shape), "launches": calls,
+           "ms": cuda_ms(lambda: merge_ranks(runs, banded=banded), reps=reps,
+                         warmup=5),
            "plain_ms": cuda_ms(plain, reps=3, warmup=1),
            "bound_ms": bound_ms(runs.numel() * 8 + got.numel() * 4),
-           "library_ms": cuda_ms(lambda: torch.searchsorted(seq, qry), reps=3,
-                                 warmup=1)}
-    del seq, qry
+           "library_ms": cuda_ms(lambda: torch.searchsorted(seq, qry),
+                                 reps=max(3, reps // 4), warmup=2),
+           "reps": reps}
+    stages = profile_kernels(torch, lambda: merge_ranks(runs, banded=banded))
+    out["cuda_launches_per_call"] = sum(n for _, n in stages.values())
+    out["stage_ms"] = {name: ms for name, (ms, _) in stages.items()}
+    del seq, qry, got
     return out
 
 
-def rank_row(torch, runs, banded, launches, large=None):
-    """Merge ranks of one layer (the main path's launch form) vs plain;
-    ``large``: the dense kernel's runs at the union_wire layer-0 shape,
-    timed beside it."""
+def tile_counts_check(torch, runs):
+    """The banded kernel's own full / skipped / frontier tile counts on
+    ``runs`` equal ``rank_tile_stats`` summed over every group and ordered
+    run pair (strict for s > r), computed on a CPU copy."""
+    from repro_torch.kernels.rank_merge import merge_tile_stats
+    got = merge_tile_stats(runs)
+    want = merge_tile_stats(runs.cpu())
+    assert got == want, (got, want)
+    return got
+
+
+def rank_row(torch, recorded, banded, launches):
+    """A merge-rank kernel at every shape the main path handed it
+    (``recorded``: [(runs, calls)], the layer-0 union_wire shape first),
+    in the main path's launch form, against its plain version; the
+    two-stream form (modes 0/1) checked on two runs of each shape."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.rank_merge import rank_counts
-    a, b = runs[:, 0].contiguous(), runs[:, 1].contiguous()
-    for strict, side in ((True, "left"), (False, "right")):
-        assert torch.equal(rank_counts(a, b, strict=strict, banded=banded),
-                           ref.rank_counts_ref(a, b, side)), "counts differ"
     name = "rank_counts_banded" if banded else "rank_counts"
+    shapes = []
+    for runs, calls in recorded:
+        a, b = runs[:, 0].contiguous(), runs[:, 1].contiguous()
+        for strict, side in ((True, "left"), (False, "right")):
+            got = rank_counts(a, b, strict=strict, banded=banded)
+            assert torch.equal(got, ref.rank_counts_ref(a, b, side)), \
+                "counts differ"
+            assert torch.equal(got, rank_counts(a, b, strict=strict,
+                                                banded=banded)), "repeat"
+        shapes.append(rank_timing(torch, runs, banded, calls))
+    assert sum(e["launches"] for e in shapes) == launches[name], \
+        (name, [e["launches"] for e in shapes], launches[name])
     row = {
         "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/"
@@ -443,10 +489,15 @@ def rank_row(torch, runs, banded, launches, large=None):
         "replaces": "src/repro/kernels/rank_merge.py:"
                     + ("165" if banded else "142"),
         "launches": launches[name], "max_abs_err": 0,
-        "check": "exact, repeat identical", "bound_by": "bytes"}
-    row.update(rank_timing(torch, runs, banded))
-    if large is not None:
-        row["large"] = rank_timing(torch, large, banded)
+        "check": "exact vs plain at every shape, modes 0/1/2, repeat "
+                 "identical", "bound_by": "bytes"}
+    row.update({k: shapes[0][k] for k in ("shape", "ms", "plain_ms",
+                                          "bound_ms", "library_ms")})
+    row["shapes"] = shapes
+    if banded:
+        row["tile_counts"] = tile_counts_check(torch, recorded[0][0])
+        row["check"] += ("; tile counts equal rank_tile_stats summed over "
+                         "the layer-0 run pairs")
     return row
 
 
@@ -466,6 +517,14 @@ def stage_ms(torch, fn, reps: int = 5):
     """Device ms per call of each kernel ``fn`` launches, by name, from a
     ``torch.profiler`` trace of ``reps`` calls (empty if the trace holds
     no device time)."""
+    return {name: ms for name, (ms, _) in
+            profile_kernels(torch, fn, reps).items()}
+
+
+def profile_kernels(torch, fn, reps: int = 5):
+    """``{name: (device ms, launches)}`` per call of each kernel ``fn``
+    launches (template instances summed under one name), from a
+    ``torch.profiler`` trace of ``reps`` calls."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -480,8 +539,11 @@ def stage_ms(torch, fn, reps: int = 5):
         if us is None:
             us = getattr(evt, "self_cuda_time_total", 0)
         if us > 0:
-            name = evt.key.split("::")[-1].split("(")[0].split("<")[0]
-            out[name] = out.get(name, 0.0) + us / 1e3 / reps
+            key = evt.key.replace("(anonymous namespace)::", "")
+            key = key[5:] if key.startswith("void ") else key
+            name = re.split(r"[<(]", key)[0].split("::")[-1]
+            ms, n = out.get(name, (0.0, 0.0))
+            out[name] = (ms + us / 1e3 / reps, n + evt.count / reps)
     return out
 
 
@@ -657,18 +719,23 @@ def spmv_ell_row(torch, parts, row_ptr, cols, wts, x, launches):
     return row
 
 
+def rank_shapes(rec, kind):
+    """[(runs, main-path calls)] of one merge-rank kernel, one per shape:
+    union_wire's first, in butterfly-layer order, then union's."""
+    keys = sorted((key for key in rec.args if key[1] == kind),
+                  key=lambda key: key[0] != "union_wire")
+    return [(rec.args[key][0][0], rec.calls[key]) for key in keys]
+
+
 def kernel_rows(torch, rec, launches, parts):
     """Every kernel on its recorded main-path inputs vs its plain version,
     in the order of the TPU kernel table."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.onehot_scatter import (banded_onehot_scatter_add,
                                                     onehot_scatter_add)
-    ranks, scat, band = (rec["rank"].args, rec["scatter"].args,
-                         rec["banded"].args)
-    rows = [rank_row(torch, ranks[("union", "dense")][0][0], False, launches,
-                     large=ranks[("union_wire", "dense")][0][0]),
-            rank_row(torch, ranks[("union_wire", "banded")][0][0], True,
-                     launches)]
+    scat, band = rec["scatter"].args, rec["banded"].args
+    rows = [rank_row(torch, rank_shapes(rec["rank"], kind), kind == "banded",
+                     launches) for kind in ("dense", "banded")]
     args, kwargs = scat[("union", "f32")]
     row = scatter_row(torch, "onehot_scatter_add", onehot_scatter_add, args,
                       kwargs, launches, index_add_call(torch, *args))

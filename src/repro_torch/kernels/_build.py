@@ -41,9 +41,9 @@ LAUNCHES: Dict[str, int] = {
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point -> argtypes (pointers and the stream as c_void_p).
 _SIGNATURES = {
-    "repro_rank_counts": (_P, _P, _P, _LL, _I, _LL, _I, _LL, _I, _P),
-    "repro_rank_counts_banded": (_P, _P, _P, _LL, _I, _LL, _I, _LL, _I, _I,
-                                 _I, _P),
+    "repro_rank_counts": (_P, _P, _P, _P, _LL, _I, _LL, _I, _LL, _I, _P),
+    "repro_rank_counts_banded": (_P, _P, _P, _P, _P, _LL, _I, _LL, _I, _LL,
+                                 _I, _I, _I, _I, _P),
     "repro_onehot_scatter_add": (_P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _P,
                                  _P, _P),
     "repro_row_order": (_P, _LL, _LL, _LL, _P, _P, _P),
@@ -54,7 +54,9 @@ _SIGNATURES = {
                        _I, _P),
 }
 # C entry points that return a count, not a CUDA error
-_SIZES = {"repro_row_order_scratch": (_LL, _LL)}
+_SIZES = {"repro_row_order_scratch": (_LL, _LL),
+          "repro_rank_counts_scratch": (_LL, _I, _LL, _I),
+          "repro_rank_counts_banded_scratch": (_LL, _LL, _I)}
 
 _lib = None
 _lock = threading.Lock()

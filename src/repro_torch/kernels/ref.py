@@ -12,6 +12,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.sparse_vec import SENTINEL
+
 
 def onehot_scatter_add_ref(pos: torch.Tensor, val: torch.Tensor,
                            num_rows: int,
@@ -81,33 +83,60 @@ def rank_counts_ref(a: torch.Tensor, b: torch.Tensor, side: str) -> torch.Tensor
                               right=(side == "right")).to(torch.int32)
 
 
+def tile_classes(a: torch.Tensor, b: torch.Tensor, strict: bool, bm: int,
+                 bn: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The TPU banded kernel's tile classes: a [..., Ca] in blocks of
+    ``bm`` and b [..., Cb] in blocks of ``bn`` (each padded with SENTINEL
+    to a block multiple), and (full, skip) boolean [..., I, J] -- the
+    b-block wholly below every query of the a-block (b_hi < a_lo, or <=
+    when not strict: it adds its length), or wholly above (b_lo >= a_hi,
+    or >: it adds nothing); every other tile is a frontier tile."""
+    a_lo, a_hi = (e.unsqueeze(-1) for e in _padded_edges(a, bm))
+    b_lo, b_hi = (e.unsqueeze(-2) for e in _padded_edges(b, bn))
+    full = b_hi < a_lo if strict else b_hi <= a_lo
+    skip = b_lo >= a_hi if strict else b_lo > a_hi
+    return full, skip & ~full
+
+
+def _padded_edges(x: torch.Tensor, block: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(first, last) entry of every ``block``-entry block of sorted streams
+    x [..., C], the last block padded with SENTINEL: [..., ceil(C/block)]
+    each."""
+    c = x.shape[-1]
+    last = torch.arange(block - 1, -(-c // block) * block, block,
+                        device=x.device)
+    hi = x[..., last.clamp(max=c - 1)]
+    hi = torch.where(last < c, hi, torch.full_like(hi, SENTINEL))
+    return x[..., ::block], hi
+
+
 def rank_counts_banded_ref(a: torch.Tensor, b: torch.Tensor, side: str,
-                           bm: int) -> torch.Tensor:
-    """The banded kernel's counts, through its window arithmetic: query
-    tile t of ``bm`` entries of a, with edges ``lo``/``hi`` (its first and
-    last entry), counts every b before the window ``[w0, w1) =
-    [search(lo), search(hi))`` in full and none after it, and searches
-    only inside it.  Equal to :func:`rank_counts_ref` for sorted a, b."""
+                           bm: int, bn: int) -> torch.Tensor:
+    """The banded kernel's counts, through its tile triage
+    (:func:`tile_classes`).  Full blocks are a prefix of b and skipped ones
+    a suffix, so a query's count is every entry of its tile's full blocks
+    plus a search confined to the frontier window between them.  Equal to
+    :func:`rank_counts_ref` for sorted a, b."""
     a, b = a.contiguous(), b.contiguous()
-    ca = a.shape[-1]
-    first = torch.arange(0, ca, bm, device=a.device)
-    last = (first + bm).clamp(max=ca) - 1
-    right = side == "right"
-    w0 = torch.searchsorted(b, a[..., first].contiguous(), right=right)
-    w1 = torch.searchsorted(b, a[..., last].contiguous(), right=right)
+    ca, cb = a.shape[-1], b.shape[-1]
+    full, skip = tile_classes(a, b, side == "left", bm, bn)
+    nbb = full.shape[-1]
+    w0 = (full.sum(-1) * bn).clamp(max=cb)
+    w1 = ((nbb - skip.sum(-1)) * bn).clamp(max=cb)
     tile = torch.arange(ca, device=a.device) // bm
-    inside = torch.searchsorted(b, a, right=right)
+    inside = torch.searchsorted(b, a, right=side == "right")
     return torch.minimum(torch.maximum(inside, w0[..., tile]),
                          w1[..., tile]).to(torch.int32)
 
 
-def merge_ranks_ref(runs: torch.Tensor, banded_bm: Optional[int] = None
-                    ) -> torch.Tensor:
+def merge_ranks_ref(runs: torch.Tensor,
+                    banded: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Stable merge rank of every entry of k sorted runs [..., k, cap]:
     ``i + sum_{s != r} #{j : runs[s][j] (<= if s < r else <) runs[r][i]}``,
     int32 [..., k, cap] (a bijection onto [0, k*cap) per group).
-    ``banded_bm`` takes the counts through :func:`rank_counts_banded_ref`
-    with that query tile."""
+    ``banded=(bm, bn)`` takes the counts through
+    :func:`rank_counts_banded_ref` with those tiles."""
     k, cap = runs.shape[-2], runs.shape[-1]
     ranks = []
     for r in range(k):
@@ -117,10 +146,92 @@ def merge_ranks_ref(runs: torch.Tensor, banded_bm: Optional[int] = None
             if s != r:
                 side = "right" if s < r else "left"
                 a, b = runs[..., r, :], runs[..., s, :]
-                rk = rk + (rank_counts_ref(a, b, side) if banded_bm is None
-                           else rank_counts_banded_ref(a, b, side, banded_bm))
+                rk = rk + (rank_counts_ref(a, b, side) if banded is None
+                           else rank_counts_banded_ref(a, b, side, *banded))
         ranks.append(rk)
     return torch.stack(ranks, -2)
+
+
+# ---------------------------------------------------------------------------
+# Mirrors of the dense kernel's merge path (exercised by the CPU tests)
+# ---------------------------------------------------------------------------
+
+def merge_path_coranks(a: torch.Tensor, b: torch.Tensor, diag: torch.Tensor,
+                       a_wins_ties: bool) -> torch.Tensor:
+    """Co-rank of each diagonal d of ``diag`` (int64 [..., D]) in the merge
+    of sorted a [..., Ca] and b [..., Cb]: how many of the merge's first d
+    entries come from a, by the kernel's binary search -- the least i in
+    [max(0, d - Cb), min(d, Ca)] whose a[i] does not come before
+    b[d - 1 - i] (a comes first on ties when ``a_wins_ties``, else b)."""
+    ca, cb = a.shape[-1], b.shape[-1]
+    lo = (diag - cb).clamp(min=0)
+    hi = diag.clamp(max=ca)
+    if ca == 0 or cb == 0:
+        return lo
+    for _ in range(ca.bit_length() + 1):
+        mid = (lo + hi) // 2
+        x = a.gather(-1, mid.clamp(max=ca - 1))
+        y = b.gather(-1, (diag - 1 - mid).clamp(0, cb - 1))
+        first = (x <= y) if a_wins_ties else (x < y)
+        go = lo < hi
+        lo = torch.where(go & first, mid + 1, lo)
+        hi = torch.where(go & ~first, mid, hi)
+    return lo
+
+
+def _merge_steps(a: torch.Tensor, b: torch.Tensor, a_wins_ties: bool):
+    """Co-ranks at every diagonal 0..Ca+Cb, and which merge step takes a."""
+    n = a.shape[-1] + b.shape[-1]
+    d = torch.arange(n + 1, device=a.device).expand(a.shape[:-1] + (n + 1,))
+    i = merge_path_coranks(a, b, d.contiguous(), a_wins_ties)
+    return d, i, i[..., 1:] > i[..., :-1]
+
+
+def merge_path_counts_ref(a: torch.Tensor, b: torch.Tensor,
+                          side: str) -> torch.Tensor:
+    """:func:`rank_counts_ref` through the merge path: step d of the merge
+    takes a[i] when the co-rank rises from i, and that entry's count is
+    d - i (ties: a first for side='left', b first for 'right')."""
+    ca = a.shape[-1]
+    d, i, take = _merge_steps(a, b, side == "left")
+    counts = torch.zeros(a.shape[:-1] + (ca + 1,), dtype=torch.int64,
+                         device=a.device)
+    counts.scatter_(-1, torch.where(take, i[..., :-1], ca),
+                    d[..., :-1] - i[..., :-1])
+    return counts[..., :ca].to(torch.int32)
+
+
+def merge_tree_ranks_ref(runs: torch.Tensor) -> torch.Tensor:
+    """:func:`merge_ranks_ref` through the dense kernel's merge tree: each
+    entry becomes the key (value << 31) | origin, origin = r * cap + i
+    (the kernel packs value << 32 into uint64: the same order), so keys
+    are distinct and ordered by (value, run, position); ceil(log2 k)
+    levels (at least one) merge adjacent segments of 2^l runs pairwise by
+    co-ranks (an odd segment passes through), and the last level gives
+    each origin its merged position."""
+    lead, k, cap = runs.shape[:-2], runs.shape[-2], runs.shape[-1]
+    n = k * cap
+    keys = (runs.reshape(lead + (n,)) << 31) | torch.arange(
+        n, device=runs.device)
+    levels = max(1, (k - 1).bit_length())
+    for level in range(levels):
+        seg = cap << level
+        parts = []
+        for a0 in range(0, n, 2 * seg):
+            a, b = keys[..., a0:a0 + seg], keys[..., a0 + seg:a0 + 2 * seg]
+            if b.shape[-1] == 0:
+                parts.append(a)
+                continue
+            d, i, take = _merge_steps(a, b, True)
+            d, i = d[..., :-1], i[..., :-1]
+            parts.append(torch.where(
+                take, a.gather(-1, i.clamp(max=a.shape[-1] - 1)),
+                b.gather(-1, (d - i).clamp(max=b.shape[-1] - 1))))
+        keys = torch.cat(parts, -1)
+    ranks = torch.empty(lead + (n,), dtype=torch.int32, device=runs.device)
+    ranks.scatter_(-1, keys & (2**31 - 1), torch.arange(
+        n, dtype=torch.int32, device=runs.device).expand(lead + (n,)))
+    return ranks.reshape(runs.shape)
 
 
 def spmv_csr_ref(row_ptr: torch.Tensor, cols: torch.Tensor,

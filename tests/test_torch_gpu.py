@@ -283,6 +283,93 @@ def test_banded_rank_counts_kernel_matches_plain_on_gpu(cuda):
                                ref.rank_counts_ref(a, b, side))
 
 
+def _hashed_runs(g, k, cap, seed, tails=True):
+    """[g, k, cap] int64 runs of hashed distinct indices (the butterfly's
+    case), each sorted with a SENTINEL tail of its own length."""
+    from repro_torch.core.sparse_vec import HashPerm
+    rng = np.random.RandomState(seed)
+    perm = HashPerm.make(seed)
+    runs = np.full((g, k, cap), SENT, np.int64)
+    for i in range(g):
+        for r in range(k):
+            n = rng.randint(cap // 4, cap + 1) if tails else cap
+            raw = rng.choice(8 * cap, n, replace=False).astype(np.uint32)
+            runs[i, r, :n] = np.sort(perm.fwd_np(raw))
+    return runs
+
+
+def _check_ranks(cuda, runs, **kw):
+    """merge_ranks on the card == plain version, twice bit-identical."""
+    x = torch.as_tensor(runs, device=cuda)
+    got = merge_ranks(x, **kw)
+    assert torch.equal(got, ref.merge_ranks_ref(x))
+    assert torch.equal(got, merge_ranks(x, **kw))
+
+
+@pytest.mark.gpu
+def test_merge_path_rank_kernel_shapes_on_gpu(cuda):
+    """The merge path in modes 0/1 (batch dims, Ca != Cb, several tiles of
+    1,024 outputs, all-equal and SENTINEL-only streams) and mode 2 (k from
+    1 to 16, odd k, caps that are no power of two, the union_wire layer-1
+    shape [., 4, 131072] at 8 groups), against the plain version, repeat
+    identical."""
+    rng = np.random.RandomState(12)
+    for shape_a, shape_b in [((2, 3, 5000), (2, 3, 777)), ((4, 1), (4, 9000)),
+                             ((3, 2048), (3, 2048))]:
+        a = torch.as_tensor(np.sort(rng.randint(0, 3000, shape_a), -1),
+                            device=cuda)
+        b = torch.as_tensor(np.sort(rng.randint(0, 3000, shape_b), -1),
+                            device=cuda)
+        for strict, side in ((True, "left"), (False, "right")):
+            got = rank_counts(a, b, strict=strict)
+            assert torch.equal(got, ref.rank_counts_ref(a, b, side))
+            assert torch.equal(got, rank_counts(a, b, strict=strict))
+    for fill in (77, SENT):
+        a = torch.full((2, 3000), fill, dtype=torch.int64, device=cuda)
+        b = torch.full((2, 2500), fill, dtype=torch.int64, device=cuda)
+        for strict, side in ((True, "left"), (False, "right")):
+            assert torch.equal(rank_counts(a, b, strict=strict),
+                               ref.rank_counts_ref(a, b, side))
+    a = torch.as_tensor(_hashed_runs(2, 1, 900, seed=3)[:, 0], device=cuda)
+    empty = torch.zeros((2, 0), dtype=torch.int64, device=cuda)
+    for banded in (False, True):          # an empty b counts nothing
+        for strict in (True, False):
+            assert not rank_counts(a, empty, strict=strict, banded=banded).any()
+    for g, k, cap in [(3, 1, 700), (2, 2, 4097), (3, 3, 1000), (2, 5, 3001),
+                      (4, 16, 1500), (8, 4, 131072)]:
+        _check_ranks(cuda, _hashed_runs(g, k, cap, seed=k + cap))
+    _check_ranks(cuda, np.full((2, 5, 900), 9, np.int64))
+    _check_ranks(cuda, np.full((2, 3, 900), SENT, np.int64))
+
+
+@pytest.mark.gpu
+def test_banded_rank_tiles_and_shared_memory_on_gpu(cuda):
+    """The tile-triage kernel against the plain version in modes 0, 1 and
+    2 for query tiles and b-blocks that do not divide the streams, b-blocks
+    whose staging needs more than 48 KB of shared memory (16,384 and the
+    largest, 49,152, entries), the union_wire layer-1 shape at 8 groups;
+    its own tile counts equal ``rank_tile_stats`` summed over the run
+    pairs; tiles past the limits raise."""
+    from repro_torch.kernels.rank_merge import BN_MAX, merge_tile_stats
+    for g, k, cap, bm, bn in [(3, 4, 700, 512, 512), (2, 5, 3001, 100, 37),
+                              (2, 16, 1500, 1024, 64), (2, 3, 40000, 512, 16384),
+                              (2, 2, 60000, 7, BN_MAX), (8, 4, 131072, 512, 512)]:
+        runs = _hashed_runs(g, k, cap, seed=bm + bn)
+        _check_ranks(cuda, runs, banded=True, bm=bm, bn=bn)
+        x = torch.as_tensor(runs, device=cuda)
+        a, b = x[:, 0, : cap // 2 + 3].contiguous(), x[:, -1].contiguous()
+        for strict, side in ((True, "left"), (False, "right")):
+            got = rank_counts(a, b, strict=strict, banded=True, bm=bm, bn=bn)
+            assert torch.equal(got, ref.rank_counts_ref(a, b, side))
+        if cap <= 3001:
+            assert merge_tile_stats(x, bm=bm, bn=bn) == \
+                merge_tile_stats(x.cpu(), bm=bm, bn=bn)
+    x = torch.as_tensor(_hashed_runs(2, 3, 100, seed=1), device=cuda)
+    for bm, bn in ((2048, 512), (512, BN_MAX + 1), (512, 65536)):
+        with pytest.raises(ValueError, match="bn|bm"):
+            merge_ranks(x, banded=True, bm=bm, bn=bn)
+
+
 def _wire_values(rng, shape, dtype, cuda):
     """(values, scale or None): dyadic f32 / bf16, or int8 + dyadic scale."""
     if dtype == torch.int8:
