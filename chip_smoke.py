@@ -32,13 +32,22 @@ line each, after the ``nvidia-smi`` name/power-limit line):
    pairs: indices exact everywhere, raw/delta values exact against the
    float64 oracle, delta+bf16 bit-identical across merges, delta+int8ef
    merges within 1e-5 x max|union| of each other and 0.05 x max|union|
-   of the exact sum; CUDA-event ms and launches per reduce of each pair;
+   of the exact sum; CUDA-event ms and launches per reduce of each pair,
+   and for the fused and banded merges under the raw wire the device ms
+   of one reduce and its twelve largest kernels (profiler);
 7. kernels -- each kernel on the inputs it got on the main path (phases
    2-6, layer 0 / first round; the two merge-rank kernels at every shape
-   the main path handed them, both butterfly layers), against its plain
-   version (ranks exact, the banded kernel's own tile counts equal to
-   ``rank_tile_stats`` summed over the layer-0 run pairs,
-   scatters bit-exact on dyadic inputs else rtol 1e-6, and repeatable;
+   the main path handed them, and the banded scatters at every (butterfly
+   layer, value dtype): f32, bf16 and int8 + scale at both layers, each
+   with its main-path calls, its two CUDA launches and device ms per
+   stage, a byte bound over what it must move (the kept sources, the
+   window table and the output) and one over every ``pos`` entry, and
+   its window table equal to ``searchsorted``), against its
+   plain version (ranks exact, the banded kernel's own tile counts equal
+   to ``rank_tile_stats`` summed over the layer-0 run pairs,
+   scatters bit-exact on dyadic inputs else rtol 1e-6, the scaled banded
+   scatter bit-exact against its plain version on a CPU copy, and
+   repeatable;
    the dense scatter at the wire shape also bit-exact on general floats
    against its plain version on a CPU copy, with its layout equal to a
    stable argsort; SpMVs rtol 1e-5, the CSR kernel repeatable), with
@@ -143,6 +152,12 @@ def scatter_variant(args, kwargs):
     if kwargs.get("scale") is not None:
         return PHASE["name"], "scaled"
     return PHASE["name"], "bf16" if args[1].dtype.itemsize == 2 else "f32"
+
+
+def banded_variant(args, kwargs):
+    """Recorder key of a banded scatter call: the scatter key and the
+    positions' shape (each butterfly layer hands the kernel its own)."""
+    return scatter_variant(args, kwargs) + (tuple(args[0].shape),)
 
 
 def rank_variant(args, kwargs):
@@ -319,6 +334,14 @@ def phase_union_wire(torch):
                           "max_abs_err": err,
                           "launches": {k: v for k, v in launches.items()
                                        if v}})
+            if wire == "raw" and merge != "sort":
+                # where a reduce's device time goes, by kernel (profiler)
+                stages = profile_kernels(torch, lambda: ar.union_reduce(
+                    ti, tv, out_cap), reps=2)
+                pairs[-1]["device_ms"] = sum(m for m, _ in stages.values())
+                pairs[-1]["top_kernels_ms"] = dict(sorted(
+                    ((k, m) for k, (m, _) in stages.items()),
+                    key=lambda kv: -kv[1])[:12])
     peak = torch.cuda.max_memory_allocated()
     banded_i8 = next(p["launches"] for p in pairs
                      if p["merge"] == "banded" and p["wire"] == "delta+int8ef")
@@ -515,36 +538,61 @@ def general_inputs(torch, pos, val, scale):
 
 def stage_ms(torch, fn, reps: int = 5):
     """Device ms per call of each kernel ``fn`` launches, by name, from a
-    ``torch.profiler`` trace of ``reps`` calls (empty if the trace holds
-    no device time)."""
+    ``torch.profiler`` trace of ``reps`` calls."""
     return {name: ms for name, (ms, _) in
             profile_kernels(torch, fn, reps).items()}
 
 
-def profile_kernels(torch, fn, reps: int = 5):
+def profile_kernels(torch, fn, reps: int = 5, tries: int = 5):
     """``{name: (device ms, launches)}`` per call of each kernel ``fn``
     launches (template instances summed under one name), from a
-    ``torch.profiler`` trace of ``reps`` calls."""
-    from torch.profiler import ProfilerActivity, profile
+    ``torch.profiler`` trace of ``reps`` calls; only the device's own
+    events count (an operator's or a launch call's device time is its
+    kernels' again).  The profiler now and then drops the device events
+    of whole calls at a trace's edges, so each trace starts with a
+    warm-up step of one call that is not recorded, the calls sit 5 ms of
+    host time inside the recorded window on both sides, and a trace is
+    taken again, up to ``tries`` times in all, unless it holds device
+    events and every kernel was launched the same whole number of times
+    in each of the ``reps`` calls; the last such failure raises."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    traces = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: traces.append(p.key_averages())
+                     ) as prof:
             fn()
-        torch.cuda.synchronize()
-    out = {}
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0)
-        if us > 0:
-            key = evt.key.replace("(anonymous namespace)::", "")
-            key = key[5:] if key.startswith("void ") else key
-            name = re.split(r"[<(]", key)[0].split("::")[-1]
-            ms, n = out.get(name, (0.0, 0.0))
-            out[name] = (ms + us / 1e3 / reps, n + evt.count / reps)
-    return out
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(0.005)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.005)
+            prof.step()
+        total = {}
+        for evt in traces.pop():
+            if (evt.device_type == DeviceType.CPU
+                    or evt.key.startswith("ProfilerStep")):
+                continue
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = getattr(evt, "self_cuda_time_total", 0)
+            if us > 0:
+                key = evt.key.replace("(anonymous namespace)::", "")
+                key = key[5:] if key.startswith("void ") else key
+                name = re.split(r"[<(]", key)[0].split("::")[-1]
+                ms, n = total.get(name, (0.0, 0))
+                total[name] = (ms + us / 1e3, n + evt.count)
+        if total and all(n % reps == 0 for _, n in total.values()):
+            return {name: (ms / reps, n // reps)
+                    for name, (ms, n) in total.items()}
+    raise RuntimeError(f"profiler: no whole trace of {reps} calls in {tries} "
+                       f"tries; the last held {total}")
 
 
 def dense_scatter_large(torch, fn, pos, val, num_rows, scale):
@@ -593,24 +641,17 @@ def scatter_row(torch, name, fn, args, kwargs, launches, library):
         check = ("bit-exact vs plain on CPU; rtol 1e-6 + 1e-6 x max vs plain "
                  "on card (general scale); repeat identical")
     assert torch.equal(got, fn(*args, **kwargs)), f"{name} not repeatable"
-    b2, c = pos.shape
-    kernel = "onehot_scatter_add" if name.startswith("onehot") \
-        else "banded_onehot_scatter_add"
-    source = {"onehot_scatter_add": "onehot_scatter.cu",
-              "banded_onehot_scatter_add": "banded_onehot_scatter.cu"}[kernel]
-    line = {"onehot_scatter_add": "80", "onehot_scatter_add_scaled": "58",
-            "banded_onehot_scatter_add": "177",
-            "banded_onehot_scatter_add_scaled": "156"}[name]
+    line = {"onehot_scatter_add": "80", "onehot_scatter_add_scaled": "58"}
     return {
         "name": name, "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/" + source,
-        "replaces": "src/repro/kernels/onehot_scatter.py:" + line,
+        "source": "src/repro_torch/kernels/csrc/onehot_scatter.cu",
+        "replaces": "src/repro/kernels/onehot_scatter.py:" + line[name],
         "launches": launches[name],
         "max_abs_err": float((got - want).abs().max()), "check": check,
         **scatter_timing(torch, fn, args, kwargs, library)}
 
 
-def scatter_timing(torch, fn, args, kwargs, library):
+def scatter_timing(torch, fn, args, kwargs, library, reps: int = 10):
     """Shape, dtype, kernel / plain / library ms and byte bound of one
     scatter call."""
     from repro_torch.kernels import ref
@@ -625,11 +666,103 @@ def scatter_timing(torch, fn, args, kwargs, library):
         "shape": [pos.shape[0], pos.shape[1], int(val.shape[-1]),
                   int(num_rows)],
         "val_dtype": str(val.dtype).replace("torch.", ""),
-        "ms": cuda_ms(lambda: fn(*args, **kwargs), reps=10),
+        "ms": cuda_ms(lambda: fn(*args, **kwargs), reps=reps),
         "plain_ms": cuda_ms(lambda: ref.onehot_scatter_add_ref(
             pos, val, num_rows, scale), reps=10),
         "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
-        "library_ms": None if library is None else cuda_ms(library, reps=10)}
+        "library_ms": None if library is None else cuda_ms(library,
+                                                           reps=reps)}
+
+
+def banded_call(torch, args, kwargs, calls):
+    """The banded scatter at one (layer, dtype) of the main path
+    (``calls`` main-path calls there): bit-exact against its plain version
+    (on the card for dyadic values, on a CPU copy with the int8 wire's
+    general scales), two calls identical, its window table equal to
+    ``searchsorted`` of the tile boundaries; kernel, plain and
+    ``index_add_`` ms; the byte bound of what the kernel must move (the
+    kept sources' ``pos``, values and scales, the window table and the
+    output; the parked tail is never read) and, beside it, the bound over
+    every ``pos`` entry; the CUDA launches (two) and device ms per stage
+    of one call (profiler)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.onehot_scatter import (BANDED_ROWS,
+                                                    banded_onehot_scatter_add,
+                                                    banded_windows)
+    pos, val, num_rows = args
+    scale = kwargs.get("scale")
+    fn = banded_onehot_scatter_add
+    got = fn(*args, **kwargs)
+    want = ref.onehot_scatter_add_ref(pos, val, num_rows, scale)
+    if scale is None:
+        assert torch.equal(got, want), "banded differs from plain"
+        check = "bit-exact vs plain (dyadic)"
+    else:
+        on_cpu = ref.onehot_scatter_add_ref(pos.cpu(), val.cpu(), num_rows,
+                                            scale.cpu())
+        assert torch.equal(got.cpu(), on_cpu), "banded differs from CPU plain"
+        torch.testing.assert_close(got, want, rtol=1e-6,
+                                   atol=1e-6 * float(want.abs().max()))
+        check = ("bit-exact vs plain on a CPU copy (general scales); rtol "
+                 "1e-6 + 1e-6 x max vs plain on card")
+        del on_cpu
+    err = float((got - want).abs().max())
+    assert torch.equal(got, fn(*args, **kwargs)), "banded not repeatable"
+    keys = torch.clamp(torch.arange(-(-num_rows // BANDED_ROWS) + 1,
+                                    device=pos.device) * BANDED_ROWS,
+                       max=num_rows).to(torch.int32)
+    assert torch.equal(banded_windows(pos, num_rows), torch.searchsorted(
+        pos, keys.expand(pos.shape[0], -1).contiguous())), "window table"
+    kept = int(((pos >= 0) & (pos < num_rows)).sum())
+    del got, want
+    out = {"calls": calls, "check": check + "; repeat identical; window "
+           "table = searchsorted", "max_abs_err": err, "kept_sources": kept,
+           **scatter_timing(torch, fn, args, kwargs, None if scale is not None
+                            else index_add_call(torch, pos, val, num_rows),
+                            reps=50)}
+    out["bound_all_pos_ms"] = out["bound_ms"]
+    out["bound_ms"] = bound_ms(
+        kept * (4 + val.shape[-1] * val.element_size()
+                + (0 if scale is None else 4))
+        + keys.numel() * pos.shape[0] * 8
+        + pos.shape[0] * num_rows * val.shape[-1] * 4)
+    stages = profile_kernels(torch, lambda: fn(*args, **kwargs))
+    out["cuda_launches_per_call"] = sum(n for _, n in stages.values())
+    assert out["cuda_launches_per_call"] == 2, stages
+    out["stage_ms"] = {name: ms for name, (ms, _) in stages.items()}
+    return out
+
+
+def banded_rows(torch, rec, launches):
+    """Rows 5 and 6: the banded scatter at every (butterfly layer, value
+    dtype) the main path handed it, layer 0 first; each row's top-level
+    numbers are its layer-0 call's (f32, or int8 + scale)."""
+    rows = []
+    for name, kinds in (("banded_onehot_scatter_add", ("f32", "bf16")),
+                        ("banded_onehot_scatter_add_scaled", ("scaled",))):
+        keys = sorted((k for k in rec.args if k[0] == "union_wire"
+                       and k[1] in kinds),
+                      key=lambda k: (k[2][1], kinds.index(k[1])))
+        shapes = [banded_call(torch, *rec.args[k], rec.calls.get(k, 0))
+                  for k in keys]
+        assert sum(e["calls"] for e in shapes) == launches[name], \
+            (name, [e["calls"] for e in shapes], launches[name])
+        line = "177" if name == "banded_onehot_scatter_add" else "156"
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/banded_onehot_scatter.cu",
+            "replaces": "src/repro/kernels/onehot_scatter.py:" + line,
+            "launches": launches[name],
+            "max_abs_err": max(e["max_abs_err"] for e in shapes),
+            "check": "bit-exact at every (layer, dtype) of the main path: "
+                     "dyadic vs plain, scaled vs plain on a CPU copy (and "
+                     "rtol 1e-6 vs plain on card); repeat identical; window "
+                     "table = searchsorted",
+            **{k: shapes[0][k] for k in ("shape", "val_dtype", "ms",
+                                         "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms", "bound_all_pos_ms")},
+            "shapes": shapes})
+    return rows
 
 
 def csr_library(torch, row_ptr, cols, wts, x):
@@ -731,9 +864,8 @@ def kernel_rows(torch, rec, launches, parts):
     """Every kernel on its recorded main-path inputs vs its plain version,
     in the order of the TPU kernel table."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.onehot_scatter import (banded_onehot_scatter_add,
-                                                    onehot_scatter_add)
-    scat, band = rec["scatter"].args, rec["banded"].args
+    from repro_torch.kernels.onehot_scatter import onehot_scatter_add
+    scat = rec["scatter"].args
     rows = [rank_row(torch, rank_shapes(rec["rank"], kind), kind == "banded",
                      launches) for kind in ("dense", "banded")]
     args, kwargs = scat[("union", "f32")]
@@ -758,13 +890,7 @@ def kernel_rows(torch, rec, launches, parts):
     row["check"] += "; " + dense_scatter_large(
         torch, onehot_scatter_add, *args, kwargs["scale"])
     rows.append(row)
-    args, kwargs = band[("union_wire", "f32")]
-    rows.append(scatter_row(torch, "banded_onehot_scatter_add",
-                            banded_onehot_scatter_add, args, kwargs, launches,
-                            index_add_call(torch, *args)))
-    rows.append(scatter_row(torch, "banded_onehot_scatter_add_scaled",
-                            banded_onehot_scatter_add,
-                            *band[("union_wire", "scaled")], launches, None))
+    rows.extend(banded_rows(torch, rec["banded"], launches))
     csr_args = rec["spmv"].args[("pagerank", "first")][0]
     rows.append(spmv_ell_row(torch, parts, *csr_args[:4], launches))
     rows.append(spmv_csr_row(torch, *csr_args, launches))
@@ -803,7 +929,7 @@ def main() -> int:
     rec = {"rank": Recorder(ops, "merge_ranks", rank_variant),
            "scatter": Recorder(ops, "onehot_scatter_add", scatter_variant),
            "banded": Recorder(ops, "banded_onehot_scatter_add",
-                              scatter_variant),
+                              banded_variant),
            "spmv": Recorder(engine, "spmv_csr",
                             lambda a, kw: (PHASE["name"], "first"))}
 
@@ -831,9 +957,10 @@ def main() -> int:
         r.restore()
     emit({"phase": "main_path_launches", "launches": launches,
           "per_phase": per_phase, "graph_s": graph_s})
-    # off the main path: the ELL kernel (PageRank runs the CSR kernel) and
-    # the dense scatter's layout stages launched on their own
-    off_path = ("spmv_ell", "row_order")
+    # off the main path: the ELL kernel (PageRank runs the CSR kernel), the
+    # dense scatter's layout stages and the banded scatter's window table,
+    # each launched on its own
+    off_path = ("spmv_ell", "row_order", "banded_windows")
     assert all(launches[k] == 0 for k in off_path), launches
     assert all(v > 0 for k, v in launches.items() if k not in off_path), \
         launches

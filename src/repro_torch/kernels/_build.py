@@ -31,12 +31,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # One entry per TPU kernel (scaled variants apart from their unscaled ones),
-# plus ``row_order``, the dense scatter's layout stages launched on their own.
+# plus ``row_order``, the dense scatter's layout stages, and
+# ``banded_windows``, the banded scatter's window table, each launched on
+# its own.
 LAUNCHES: Dict[str, int] = {
     "rank_counts": 0, "rank_counts_banded": 0, "onehot_scatter_add": 0,
     "onehot_scatter_add_scaled": 0, "banded_onehot_scatter_add": 0,
     "banded_onehot_scatter_add_scaled": 0, "spmv_ell": 0, "spmv_csr": 0,
-    "row_order": 0}
+    "row_order": 0, "banded_windows": 0}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point -> argtypes (pointers and the stream as c_void_p).
@@ -48,7 +50,8 @@ _SIGNATURES = {
                                  _P, _P),
     "repro_row_order": (_P, _LL, _LL, _LL, _P, _P, _P),
     "repro_banded_onehot_scatter_add": (_P, _P, _P, _P, _LL, _LL, _LL, _I,
-                                        _I, _P),
+                                        _I, _P, _LL, _P),
+    "repro_banded_windows": (_P, _P, _LL, _LL, _LL, _LL, _P),
     "repro_spmv_ell": (_P, _P, _P, _P, _LL, _LL, _LL, _LL, _P),
     "repro_spmv_csr": (_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _I,
                        _I, _P),

@@ -17,8 +17,10 @@ same bits:
   its run;
 * :func:`banded_onehot_scatter_add` (``csrc/banded_onehot_scatter.cu``,
   TPU rows 5 and 6): non-decreasing ``pos`` with at most ``band`` sources
-  per row; each block binary-searches its own window of sources and reads
-  it once.
+  per row; one small launch builds the table of each ``BANDED_ROWS``-row
+  output tile's source window (:func:`banded_windows`, the TPU's
+  start-block table), then each block reads its own window once, and a
+  tile with an empty window only writes its zero rows.
 
 ``val`` arrives in its wire type -- f32, bf16, or int8 with ``scale`` --
 and is widened (and scaled) in registers only; sums are f32.  The plain
@@ -32,11 +34,13 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .ref import (banded_onehot_scatter_add_ref, onehot_scatter_add_ref,
-                  row_order_ref)
+from .ref import (banded_onehot_scatter_add_ref, banded_windows_ref,
+                  onehot_scatter_add_ref, row_order_ref)
 
 # the reference's default tile shapes (out-rows, width, in-rows)
 BM, BN, BK = 128, 128, 512
+# output rows per block of the banded CUDA kernel (one window per tile)
+BANDED_ROWS = 4096
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -80,7 +84,9 @@ def _layout_buffers(pos: torch.Tensor, num_rows: int):
 
 def _launch(kernel: str, entry: str, pos: torch.Tensor, val: torch.Tensor,
             scale: Optional[torch.Tensor], num_rows: int,
-            *scratch: torch.Tensor) -> torch.Tensor:
+            *extra: int) -> torch.Tensor:
+    """Launch a scatter's C entry; ``extra`` (scratch pointers, tile rows)
+    goes after the value dtype."""
     lead, c, w = pos.shape[:-1], pos.shape[-1], val.shape[-1]
     out = torch.empty(lead + (num_rows, w), dtype=torch.float32,
                       device=pos.device)
@@ -92,8 +98,7 @@ def _launch(kernel: str, entry: str, pos: torch.Tensor, val: torch.Tensor,
         _build.launch(kernel, entry, pos.data_ptr(), val.data_ptr(),
                       None if scale is None else scale.data_ptr(),
                       out.data_ptr(), math.prod(lead), c, num_rows, w,
-                      _DTYPES[val.dtype], *(t.data_ptr() for t in scratch),
-                      _build.stream_of(pos))
+                      _DTYPES[val.dtype], *extra, _build.stream_of(pos))
     return out
 
 
@@ -140,8 +145,9 @@ def onehot_scatter_add(pos: torch.Tensor, val: torch.Tensor, num_rows: int,
     _check("onehot_scatter_add", pos, val, scale)
     if pos.device.type == "cpu":
         return onehot_scatter_add_ref(pos, val, num_rows, scale)
+    scratch, perm = _layout_buffers(pos, num_rows)  # alive until launched
     return _launch("onehot_scatter_add", "repro_onehot_scatter_add", pos, val,
-                   scale, num_rows, *_layout_buffers(pos, num_rows))
+                   scale, num_rows, scratch.data_ptr(), perm.data_ptr())
 
 
 def banded_onehot_scatter_add(pos: torch.Tensor, val: torch.Tensor,
@@ -154,12 +160,44 @@ def banded_onehot_scatter_add(pos: torch.Tensor, val: torch.Tensor,
     at the tail); then the result equals the dense scatter's.  The kernel
     does not check the precondition.  CUDA tensors launch
     ``banded_onehot_scatter_add`` (``_scaled`` with a scale), CPU tensors
-    run the plain version."""
+    run the plain version.  One call makes two CUDA launches (the window
+    table, then the scatter) and counts as one; its C entry refuses C >
+    2**31 - 2**16 (32-bit indices within a batch row)."""
     _check("banded_onehot_scatter_add", pos, val, scale)
     if band < 1:
         raise ValueError(f"band must be >= 1, got {band}")
     if pos.device.type == "cpu":
         return banded_onehot_scatter_add_ref(pos, val, num_rows, band, scale)
+    table = _window_table(pos, num_rows)
     return _launch("banded_onehot_scatter_add",
                    "repro_banded_onehot_scatter_add", pos, val, scale,
-                   num_rows)
+                   num_rows, table.data_ptr(), BANDED_ROWS)
+
+
+def _window_table(pos: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """Scratch for the window table, int64 [..., ceil(num_rows /
+    BANDED_ROWS) + 1], allocated on ``pos``'s device."""
+    return torch.empty(pos.shape[:-1] + (-(-num_rows // BANDED_ROWS) + 1,),
+                       dtype=torch.int64, device=pos.device)
+
+
+def banded_windows(pos: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """The banded scatter's window table, exposed on its own: int64
+    [..., T + 1] with T = ceil(num_rows / BANDED_ROWS) and ``first[...,
+    t]`` the first source i with ``pos[..., i] >= min(t * BANDED_ROWS,
+    num_rows)`` (C if none), for non-decreasing ``pos`` [..., C] int32;
+    output tile t's sources are ``[first[t], first[t + 1])``.  CUDA
+    tensors launch the table kernel alone (counted as ``banded_windows``),
+    CPU tensors run the plain version."""
+    if pos.dtype != torch.int32:
+        raise TypeError(f"banded_windows: pos must be int32, got {pos.dtype}")
+    if pos.device.type == "cpu":
+        return banded_windows_ref(pos, num_rows, BANDED_ROWS)
+    _build.check_cuda("banded_windows", pos)
+    table = _window_table(pos, num_rows)
+    with torch.cuda.device(pos.device):
+        _build.launch("banded_windows", "repro_banded_windows", pos.data_ptr(),
+                      table.data_ptr(), math.prod(pos.shape[:-1]),
+                      pos.shape[-1], num_rows, BANDED_ROWS,
+                      _build.stream_of(pos))
+    return table

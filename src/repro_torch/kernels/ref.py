@@ -76,6 +76,20 @@ def banded_onehot_scatter_add_ref(pos: torch.Tensor, val: torch.Tensor,
     return onehot_scatter_add_ref(pos, val, num_rows, scale)
 
 
+def banded_windows_ref(pos: torch.Tensor, num_rows: int,
+                       bm: int) -> torch.Tensor:
+    """The banded kernel's window table: int64 [..., T + 1], T =
+    ceil(num_rows / bm), entry t the first i with ``pos[..., i] >=
+    min(t * bm, num_rows)`` (C if none) -- the TPU's start table (one
+    searchsorted per bm-row output tile) with one boundary more, the end
+    of the last tile's window.  For non-decreasing ``pos`` output tile t's
+    sources are ``[first[t], first[t + 1])``."""
+    keys = torch.clamp(torch.arange(-(-num_rows // bm) + 1,
+                                    device=pos.device) * bm, max=num_rows)
+    keys = keys.to(pos.dtype).expand(pos.shape[:-1] + keys.shape)
+    return torch.searchsorted(pos.contiguous(), keys.contiguous())
+
+
 def rank_counts_ref(a: torch.Tensor, b: torch.Tensor, side: str) -> torch.Tensor:
     """counts[..., i] = #{j : b[..., j] < a[..., i]} (side='left') or <=
     (side='right'), int32; a, b int64 sorted in [0, 2**32)."""

@@ -14,7 +14,9 @@ where a general scale is applied (the plain version's ``index_add_`` sums
 with atomics on the card); the dense scatter also bit for bit against its
 plain version run on a CPU copy (which sums in source order, the kernel's
 order) on general floats, and its counting layout (``row_order``) exactly
-against a stable argsort; the SpMVs within rtol 1e-5 (float32 sums in
+against a stable argsort; the banded scatter the same way on the window
+table's adversarial cases, and its table (``banded_windows``) exactly
+against ``searchsorted``; the SpMVs within rtol 1e-5 (float32 sums in
 another order), the CSR kernel also bit-identical across two launches.
 """
 import numpy as np
@@ -22,7 +24,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.onehot_scatter import (banded_onehot_scatter_add,
+from repro_torch.kernels.onehot_scatter import (BANDED_ROWS,
+                                                banded_onehot_scatter_add,
+                                                banded_windows,
                                                 onehot_scatter_add, row_order)
 from repro_torch.kernels.rank_merge import merge_ranks, rank_counts
 from repro_torch.kernels.spmv_csr import spmv_csr
@@ -456,3 +460,131 @@ def test_union_banded_bf16_equals_fused_on_gpu(cuda):
     assert launches["banded"]["banded_onehot_scatter_add"] == 2
     assert launches["banded"]["rank_counts"] == 0
     assert launches["fused"]["onehot_scatter_add"] == 2
+
+
+def _banded_pos(mult, lead=0, tail=0, rows=None):
+    """int32 monotone positions: ``lead`` entries at -1, row r repeated
+    ``mult[r]`` times, then ``tail`` entries parked at rows, rows + 1, ..."""
+    rows = len(mult) if rows is None else rows
+    return np.concatenate([np.full(lead, -1),
+                           np.repeat(np.arange(len(mult)), mult),
+                           rows + np.arange(tail) // 7]).astype(np.int32)
+
+
+def _banded_cases(rng):
+    """(name, band, pos [B, C], rows) -- the window table's hard cases."""
+    b = BANDED_ROWS
+    cases = []
+    rows = 5 * b + 77                  # empty tiles in the middle and tail
+    mult = rng.randint(0, 5, rows)
+    mult[b:2 * b] = 0
+    mult[3 * b:] = 0
+    mult[3 * b + 5] = 3
+    cases.append(("empty_tiles", 4, _banded_pos(mult, 3, 900)[None], rows))
+    rows = 3 * b + 1                   # gap rows inside a tile
+    mult = rng.randint(0, 3, rows) * (rng.rand(rows) < 0.5)
+    mult[100:1600] = 0
+    mult[b + 1:2 * b - 1] = 0          # only the tile's edge rows are set
+    cases.append(("gaps", 2, _banded_pos(mult, 0, 5)[None], rows))
+    rows = 4 * b                       # runs at tile edges and long runs
+    mult = rng.randint(0, 3, rows)
+    for r in (b - 1, b, 2 * b - 1, 2 * b, 3 * b - 1):
+        mult[r] = 16
+    mult[b + 700: b + 760] = 16        # runs across pass and segment edges
+    cases.append(("edges", 16, _banded_pos(mult, 1, 3)[None], rows))
+    rows = 2 * b + 3                   # windows larger than many passes
+    mult = rng.randint(0, 2, rows)
+    mult[5] = 700
+    mult[b + 2] = 3000
+    cases.append(("band700", 3000, _banded_pos(mult, 0, 11)[None], rows))
+    rows = 3 * b - 5                   # a batch of very different windows
+    parts = [np.full(7000, rows), _banded_pos(np.ones(rows, int)),
+             _banded_pos(np.eye(1, rows, 2 * b + 9, dtype=int)[0], 50),
+             _banded_pos(rng.randint(0, 4, rows))]
+    c = max(len(x) for x in parts) + 13
+    pos = np.stack([np.concatenate([x, np.full(c - len(x), rows)])
+                    for x in parts]).astype(np.int32)
+    cases.append(("batch", 3, pos, rows))
+    cases.append(("tiny", 2, np.array([[0, 0, 1, 4, 9, 9, 10, 10]],
+                                      np.int32), 10))
+    return cases
+
+
+def _check_banded(pos, val, rows, band, scale):
+    """The banded scatter equals the plain version on the card and on a
+    CPU copy bit for bit, twice, one launch counted per call."""
+    before = dict(_build.LAUNCHES)
+    got = banded_onehot_scatter_add(pos, val, rows, band=band, scale=scale)
+    name = "banded_onehot_scatter_add" + ("" if scale is None else "_scaled")
+    assert {k: v - before[k] for k, v in _build.LAUNCHES.items()
+            if v != before[k]} == {name: 1}
+    assert torch.equal(got, ref.onehot_scatter_add_ref(pos, val, rows, scale))
+    assert torch.equal(got.cpu(), ref.onehot_scatter_add_ref(
+        pos.cpu(), val.cpu(), rows, None if scale is None else scale.cpu()))
+    assert torch.equal(got, banded_onehot_scatter_add(pos, val, rows,
+                                                      band=band, scale=scale))
+
+
+@pytest.mark.gpu
+def test_banded_scatter_window_cases_on_gpu(cuda):
+    """Rows 5 and 6 (the window-table kernel) on whole empty tiles in the
+    middle and at the tail, gap rows inside a tile, runs at tile edges and
+    across the kernel's passes, windows many passes long (a 3,000-source
+    run), C and rows that are no multiple of the tile, a batch of very
+    different windows; f32 W = 1, bf16 W = 3, int8 + dyadic scale, f32
+    W = 7, all dyadic so every order sums alike."""
+    rng = np.random.RandomState(13)
+    for name, band, pos_np, rows in _banded_cases(rng):
+        pos = torch.as_tensor(pos_np, device=cuda)
+        for dtype, w in ((torch.float32, 1), (torch.bfloat16, 3),
+                         (torch.int8, 2), (torch.float32, 7)):
+            val, scale = _wire_values(rng, pos.shape + (w,), dtype, cuda)
+            _check_banded(pos, val, rows, band, scale)
+
+
+@pytest.mark.gpu
+def test_banded_scatter_general_scale_on_gpu(cuda):
+    """The scaled kernel on general floats (int8 + uniform scale, bf16 +
+    uniform scale): bit for bit against the plain version on a CPU copy
+    (which sums in source order), twice."""
+    rng = np.random.RandomState(14)
+    for name, band, pos_np, rows in _banded_cases(rng)[2:4]:
+        pos = torch.as_tensor(pos_np, device=cuda)
+        for dtype in (torch.int8, torch.bfloat16):
+            val, scale = _general_values(rng, pos.shape + (2,), dtype, cuda)
+            if scale is None:
+                scale = torch.rand(pos.shape, device=cuda)
+            got = banded_onehot_scatter_add(pos, val, rows, band=band,
+                                            scale=scale)
+            want = ref.onehot_scatter_add_ref(pos.cpu(), val.cpu(), rows,
+                                              scale.cpu())
+            assert torch.equal(got.cpu(), want), name
+            assert torch.equal(got, banded_onehot_scatter_add(
+                pos, val, rows, band=band, scale=scale))
+
+
+@pytest.mark.gpu
+def test_banded_window_table_on_gpu(cuda):
+    """The window table equals ``searchsorted`` of the tile boundaries
+    min(t * BANDED_ROWS, rows), t = 0 .. ceil(rows / BANDED_ROWS), exactly,
+    on the hard cases and on 64 rows of the union path's layer-0 shape;
+    one ``banded_windows`` launch per call."""
+    rng = np.random.RandomState(15)
+    cases = [(pos, rows) for _, _, pos, rows in _banded_cases(rng)]
+    big = np.stack([_banded_pos(1 + (rng.rand(77000) < 0.3), 0, 262144,
+                                rows=262144)[:262144] for _ in range(64)])
+    cases.append((big, 262144))
+    cases.append((np.zeros((2, 0), np.int32), 10))
+    for pos_np, rows in cases:
+        pos = torch.as_tensor(np.ascontiguousarray(pos_np), device=cuda)
+        before = _build.LAUNCHES["banded_windows"]
+        got = banded_windows(pos, rows)
+        assert _build.LAUNCHES["banded_windows"] == before + 1
+        t = -(-rows // BANDED_ROWS)
+        keys = torch.clamp(torch.arange(t + 1, device=cuda) * BANDED_ROWS,
+                           max=rows).to(torch.int32)
+        want = torch.searchsorted(pos, keys.expand(pos.shape[0], -1)
+                                  .contiguous())
+        assert got.dtype == torch.int64 and torch.equal(got, want)
+        assert torch.equal(got.cpu(), ref.banded_windows_ref(
+            pos.cpu(), rows, BANDED_ROWS))
