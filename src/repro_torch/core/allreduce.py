@@ -20,7 +20,12 @@ nodes), with the group exchanges done by
   the receiver knows.
 
 Static capacities make overflow a counted, returned quantity, as in the
-reference.  Replication and the dense baselines are later slices.
+reference.  r-way replication (paper §V) is a plain layer: the physical
+plan prepends a degree-r replica-merge stage (``make_device_plan(
+replication=r)``), and each physical node's values are multiplied by its
+``contribution_weights`` entry before it, so every logical shard is
+summed from its first alive replica.  The dense baselines are a later
+slice.
 """
 from __future__ import annotations
 
@@ -57,6 +62,9 @@ class DevicePlan:
     sequence is the logical ButterflyPlan over prod(sizes) nodes.  On the
     stacked mesh node ids are the row-major flattening of the axis
     coordinates, so stage l's groups are the logical plan's layer-l groups.
+    ``replication`` > 1 marks an r-way replicated plan: replica j of
+    logical shard i is physical node ``i + j * num_logical``, and stage 0
+    is the replica-merge layer, whose groups are :meth:`replica_groups`.
     """
 
     axes: Tuple[Tuple[str, int], ...]
@@ -75,6 +83,11 @@ class DevicePlan:
     def num_logical(self) -> int:
         """Logical shard count (== num_nodes unless replicated)."""
         return self.logical.num_nodes // self.replication
+
+    def replica_groups(self) -> List[List[int]]:
+        """[[physical ids] per logical shard] (``core.replication``)."""
+        from .replication import replica_groups
+        return replica_groups(self.num_nodes, self.replication)
 
     def edges_arrays(self) -> List[np.ndarray]:
         """Per-stage [M, k_l + 1] int64 range edges, clipped to uint32 max
@@ -176,7 +189,8 @@ def check_merge(merge: str) -> str:
 def sparse_allreduce_union(chunk: SparseChunk, plan: DevicePlan,
                            edges: Sequence[torch.Tensor],
                            transport: StackedTransport,
-                           merge: str = "sort", wire: str = "raw"
+                           merge: str = "sort", wire: str = "raw",
+                           weight: Optional[torch.Tensor] = None
                            ) -> Tuple[SparseChunk, torch.Tensor]:
     """Nested butterfly sparse allreduce; every node gets the full union sum.
 
@@ -198,11 +212,20 @@ def sparse_allreduce_union(chunk: SparseChunk, plan: DevicePlan,
     (``delta+int8ef``).  The kernel merges take the narrow values and the
     scale as they are; the sort merge dequantizes first.  One layer costs
     one transport exchange down and one up, whatever the wire.
+    ``weight`` (r-way replicated plans): ``[M]`` per-node
+    ``contribution_weights``, 1 on each logical shard's first alive
+    replica and 0 elsewhere, multiplied into the values before the first
+    layer; indices still flow from every replica and the zeros merge away
+    exactly, so the union equals the unreplicated one.
     Returns (union chunk of capacity ``out_capacity`` per node, overflow
     [M] -- entries dropped to capacity anywhere in the network).
     """
     check_merge(merge)
     check_wire(wire)
+    if weight is not None:
+        w = weight.to(chunk.val.dtype).reshape(
+            (-1,) + (1,) * (chunk.val.ndim - 1))
+        chunk = SparseChunk(idx=chunk.idx, val=chunk.val * w)
     overflow = torch.zeros(chunk.idx.shape[0], dtype=torch.int64,
                            device=chunk.idx.device)
     compute_dtype = chunk.val.dtype
@@ -303,19 +326,26 @@ def _trim_sorted(chunk: SparseChunk, cap: int) -> SparseChunk:
 
 def run_union_allreduce(plan: DevicePlan, idx: torch.Tensor, val: torch.Tensor,
                         merge: str = "sort", wire: str = "raw",
-                        transport: Optional[StackedTransport] = None):
+                        transport: Optional[StackedTransport] = None,
+                        dead=None):
     """Run the union allreduce on stacked tensors on their device.
 
-    idx: int64 [M, C] hashed *sorted* indices per node (SENTINEL padded);
-    val: [M, C] or [M, C, W].  ``merge`` / ``wire``: see
+    idx: int64 [M, C] hashed *sorted* indices per physical node (SENTINEL
+    padded); val: [M, C] or [M, C, W].  ``merge`` / ``wire``: see
     :func:`sparse_allreduce_union`.  ``transport`` defaults to a fresh
     :class:`StackedTransport` over ``plan.logical`` on ``idx``'s device.
+    ``dead``: dead *physical* node ids of an r-way replicated plan
+    (``make_device_plan(replication=r)``); their ``contribution_weights``
+    are applied before the first layer, so each logical shard is summed
+    from its first alive replica.  Raises ``DeadLogicalNode`` when a whole
+    replica group is dead -- with ``replication=1``, for any dead node.
     Returns (idx [M, out_cap], val [M, out_cap(,W)], overflow [M]).
     """
-    if plan.replication != 1:
-        raise NotImplementedError(
-            "replicated union plans are not ported yet (ROADMAP Queue 1 "
-            "item 8)")
+    weight = None
+    if plan.replication > 1 or dead:
+        from .replication import contribution_weights
+        weight = torch.as_tensor(contribution_weights(
+            plan.num_nodes, plan.replication, dead), device=idx.device)
     if idx.shape[0] != plan.num_nodes:
         raise ValueError(f"expected {plan.num_nodes} stacked chunks, got "
                          f"{idx.shape[0]}")
@@ -323,5 +353,5 @@ def run_union_allreduce(plan: DevicePlan, idx: torch.Tensor, val: torch.Tensor,
         transport = StackedTransport(plan.logical, idx.device)
     chunk, ovf = sparse_allreduce_union(
         SparseChunk(idx=idx, val=val), plan, plan.edges_tensors(idx.device),
-        transport, merge=merge, wire=wire)
+        transport, merge=merge, wire=wire, weight=weight)
     return chunk.idx, chunk.val, ovf

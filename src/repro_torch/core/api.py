@@ -16,10 +16,17 @@ Backends:
 "delta+bf16" | "delta+int8ef") shape :meth:`SparseAllreduce.union_reduce`;
 the lossy wires have no meaning on the sim backend or the planned
 ``reduce`` and are refused there, as in the reference.
-``degrees="auto"`` resolves through ``topology.tune``.  Not ported yet,
-each raising ``NotImplementedError`` with its ROADMAP item: the persistent
-plan cache and ``retune`` (Queue 1 item 10), and replication and ``dead``
-on the device backend (item 8).
+
+Both backends take ``replication=r`` and ``dead`` (paper §V):
+``num_nodes`` logical shards are hosted r-way, on the device backend over
+``r * num_nodes`` stacked physical nodes laid out per
+``core.replication.replica_groups``; the reduce gives unchanged results
+for any dead set that leaves each replica group an alive member, and
+raises ``DeadLogicalNode`` otherwise.  :meth:`SparseAllreduce.
+reconfig_dead` swaps the dead set of a configured instance without
+replanning.  ``degrees="auto"`` resolves through ``topology.tune``.  Not
+ported yet, raising ``NotImplementedError`` with its ROADMAP item: the
+persistent plan cache and ``retune`` (Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ from repro_torch.kernels.wirecodec import LOSSY_WIRE
 from .allreduce import check_merge, make_device_plan, run_union_allreduce
 from .netmodel import EC2_2013, Fabric
 from .planned import PlannedSparseAllreduce, plan_sparse_allreduce
+from .replication import first_alive_replicas
 from .simulator import ReduceStats, SimSparseAllreduce
 from .sparse_vec import HashPerm
 from .topology import ButterflyPlan, check_wire, tune
@@ -71,10 +79,6 @@ class SparseAllreduce:
                 "(ROADMAP Queue 1 item 10)")
         if backend not in ("sim", "device"):
             raise ValueError(f"unknown backend {backend!r}")
-        if backend == "device" and (replication != 1 or dead):
-            raise NotImplementedError(
-                "replication / dead on the device backend is not ported yet "
-                "(ROADMAP Queue 1 item 8)")
         self.merge = merge
         self.wire = wire
         self.num_nodes = num_nodes
@@ -96,6 +100,10 @@ class SparseAllreduce:
         self._reduce_fn = None
         self._union_cache = {}
         self.union_plan_stats = {"hits": 0, "misses": 0}
+        self._first_alive = None
+        self._repair_cache = {}
+        # how the last config() / reconfig_dead() was satisfied on the
+        # device backend: None | "fresh" | "repair" (a dead-set swap)
         self.config_cache = None
 
     @property
@@ -111,12 +119,14 @@ class SparseAllreduce:
                in_indices: Sequence[np.ndarray]) -> ReduceStats:
         """The paper's ``config`` call — run once per index pattern.
 
-        ``out_indices`` / ``in_indices``: one uint32 array per node (out
-        need not be sorted or unique; in fixes the order of each node's
-        result rows).  On ``sim`` it builds the message-level schedule; on
-        ``device`` it freezes the routing (``plan_sparse_allreduce``) and
-        binds the reduce to the device.  Returns the modeled
-        ``ReduceStats`` of a simulator config on both backends.
+        ``out_indices`` / ``in_indices``: one uint32 array per *logical*
+        node (out need not be sorted or unique; in fixes the order of each
+        node's result rows).  On ``sim`` it builds the message-level
+        schedule; on ``device`` it freezes the routing of all physical
+        replicas (``plan_sparse_allreduce``) and binds the reduce to the
+        device.  Raises ``DeadLogicalNode`` when ``dead`` kills a whole
+        replica group.  Returns the modeled ``ReduceStats`` of a simulator
+        config on both backends.
         """
         self._in_lens = [len(i) for i in in_indices]
         self._out_lens = [len(o) for o in out_indices]
@@ -133,20 +143,56 @@ class SparseAllreduce:
                 f"index stream), and quantized planned payloads are not "
                 f"implemented; wire={self.wire!r} is only supported on the "
                 f"union path (union_reduce)")
+        first_alive = first_alive_replicas(self.num_physical,
+                                           self.replication, self.dead)
         dplan = make_device_plan(
-            [("nodes", self.num_nodes)], {"nodes": self.plan.degrees},
+            [("nodes", self.num_physical)], {"nodes": self.plan.degrees},
             in_capacity=max(self._out_lens),
-            out_capacity=sum(self._out_lens))
+            out_capacity=sum(self._out_lens), replication=self.replication)
         self._planned = plan_sparse_allreduce(
-            dplan, out_indices, in_indices, perm=self.perm, width=self.width)
+            dplan, out_indices, in_indices, perm=self.perm, width=self.width,
+            dead=self.dead)
         self._reduce_fn = self._planned.make_reduce_fn(self._device())
+        self._first_alive = first_alive
+        self._repair_cache = {}
         self.config_cache = "fresh"
         return stats
 
     # ------------------------------------------------------------------
+    def reconfig_dead(self, dead: Optional[Set[int]]) -> None:
+        """Incremental repair (device backend): swap the dead set without
+        host replanning -- ``PlannedSparseAllreduce.with_dead``, which
+        changes only the contribution weights; the first-alive read-back
+        rows change with them.  Repaired plans are cached per dead set.
+
+        Raises ``DeadLogicalNode`` when ``dead`` kills a whole replica
+        group, *before* any state changes, so the instance stays usable
+        with its previous dead set.  Afterwards ``config_cache`` reads
+        ``"repair"``."""
+        if self.backend != "device":
+            raise ValueError("reconfig_dead() requires backend='device'")
+        if self._planned is None:
+            raise RuntimeError("call config() before reconfig_dead()")
+        first_alive = first_alive_replicas(self.num_physical,
+                                           self.replication, dead)
+        key = frozenset(dead or ())
+        hit = self._repair_cache.get(key)
+        if hit is None:
+            planned = self._planned.with_dead(dead)
+            hit = (planned, planned.make_reduce_fn(self._device()))
+            self._repair_cache[key] = hit
+        self._planned, self._reduce_fn = hit
+        self._first_alive = first_alive
+        self.dead = set(key) or None
+        self.config_cache = "repair"
+
+    # ------------------------------------------------------------------
     def reduce(self, out_values: Sequence[np.ndarray]) -> List[np.ndarray]:
-        """``out_values``: one array per node, as declared at ``config``;
-        returns each node's requested values (numpy)."""
+        """``out_values``: one array per *logical* node, as declared at
+        ``config``; returns each node's requested values (numpy).  With
+        replication the values are staged onto every replica (dead and
+        non-first replicas weigh 0 on the device) and each logical result
+        is read back from its first alive replica."""
         if self.backend == "sim":
             return self._sim.reduce(out_values)
         if self._reduce_fn is None:
@@ -161,8 +207,11 @@ class SparseAllreduce:
                     f"declared {self._out_lens[n]}")
             staging[n, : len(v)] = np.asarray(v, np.float32).reshape(
                 (-1,) + wshape)
+        if self.replication > 1:
+            staging = np.concatenate([staging] * self.replication)
         out = self._reduce_fn(torch.from_numpy(staging)).cpu().numpy()
-        return [out[n, : self._in_lens[n]] for n in range(self.num_nodes)]
+        return [out[self._first_alive[n], : self._in_lens[n]]
+                for n in range(self.num_nodes)]
 
     # ------------------------------------------------------------------
     def union_reduce(self, idx, val, out_capacity: int):
@@ -171,14 +220,21 @@ class SparseAllreduce:
 
         idx: [num_nodes, C] *hashed, sorted*, SENTINEL-padded indices
         (uint32 numpy or an integer tensor); val: [num_nodes, C] or
-        [num_nodes, C, W].  Returns torch tensors on the bound device:
-        (idx int64 [num_nodes, out_capacity], val, overflow [num_nodes]) —
-        every node gets the full union sum.  The device plan and its
-        transport are cached per (shape, out_capacity).  ``merge`` alone
-        picks the plain (``"sort"``) or a kernel (``"fused"``,
-        ``"banded"``) merge -- the reference's ``use_kernel`` argument is
-        not taken -- and ``wire`` the exchanged payload.
+        [num_nodes, C, W], one chunk per *logical* node.  With
+        ``replication=r`` the chunks are mirrored onto the ``r *
+        num_nodes`` physical nodes, the ``contribution_weights`` of this
+        instance's ``dead`` set are applied, and each logical result is
+        read from its shard's first alive replica; raises
+        ``DeadLogicalNode`` when a replica group is lost.  Returns torch
+        tensors on the bound device: (idx int64 [num_nodes,
+        out_capacity], val, overflow [num_nodes]) -- every node gets the
+        full union sum.  The device plan and its transport are cached per
+        (shape, out_capacity).  ``merge`` alone picks the plain
+        (``"sort"``) or a kernel (``"fused"``, ``"banded"``) merge -- the
+        reference's ``use_kernel`` argument is not taken -- and ``wire``
+        the exchanged payload.
         """
+        r, m_phys = self.replication, self.num_physical
         dev = self._device()
         idx = as_index_tensor(idx, dev)
         val = torch.as_tensor(val, device=dev)
@@ -186,6 +242,9 @@ class SparseAllreduce:
             raise ValueError(
                 f"union_reduce: expected {self.num_nodes} chunks, got "
                 f"{idx.shape[0]}")
+        if r > 1:
+            idx = idx.repeat((r,) + (1,) * (idx.ndim - 1))
+            val = val.repeat((r,) + (1,) * (val.ndim - 1))
         key = (tuple(idx.shape), out_capacity, str(dev))
         hit = self._union_cache.get(key)
         if hit is not None:
@@ -193,13 +252,20 @@ class SparseAllreduce:
         else:
             self.union_plan_stats["misses"] += 1
             dplan = make_device_plan(
-                [("nodes", self.num_nodes)], {"nodes": self.plan.degrees},
-                in_capacity=idx.shape[1], out_capacity=out_capacity)
+                [("nodes", m_phys)], {"nodes": self.plan.degrees},
+                in_capacity=idx.shape[1], out_capacity=out_capacity,
+                replication=r)
             hit = self._union_cache[key] = (
                 dplan, StackedTransport(dplan.logical, dev))
         dplan, transport = hit
-        return run_union_allreduce(dplan, idx, val, merge=self.merge,
-                                   wire=self.wire, transport=transport)
+        oi, ov, ovf = run_union_allreduce(dplan, idx, val, merge=self.merge,
+                                          wire=self.wire, transport=transport,
+                                          dead=self.dead)
+        if r > 1:
+            fa = torch.as_tensor(first_alive_replicas(m_phys, r, self.dead),
+                                 device=dev)
+            oi, ov, ovf = oi[fa], ov[fa], ovf[fa]
+        return oi, ov, ovf
 
     # ------------------------------------------------------------------
     def planned_parts(self) -> Tuple[PlannedSparseAllreduce, torch.device]:
@@ -232,7 +298,7 @@ class SparseAllreduce:
             "uin_cap": self._planned.uin_cap,
             "out_lens": list(self._out_lens),
             "in_lens": list(self._in_lens),
-            "first_alive": list(range(self.num_nodes)),
+            "first_alive": [int(p) for p in self._first_alive],
             "num_physical": self.num_physical,
         }
 

@@ -8,9 +8,13 @@ data structures) and freezes every decision into static, padded
 gather/scatter index tensors -- the same arrays, byte for byte, as the
 reference's.  ``reduce`` is then gathers, stacked-mesh exchanges and
 scatter-adds over all ``M`` nodes at once, reused every iteration with new
-values.  :func:`planned_from_reference` rebuilds a plan from the arrays
-the reference's plan cache stores, so a plan frozen by the reference runs
-unchanged here.
+values.  An r-way replicated plan (paper §V) freezes the routing of all
+``r * M`` physical replicas once; its ``weights`` (1 on each logical
+shard's first alive replica, 0 elsewhere) multiply the values before the
+first exchange, and :meth:`PlannedSparseAllreduce.with_dead` swaps them
+for a new dead set without replanning.  :func:`planned_from_reference`
+rebuilds a plan from the arrays the reference's plan cache stores, so a
+plan frozen by the reference runs unchanged here.
 """
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ class _DeviceRouting:
     user_gather: torch.Tensor                   # [M, uin_cap]
     user_hit: torch.Tensor                      # [M, uin_cap] bool
     transport: StackedTransport
+    weights: Optional[torch.Tensor] = None      # [M] f32, replicated plans
 
 
 def _flat_offsets(slots: np.ndarray, size: int, device) -> torch.Tensor:
@@ -100,6 +105,10 @@ class PlannedSparseAllreduce:
     The value sums of the down half are float ``index_add_`` scatters; on
     CUDA they use atomics, so results may differ from run to run in the
     last ulp.  Sums of dyadic values are exact whatever the order.
+
+    ``weights`` (r-way replicated plans, or a ``dead`` set): ``[M]``
+    per-physical-node contribution weights, applied to the values before
+    the first exchange; None when not replicated.
     """
 
     dplan: DevicePlan
@@ -112,6 +121,7 @@ class PlannedSparseAllreduce:
     bottom_hit: np.ndarray          # [M, q_cap] bool
     user_gather: np.ndarray         # [M, uin_cap] sorted-in slot per user slot
     in_user_len: int
+    weights: Optional[np.ndarray] = None
     _routing: Dict[str, _DeviceRouting] = dataclasses.field(
         default_factory=dict, compare=False, repr=False)
 
@@ -162,9 +172,31 @@ class PlannedSparseAllreduce:
             layers=tuple(layers), bottom_gather=bg,
             bottom_hit=torch.as_tensor(self.bottom_hit, device=device),
             user_gather=ug, user_hit=um,
-            transport=StackedTransport(self.dplan.logical, device))
+            transport=StackedTransport(self.dplan.logical, device),
+            weights=self._weights_on(device))
         self._routing[key] = routing
         return routing
+
+    def _weights_on(self, device) -> Optional[torch.Tensor]:
+        return (None if self.weights is None else
+                torch.as_tensor(self.weights, dtype=torch.float32,
+                                device=device))
+
+    def with_dead(self, dead=None) -> "PlannedSparseAllreduce":
+        """Incremental repair: the same frozen routing with a new dead set.
+        Only the contribution weights depend on ``dead`` (every physical
+        node receives the full union, paper §V), so this swaps them --
+        here and in the routing already on each device -- and replans
+        nothing.  Raises ``DeadLogicalNode`` when ``dead`` kills a whole
+        replica group."""
+        from .replication import contribution_weights
+        weights = contribution_weights(self.dplan.num_nodes,
+                                       self.dplan.replication, dead)
+        out = dataclasses.replace(self, weights=weights, _routing={})
+        for key, routing in self._routing.items():
+            out._routing[key] = dataclasses.replace(
+                routing, weights=out._weights_on(routing.transport.device))
+        return out
 
     # ---------------------------------------------------------------------
     def reduce_on_device(self, values: torch.Tensor,
@@ -184,6 +216,10 @@ class PlannedSparseAllreduce:
         routing = routing or self.device_args(values.device)
         m = values.shape[0]
         wshape = values.shape[2:]
+        if routing.weights is not None:
+            # replica contribution weight, one per physical node (paper §V)
+            values = values * routing.weights.to(values.dtype).reshape(
+                (m,) + (1,) * (values.ndim - 1))
 
         def scatter_add(flat_index, src, size):
             out = torch.zeros((m * (size + 1),) + wshape, dtype=values.dtype,
@@ -247,13 +283,27 @@ def plan_sparse_allreduce(dplan: DevicePlan,
                           width: int = 1,
                           dead=None) -> PlannedSparseAllreduce:
     """The paper's ``config`` call: indices in, frozen routing out (the
-    reference's host numpy, unchanged).  Replicated plans and ``dead``
-    sets are a later slice."""
-    if dplan.replication > 1 or dead:
-        raise NotImplementedError(
-            "replication / dead on the device backend is not ported yet "
-            "(ROADMAP Queue 1 item 8)")
+    reference's host numpy, unchanged).
+
+    For an r-way replicated ``dplan`` (``make_device_plan(replication=
+    r)``) ``out_indices`` / ``in_indices`` are the *logical* per-shard
+    lists (``dplan.num_logical`` of them); the routing is frozen for all
+    physical replicas, and the ``dead`` physical ids are masked by the
+    plan's ``weights`` (``contribution_weights``).  Raises
+    ``DeadLogicalNode`` when a whole replica group is dead -- with r = 1,
+    for any dead node."""
     perm = perm if perm is not None else HashPerm.make(0)
+    weights = None
+    if dplan.replication > 1 or dead:
+        from .replication import contribution_weights
+        weights = contribution_weights(dplan.num_nodes, dplan.replication,
+                                       dead)
+        if len(out_indices) != dplan.num_logical:
+            raise ValueError(
+                f"replicated plan expects {dplan.num_logical} logical index "
+                f"lists, got {len(out_indices)}")
+        out_indices = list(out_indices) * dplan.replication
+        in_indices = list(in_indices) * dplan.replication
     sim = SimSparseAllreduce(dplan.logical, perm=perm, value_width=width)
     sim.config(out_indices, in_indices)
     plan, m = dplan.logical, dplan.logical.num_nodes
@@ -337,7 +387,7 @@ def plan_sparse_allreduce(dplan: DevicePlan,
         dplan=dplan, perm=perm, width=width,
         user_scatter=user_scatter, sorted_size=sorted_size, layers=layers,
         bottom_gather=bottom_gather, bottom_hit=bottom_hit,
-        user_gather=user_gather, in_user_len=uin_cap)
+        user_gather=user_gather, in_user_len=uin_cap, weights=weights)
 
 
 def planned_from_reference(arrays: Dict[str, np.ndarray], meta: dict,
@@ -348,18 +398,18 @@ def planned_from_reference(arrays: Dict[str, np.ndarray], meta: dict,
     entry), so a plan frozen by the reference runs unchanged in the port.
 
     ``degrees_per_axis`` is the *logical* per-axis degree dict of the
-    original ``make_device_plan`` call.  With ``device`` given, the
-    routing tensors are moved there at once.
+    original ``make_device_plan`` call (its replication comes from the
+    artifact, as do the contribution ``weights`` of a replicated plan or
+    one frozen with a dead set).  With ``device`` given, the routing
+    tensors are moved there at once.
     """
-    if "weights" in arrays or int(meta["dplan"]["replication"]) != 1:
-        raise NotImplementedError(
-            "replicated plans are not ported yet (ROADMAP Queue 1 item 8)")
     dmeta = meta["dplan"]
     dplan = make_device_plan(
         [(a, int(s)) for a, s in dmeta["axes"]],
         {a: tuple(int(x) for x in d) for a, d in degrees_per_axis.items()},
         in_capacity=int(dmeta["in_capacity"]),
-        out_capacity=int(dmeta["out_capacity"]))
+        out_capacity=int(dmeta["out_capacity"]),
+        replication=int(dmeta["replication"]))
     layers = [_LayerMaps(
         send_gather=np.asarray(arrays[f"layer{i}/send_gather"]),
         merge_scatter=np.asarray(arrays[f"layer{i}/merge_scatter"]),
@@ -378,7 +428,9 @@ def planned_from_reference(arrays: Dict[str, np.ndarray], meta: dict,
         bottom_gather=np.asarray(arrays["bottom_gather"]),
         bottom_hit=np.asarray(arrays["bottom_hit"]),
         user_gather=np.asarray(arrays["user_gather"]),
-        in_user_len=int(meta["in_user_len"]))
+        in_user_len=int(meta["in_user_len"]),
+        weights=(np.asarray(arrays["weights"], np.float32)
+                 if "weights" in arrays else None))
     if device is not None:
         planned.device_args(device)
     return planned

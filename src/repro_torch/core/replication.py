@@ -4,7 +4,11 @@ Paper §V.  Logical shard ``i`` of ``M`` lives on physical nodes
 ``i, i+M, ..., i+(r-1)M``; exactly one alive replica per shard
 contributes (weight 1), and a shard whose whole replica group is dead
 makes the protocol fail with :class:`DeadLogicalNode`.  The simulator
-uses this module; replication on the device backend is a later slice.
+and the device backend use this module: on the device, the physical plan
+prepends a degree-r replica-merge stage whose groups are
+:func:`replica_groups`, and :func:`contribution_weights` multiply the
+values before it (``core.allreduce``, ``core.planned``).  Failure
+schedules live in :mod:`repro_torch.core.faults`.
 """
 from __future__ import annotations
 
@@ -65,6 +69,26 @@ def first_alive_replicas(m_physical: int, replication: int,
     return out
 
 
+def lost_logical_shards(m_physical: int, replication: int,
+                        dead: Optional[Set[int]] = None) -> List[int]:
+    """Logical shard ids whose replica group is entirely dead: the
+    non-raising sibling of :func:`contribution_weights`, which raises at
+    the first such group.  Out-of-range dead ids raise ``ValueError``."""
+    dead = set(dead or ())
+    _check_dead(m_physical, dead)
+    return [i for i, group in
+            enumerate(replica_groups(m_physical, replication))
+            if all(d in dead for d in group)]
+
+
+def surviving_logical_shards(m_physical: int, replication: int,
+                             dead: Optional[Set[int]] = None) -> List[int]:
+    """Logical shard ids with at least one alive replica (complement of
+    :func:`lost_logical_shards`, same validation)."""
+    lost = set(lost_logical_shards(m_physical, replication, dead))
+    return [i for i in range(m_physical // replication) if i not in lost]
+
+
 def expected_tolerated_failures(m_logical: int, replication: int = 2) -> float:
     """Expected random physical failures before some replica group is
     fully dead: ``Gamma(1 + 1/r) (r!)^(1/r) M^(1 - 1/r)`` (the paper's
@@ -74,3 +98,14 @@ def expected_tolerated_failures(m_logical: int, replication: int = 2) -> float:
         raise ValueError(f"replication must be >= 1, got {r}")
     return (math.gamma(1.0 + 1.0 / r) * math.factorial(r) ** (1.0 / r)
             * m_logical ** (1.0 - 1.0 / r))
+
+
+def simulate_random_failures(m_logical: int, replication: int,
+                             num_failures: int, trials: int = 1000,
+                             seed: int = 0) -> float:
+    """Empirical P[protocol completes] under ``num_failures`` random dead
+    physical nodes: :func:`repro_torch.core.faults.completion_probability`
+    with the ``"random"`` schedule."""
+    from .faults import completion_probability
+    return completion_probability(m_logical, replication, num_failures,
+                                  trials=trials, kind="random", seed=seed)

@@ -169,6 +169,30 @@ class SparseChunk:
         """Number of valid entries per chunk, [...] int64."""
         return self.valid_mask().sum(-1)
 
+    @staticmethod
+    def from_dense(dense: torch.Tensor, capacity: int) -> "SparseChunk":
+        """The first ``capacity`` nonzero rows, by index, of a dense [R] or
+        [R, W] tensor (a row is nonzero when any of its W values is);
+        SENTINEL padding and zero values after them (tests)."""
+        score = dense.abs() if dense.ndim == 1 else dense.abs().sum(-1)
+        key = torch.where(score > 0,
+                          torch.arange(score.shape[0], device=dense.device),
+                          SENTINEL)
+        order = torch.argsort(key, stable=True)[:capacity]
+        idx = key[order]
+        return SparseChunk(idx=idx, val=_mask_val(idx != SENTINEL,
+                                                  dense[order]))
+
+    def to_dense(self, size: int) -> torch.Tensor:
+        """Scatter-add the valid entries into a dense [..., size(, W)]
+        tensor (batched over the chunk's leading dims)."""
+        valid = self.valid_mask()
+        wshape = self.val.shape[self.idx.ndim:]
+        out = torch.zeros(self.idx.shape[:-1] + (size,) + wshape,
+                          dtype=self.val.dtype, device=self.val.device)
+        return _put_rows(out, torch.where(valid, self.idx, 0),
+                         _mask_val(valid, self.val), add=True)
+
 
 def _rows_like(mask: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
     """Broadcast a per-row [..., C] tensor against ``val`` [..., C(, W)]."""

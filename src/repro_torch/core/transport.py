@@ -22,6 +22,13 @@ however many tensors it moves), so a test can hold a reduce to its
 node's position in its stage group, the reference's ``(axis_index //
 stride) % degree``, which a receiver of the wire codecs needs to find its
 subrange base.
+
+:meth:`StackedTransport.psum` is the whole-mesh sum that the reference
+runs as ``lax.psum`` over the mesh axis (spectral's Rayleigh norm): a
+pairwise tree over the node axis in one fixed order, broadcast back to
+every node, so repeats give the same bits on any device.  It is counted
+in ``sums``, apart from ``calls``, so a reduce still costs exactly ``2 *
+depth`` exchanges.
 """
 from __future__ import annotations
 
@@ -60,6 +67,7 @@ class StackedTransport:
         self.plan = plan
         self.device = resolve_device(device)
         self.calls = 0
+        self.sums = 0
         m = plan.num_nodes
         self._a2a, self._gather, self._position = [], [], []
         for l in range(plan.depth):
@@ -102,6 +110,22 @@ class StackedTransport:
         m, k = self.num_nodes, self.plan.degrees[layer]
         return tuple(x.index_select(0, rows).reshape(
             (m, k * x.shape[1]) + x.shape[2:]) for x in xs)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Whole-mesh sum of a per-node ``[M, ...]`` tensor, broadcast
+        back to ``[M, ...]``: the nodes are added pairwise in a tree of
+        ceil(log2 M) levels (at each level node 2i + 1 into node 2i, an
+        odd last node carried up unchanged), the same order every call."""
+        if x.shape[0] != self.num_nodes:
+            raise ValueError(f"psum: expected {self.num_nodes} nodes, got "
+                             f"{x.shape[0]}")
+        self.sums += 1
+        s = x
+        while s.shape[0] > 1:
+            n = s.shape[0]
+            pair = s[0:n - 1:2] + s[1:n:2]
+            s = torch.cat([pair, s[n - 1:]]) if n % 2 else pair
+        return s.expand(x.shape).contiguous()
 
 
 def as_index_tensor(idx, device: Optional[torch.device] = None) -> torch.Tensor:

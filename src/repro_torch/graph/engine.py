@@ -19,9 +19,12 @@ the global max rows x max per-row nonzeros; the hash permutation balances
 columns, not row degrees, so power-law hub rows inflate ``K`` and the
 padding, not the edges, sets the memory and the SpMV's time.  The port
 keeps that API (:func:`build_ell`, :func:`stack_ell`, :func:`ell_matvec`)
-and adds its unpadded counterpart, which PageRank runs on:
-:func:`build_csr`, :func:`stack_csr` (one block-diagonal CSR over all
-stacked rows, with the kernel's work split) and :func:`csr_matvec`.  Both
+and adds its unpadded counterpart, which PageRank, HADI and spectral run
+on: :func:`build_csr`, :func:`stack_csr` (one block-diagonal CSR over all
+stacked rows, with the kernel's work split), :func:`csr_matvec` (one
+vector per node, the CSR kernel) and :func:`csr_matvec_wide` (W values
+per index, HADI's bitstrings; plain torch ops, as the reference's W > 1
+product is a jnp gather-sum with no kernel).  Both
 stack functions write each node's table straight into preallocated
 device tensors, so the host never holds the whole stack.
 """
@@ -206,6 +209,29 @@ def csr_matvec(row_ptr: torch.Tensor, cols: torch.Tensor, wts: torch.Tensor,
     return spmv_csr(row_ptr, cols, wts, x, bins)
 
 
+def csr_matvec_wide(row_ptr: torch.Tensor, cols: torch.Tensor,
+                    wts: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The width-W product on a :func:`stack_csr` CSR: ``y[m, r, :] =
+    sum_j wts[j] * x[m, cols[j], :]`` over row ``m * n_rows + r``, x
+    ``[M, N, W]`` -> ``[M, n_rows, W]``, the counterpart of
+    :func:`ell_matvec` at W > 1.  Plain torch ops: each nonzero's row of x
+    is gathered and weighted, then added into its row with ``index_add_``
+    (atomics on CUDA, so sums are exact in any order only for values like
+    HADI's 0/1 bits; general floats may differ in the last ulp from run
+    to run).  Memory: ``nnz * W`` values of scratch."""
+    m, n, w = x.shape
+    r = row_ptr.shape[0] - 1
+    n_rows = r // m if m else 0
+    lens = (row_ptr[1:] - row_ptr[:-1]).long()
+    rows = torch.repeat_interleave(torch.arange(r, device=x.device), lens,
+                                   output_size=cols.shape[0])
+    src = (rows // max(n_rows, 1)) * n + cols.long()
+    g = x.reshape(m * n, w).index_select(0, src)
+    g.mul_(wts.to(x.dtype).unsqueeze(1))
+    y = torch.zeros(r, w, dtype=x.dtype, device=x.device)
+    return y.index_add_(0, rows, g).reshape(m, n_rows, w)
+
+
 # ---------------------------------------------------------------------------
 # The engine
 # ---------------------------------------------------------------------------
@@ -228,12 +254,12 @@ class EngineApp:
     name: str = "app"
 
 
-def _to_device(tree, device):
+def to_device(tree, device):
     """Numpy arrays / tensors (in dicts, lists, tuples) onto ``device``."""
     if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
+        return {k: to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_device(v, device) for v in tree)
+        return type(tree)(to_device(v, device) for v in tree)
     return torch.as_tensor(tree, device=device)
 
 
@@ -300,18 +326,19 @@ class GraphEngine:
         planned, app, routing = self.planned, self.app, self._routing
 
         def run_k(state, extras):
-            last_out, traj = None, []
-            for _ in range(k):
+            last_out, traj = None, None
+            for i in range(k):
                 last_out = app.out_fn(state, extras)
                 in_raw = planned.reduce_on_device(last_out, routing)
                 state = app.update_fn(state, in_raw, extras, routing.transport)
-                if collect == "trajectory":
-                    traj.append(state)
-            if collect == "trajectory":
-                traj = (torch.stack(traj) if isinstance(state, torch.Tensor)
-                        else traj)
-            else:
-                traj = None
+                if collect != "trajectory":
+                    continue
+                if isinstance(state, torch.Tensor):
+                    if traj is None:   # one [k, ...] buffer, filled in place
+                        traj = state.new_empty((k,) + tuple(state.shape))
+                    traj[i].copy_(state)
+                else:
+                    traj = (traj or []) + [state]
             return state, last_out, traj
 
         return run_k
@@ -342,8 +369,8 @@ class GraphEngine:
         ``collect="trajectory"``, else None.
         """
         fn = self.run_fn(k, collect)
-        state = _to_device(state, self.device)
-        extras = _to_device(extras if extras is not None else {}, self.device)
+        state = to_device(state, self.device)
+        extras = to_device(extras if extras is not None else {}, self.device)
         out = fn(state, extras)
         self.report["dispatches"] += 1
         self.report["rounds"] += k

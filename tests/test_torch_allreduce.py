@@ -266,10 +266,12 @@ def test_api_sim_backend_keeps_replication():
 
 @pytest.mark.parametrize("kwargs,item", [
     ({"plan_cache": True}, "item 10"), ({"retune": True}, "item 10"),
-    ({"backend": "device", "replication": 2, "merge": "banded"}, "item 8"),
-    ({"backend": "device", "dead": {1}, "wire": "delta+int8ef"}, "item 8"),
-    ({"backend": "device", "replication": 2}, "item 8"),
-    ({"backend": "device", "dead": {1}}, "item 8")])
+    ({"backend": "device", "replication": 2, "merge": "banded",
+      "plan_cache": True}, "item 10"),
+    ({"backend": "device", "dead": {1}, "wire": "delta+int8ef",
+      "retune": True}, "item 10"),
+    ({"backend": "device", "replication": 2, "retune": True}, "item 10"),
+    ({"backend": "device", "dead": {1}, "plan_cache": True}, "item 10")])
 def test_api_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         SparseAllreduce(M, (4, 2), device="cpu", **kwargs)

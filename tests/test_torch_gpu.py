@@ -588,3 +588,112 @@ def test_banded_window_table_on_gpu(cuda):
         assert got.dtype == torch.int64 and torch.equal(got, want)
         assert torch.equal(got.cpu(), ref.banded_windows_ref(
             pos.cpu(), rows, BANDED_ROWS))
+
+
+@pytest.mark.gpu
+def test_rank_kernels_at_replica_stage_k2_on_gpu(cuda):
+    """The replica-merge stage hands both rank kernels k = 2 runs that are
+    equal (each replica sends the same bucket): mode 2 and modes 0/1 on
+    such pairs, on pairs with their own tails, and at the smoke's
+    [64, 2, 131072] shape, against the plain version, repeat identical."""
+    for g, cap in [(3, 700), (4, 5000), (64, 131072)]:
+        runs = _hashed_runs(g, 2, cap, seed=cap)
+        twins = np.repeat(runs[:, :1], 2, axis=1)
+        for banded in (False, True):
+            _check_ranks(cuda, twins, banded=banded)
+            _check_ranks(cuda, runs, banded=banded)
+        a = torch.as_tensor(twins[:, 0], device=cuda)
+        for banded in (False, True):
+            for strict, side in ((True, "left"), (False, "right")):
+                assert torch.equal(rank_counts(a, a, strict=strict,
+                                               banded=banded),
+                                   ref.rank_counts_ref(a, a, side))
+
+
+@pytest.mark.gpu
+def test_replicated_union_and_planned_on_gpu(cuda):
+    """r = 2 with a dead set on the card: the union reduce under each
+    merge (scatters and rank kernels at the replica stage) equals the
+    unreplicated reduce bit for bit, and so does the planned reduce;
+    a lost replica group raises."""
+    from repro_torch.core.api import SparseAllreduce
+    from repro_torch.core.replication import DeadLogicalNode, replica_groups
+    from repro_torch.core.sparse_vec import HashPerm
+    m, degs, c = 8, (4, 2), 512
+    rng = np.random.RandomState(4)
+    perm = HashPerm.make(m)
+    idx = np.full((m, c), SENT, np.int64)
+    val = np.zeros((m, c), np.float32)
+    out_idx, out_val = [], []
+    for n in range(m):
+        raw = rng.choice(6000, rng.randint(100, c), replace=False)
+        v = (rng.randint(-128, 129, len(raw)) / 64.0).astype(np.float32)
+        h = perm.fwd_np(raw.astype(np.uint32)).astype(np.int64)
+        o = np.argsort(h)
+        idx[n, :len(h)], val[n, :len(h)] = h[o], v[o]
+        out_idx.append(raw.astype(np.uint32))
+        out_val.append(v)
+    dead = {1, 10, 12}
+    for merge in ("sort", "fused", "banded"):
+        want = SparseAllreduce(m, degs, backend="device", merge=merge,
+                               seed=m).union_reduce(idx, val, m * c)
+        got = SparseAllreduce(m, degs, backend="device", merge=merge, seed=m,
+                              replication=2, dead=dead).union_reduce(
+                                  idx, val, m * c)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), merge
+    base = SparseAllreduce(m, degs, backend="device", seed=m)
+    base.config(out_idx, out_idx)
+    ar = SparseAllreduce(m, degs, backend="device", seed=m, replication=2,
+                         dead=dead)
+    ar.config(out_idx, out_idx)
+    for a, b in zip(ar.reduce(out_val), base.reduce(out_val)):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(DeadLogicalNode):
+        ar.reconfig_dead(set(replica_groups(2 * m, 2)[2]))
+
+
+@pytest.mark.gpu
+def test_csr_matvec_wide_on_gpu(cuda):
+    """The width-W product on the card equals its CPU result: bit for bit
+    on 0/1 values (HADI's case), within rtol 1e-6 on general floats."""
+    from repro_torch.graph.engine import build_csr, csr_matvec_wide, stack_csr
+    rng = np.random.RandomState(9)
+    m, n_rows, n_cols, w = 6, 300, 400, 96
+    tables = [build_csr(rng.randint(0, n_rows, 5000),
+                        rng.randint(0, n_cols, 5000),
+                        np.ones(5000, np.float32), n_rows) for _ in range(m)]
+    cpu = stack_csr(tables, n_rows, device="cpu", n_cols=n_cols)[:3]
+    gpu = [t.to(cuda) for t in cpu]
+    bits = (rng.rand(m, n_cols, w) < 0.3).astype(np.float32)
+    x = torch.as_tensor(bits)
+    assert torch.equal(csr_matvec_wide(*gpu, x.to(cuda)).cpu(),
+                       csr_matvec_wide(*cpu, x))
+    x = torch.as_tensor(rng.randn(m, n_cols, w).astype(np.float32))
+    torch.testing.assert_close(csr_matvec_wide(*gpu, x.to(cuda)).cpu(),
+                               csr_matvec_wide(*cpu, x), rtol=1e-6,
+                               atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_graph_apps_run_on_cuda_by_default(cuda):
+    """HADI on the card equals the sim bit for bit; power iteration is
+    within the reference test's bounds of the float64 oracle and launches
+    the CSR kernel once a round."""
+    from repro_torch.data.pipeline import powerlaw_graph
+    from repro_torch.graph.hadi import hadi
+    from repro_torch.graph.spectral import (power_iteration,
+                                            power_iteration_reference)
+    edges = powerlaw_graph(2000, 12000, seed=1)
+    eff, curve, st = hadi(edges, 2000, m=8, degrees=(4, 2), max_hops=6,
+                          backend="device")
+    seff, scurve, sst = hadi(edges, 2000, m=8, degrees=(4, 2), max_hops=6)
+    assert eff == seff and st["hops_run"] == sst["hops_run"]
+    np.testing.assert_array_equal(curve, scurve)
+    np.testing.assert_array_equal(st["b_final"], sst["b_final"])
+    _build.reset_launches()
+    lam, v, _ = power_iteration(edges, 2000, m=8, degrees=(4, 2), iters=20,
+                                backend="device")
+    assert _build.LAUNCHES["spmv_csr"] == 20
+    lam_r, v_r = power_iteration_reference(edges, 2000, iters=20)
+    assert abs(lam - lam_r) / lam_r < 1e-4
+    assert abs(v @ v_r) / (np.linalg.norm(v) * np.linalg.norm(v_r)) > 1 - 1e-6
