@@ -62,10 +62,43 @@ line each, after the ``nvidia-smi`` name/power-limit line):
    same merge bit for bit and the float64 oracle; banded under
    delta+int8ef indices exact and within 0.05 x max|union| of it; ms of
    each replicated and unreplicated reduce, peak memory;
-11. kernels -- each kernel on the inputs it got on the main path (phases
-   2-10, layer 0 / first round; the two merge-rank kernels at every shape
-   the main path handed them, the replica stage's [64, 2, C] included, the
-   dense scatter also at the replica stage, the CSR SpMV at each graph
+11. plan_cache -- ``SparseAllreduce.config`` on PageRank's index sets
+   served fresh, from the memo, from disk (memo cleared) and from disk in
+   a restarted process (this script with ``--plan-cache-probe``): the same
+   reduce bits on normal floats from all four, the seconds of each tier;
+   ``degrees="auto"`` tuned, then cached;
+12. calibrate -- ``calibrate_fabric`` over 64 stacked nodes (stage
+   degrees 2-64, 256 / 4,096 / 32,768 entries): alpha, beta, gamma and the
+   fit residual; ``select_plan`` with ``measure_plan`` trials (fused) of
+   the top five, modeled and measured ms; ``resolve_degrees`` under the
+   fit for PageRank's nnz (the trials are timing, not main-path calls);
+13. resilient_planned -- ``ResilientAllreduce(64, (16, 4),
+   replication=2)`` on PageRank's index sets, dyadic values: a
+   replica-absorbed dead set repaired in place (bits unchanged), a lost
+   group shrunk to 63 survivors (explicit degrees: ``tune``'s), equal to
+   a fresh reduce over them, the shrink reused, a loss below quorum
+   raising ``QuorumLost``; then with ``degrees="auto"`` the same loss
+   shrunk with the degrees ``resolve_degrees(shrunk_from=64)`` gives
+   through the base's plan cache (which then serves them), equal to the
+   same fresh reduce; ms of each;
+14. resilient_union -- replicated_union's input (32 logical x 2) with
+   both replicas of one shard dead: 31 survivors at r = 2 over one flat
+   layer of 31 runs (an odd merge tree), fused and banded, bit for bit
+   equal to a fresh reduce over the survivors and the float64 oracle; ms
+   and peak memory;
+15. supervised_pagerank -- ``SupervisedEngineLoop`` (M = 64 over a pool of
+   80, 10 rounds, checkpoints every 2) under ``make_schedule("rack", 80,
+   5, rack_size=5)`` from round 3 (the first seed whose rack hits an
+   engine position): final state and last_q equal the fault-free run bit
+   for bit, with the remaps' seconds and config tiers;
+16. soak_resume -- ``python -m repro_torch.launch.soak --job pagerank`` at
+   the same graph size in subprocesses: baseline, a rack-fault run killed
+   at round 4 (exit 17), its ``--resume``; final.npz equal array by array;
+17. kernels -- each kernel on the inputs it got on the main path (phases
+   2-15, layer 0 / first round; the two merge-rank kernels at every shape
+   the main path handed them, the replica stage's [64, 2, C] and the
+   survivors' flat [62, 31, C] included, the dense scatter also at the
+   replica stage and the survivor layer, the CSR SpMV at each graph
    phase, and the banded scatters at every (phase, butterfly layer, value
    dtype): f32, bf16 and int8 + scale, each
    with its main-path calls, its two CUDA launches and device ms per
@@ -91,16 +124,29 @@ line each, after the ``nvidia-smi`` name/power-limit line):
 The launch counts of the ``kernels`` line are those of the main-path
 calls alone (``config`` + ``reduce``, the first ``union_reduce`` of each
 (merge, wire), the ``pagerank``, ``hadi`` and ``power_iteration`` entry
-points): each starts with every count at 0 and is read right after,
-before any timing loop runs.
+points, the supervised reduces and engine runs): each starts with every
+count at 0 and is read right after, before any timing loop runs.  The
+soak's kernels run in its subprocesses, which print their own counts
+(the soak_resume line).  Each phase starts from an empty plan cache (a
+directory of its own under the run's temporary root, removed at exit)
+and an empty memo, so its config times are those of a fresh config
+unless its line says otherwise (``config_cache``).  Profiler traces
+(union_wire's and the kernels line's device ms and CUDA launches per
+call) are taken in a fresh process that shares the tensors through CUDA
+IPC; the ``profiler`` line counts its calls and traces.
 The last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU;
 exits non-zero without one or outside a checkout of the repository.
 """
+import contextlib
 import json
+import math
 import os
+import queue
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -118,10 +164,16 @@ HADI_HOPS, HADI_BITS, HADI_TRIALS = 16, 24, 4
 SPECTRAL_ITERS = 30
 REPLICATION = 2
 REP_UNION_NODES, REP_UNION_DEGREES = 32, (8, 4)
+# supervised PageRank and the soak: M partitions over a pool of POOL
+# positions, a rack of RACK positions lost from round FAULT_AT on
+POOL, RACK, FAULT_AT, CKPT_EVERY = 80, 5, 3, 2
 # the phases whose recorded kernel inputs make up the shapes of a row, in
 # the order the rows list them
-ROW_PHASES = ("union_wire", "replicated_union", "union")
-GRAPH_PHASES = ("pagerank", "spectral", "pagerank_large")
+ROW_PHASES = ("union_wire", "replicated_union", "resilient_union", "union")
+GRAPH_PHASES = ("pagerank", "spectral", "pagerank_large",
+                "supervised_pagerank")
+# phases whose scatter calls are told apart by shape (one per layer)
+SHAPED_SCATTER_PHASES = ("resilient_union",)
 WIRES = ("raw", "delta", "delta+bf16", "delta+int8ef")
 
 
@@ -191,14 +243,18 @@ def scatter_variant(args, kwargs):
     """Recorder key of a scatter call: the phase, and ``scaled`` or the
     value dtype."""
     if kwargs.get("scale") is not None:
-        return PHASE["name"], "scaled"
-    return PHASE["name"], "bf16" if args[1].dtype.itemsize == 2 else "f32"
+        key = PHASE["name"], "scaled"
+    else:
+        key = PHASE["name"], "bf16" if args[1].dtype.itemsize == 2 else "f32"
+    if PHASE["name"] in SHAPED_SCATTER_PHASES:
+        key += (tuple(args[0].shape),)
+    return key
 
 
 def banded_variant(args, kwargs):
-    """Recorder key of a banded scatter call: the scatter key and the
+    """Recorder key of a banded scatter call: the phase, the dtype and the
     positions' shape (each butterfly layer hands the kernel its own)."""
-    return scatter_variant(args, kwargs) + (tuple(args[0].shape),)
+    return scatter_variant(args, kwargs)[:2] + (tuple(args[0].shape),)
 
 
 def rank_variant(args, kwargs):
@@ -221,6 +277,10 @@ def phase_planned(torch, parts):
     config_s = time.perf_counter() - t0
     got, launches = main_path(lambda: dev.reduce(values))
     launches = {k: v + config_launches[k] for k, v in launches.items()}
+    # the down half's sums run in a fixed order: repeats give equal bits
+    for _ in range(2):
+        assert all(np.array_equal(a, b) for a, b in
+                   zip(dev.reduce(values), got)), "planned reduce repeat"
     sim = SparseAllreduce(M, DEGREES, backend="sim")
     sim.config(out_sets, in_sets)
     want = sim.reduce(values)
@@ -229,12 +289,17 @@ def phase_planned(torch, parts):
         np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
         err = max(err, float(np.max(np.abs(g - w), initial=0.0)))
     planned, _ = dev.planned_parts()
+    routing = planned.device_args(DEVICE)
     staged = torch.zeros((M, planned.u_cap), device=DEVICE)
     reduce_ms = cuda_ms(lambda: dev.reduce_fn(staged), reps=10)
     emit({"phase": "planned", "ok": True, "max_abs_err": err,
-          "tolerance": "rtol 1e-5, atol 1e-5 vs float64 sim",
-          "config_s": config_s, "u_cap": planned.u_cap,
-          "uin_cap": planned.uin_cap, "q_cap": planned.q_cap,
+          "tolerance": "rtol 1e-5, atol 1e-5 vs float64 sim; three reduces "
+                       "of the same normal floats bit-identical",
+          "config_s": config_s, "config_cache": dev.config_cache,
+          "u_cap": planned.u_cap, "uin_cap": planned.uin_cap,
+          "q_cap": planned.q_cap,
+          "sum_fans": [routing.user_scatter.fan]
+          + [layer[2].fan for layer in routing.layers],
           "reduce_ms": reduce_ms, "launches": launches})
     return launches
 
@@ -377,15 +442,23 @@ def phase_union_wire(torch):
                           "max_abs_err": err,
                           "launches": {k: v for k, v in launches.items()
                                        if v}})
-            if wire == "raw" and merge != "sort":
-                # where a reduce's device time goes, by kernel (profiler)
-                stages = profile_kernels(torch, lambda: ar.union_reduce(
-                    ti, tv, out_cap), reps=2)
-                pairs[-1]["device_ms"] = sum(m for m, _ in stages.values())
-                pairs[-1]["top_kernels_ms"] = dict(sorted(
+    peak = torch.cuda.max_memory_allocated()
+    # where a reduce's device time goes, by kernel (profiler); the cache is
+    # released first, for the profiler's process allocates a reduce's own
+    torch.cuda.empty_cache()
+    with fresh_profiler():
+        for entry in pairs:
+            if entry["wire"] == "raw" and entry["merge"] != "sort":
+                stages = fresh_profile(
+                    ("repro_torch.core.api", "SparseAllreduce",
+                     {"num_nodes": M, "degrees": DEGREES, "backend": "device",
+                      "merge": entry["merge"], "wire": "raw",
+                      "device": DEVICE}, "union_reduce"),
+                    (ti, tv, out_cap), reps=2)
+                entry["device_ms"] = sum(m for m, _ in stages.values())
+                entry["top_kernels_ms"] = dict(sorted(
                     ((k, m) for k, (m, _) in stages.items()),
                     key=lambda kv: -kv[1])[:12])
-    peak = torch.cuda.max_memory_allocated()
     banded_i8 = next(p["launches"] for p in pairs
                      if p["merge"] == "banded" and p["wire"] == "delta+int8ef")
     assert banded_i8 == {"rank_counts_banded": len(DEGREES),
@@ -428,6 +501,7 @@ def phase_pagerank(torch, edges, parts, n_vertices):
     rel = float(np.max(np.abs(got - ref) / np.abs(ref)))
     assert launches["spmv_csr"] == ROUNDS and launches["spmv_ell"] == 0, \
         launches
+    fresh_plan_cache()      # time a fresh config, as the entry point's
     t0 = time.perf_counter()
     app, out_sets, in_sets = make_pagerank_app(parts, n_vertices, DAMPING)
     engine = GraphEngine(out_sets, in_sets, app, degrees=DEGREES,
@@ -438,12 +512,14 @@ def phase_pagerank(torch, edges, parts, n_vertices):
                                 engine.uin_cap, device=DEVICE)
     torch.cuda.synchronize()
     state_s = time.perf_counter() - t0
-    engine.run(ROUNDS, p0, extras)
+    first_state, first_q, _ = engine.run(ROUNDS, p0, extras)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, last_q, _ = engine.run(ROUNDS, p0, extras)
+    state, last_q, _ = engine.run(ROUNDS, p0, extras)
     torch.cuda.synchronize()
     round_s = (time.perf_counter() - t0) / ROUNDS
+    assert torch.equal(state, first_state) and torch.equal(last_q, first_q), \
+        "two PageRank runs differ"
     csr_bytes = sum(int(t.numel() * t.element_size())
                     for t in extras.values())
     emit({"phase": PHASE["name"], "ok": True, "vertices": n_vertices,
@@ -458,11 +534,11 @@ def phase_pagerank(torch, edges, parts, n_vertices):
           "max_memory_allocated": int(peak),
           "max_memory_over_call": int(peak - base),
           "memory_allocated_before": int(base), "entry_point_s": total_s,
-          "host_config_s": config_s, "csr_state_s": state_s,
-          "reference_s": reference_s,
-          "round_wall_s": round_s, "engine": stats["engine"],
-          "launches": launches})
-    del engine, extras, p0, last_q
+          "host_config_s": config_s, "config_cache": engine.config_cache,
+          "csr_state_s": state_s, "reference_s": reference_s,
+          "round_wall_s": round_s, "two_runs_bit_identical": True,
+          "engine": stats["engine"], "launches": launches})
+    del engine, extras, p0, last_q, state, first_state, first_q
     return launches
 
 
@@ -635,6 +711,7 @@ def phase_replicated_planned(torch, parts):
     t0 = time.perf_counter()
     _, config_launches = main_path(lambda: ar.config(out_sets, in_sets))
     config_s = time.perf_counter() - t0
+    config_cache = ar.config_cache
     got, launches = main_path(lambda: ar.reduce(values))
     launches = {k: v + config_launches[k] for k, v in launches.items()}
     sim = SparseAllreduce(M, DEGREES, backend="sim", replication=REPLICATION,
@@ -668,7 +745,8 @@ def phase_replicated_planned(torch, parts):
           "dead_repaired": sorted(d2), "lost_group_raised": sorted(lost),
           "max_abs_err": 0.0,
           "tolerance": "bit for bit vs unreplicated and vs sim (dyadic)",
-          "config_s": config_s, "repair_s": repair_s,
+          "config_s": config_s, "config_cache_before_repair": config_cache,
+          "repair_s": repair_s,
           "u_cap": planned.u_cap, "uin_cap": planned.uin_cap,
           "depth": planned.depth, "reduce_ms": reduce_ms,
           "unreplicated_reduce_ms": base_ms, "launches": launches})
@@ -738,6 +816,495 @@ def phase_replicated_union(torch):
     return total
 
 
+def fresh_plan_cache() -> str:
+    """Point the plan cache at a new empty directory (under the run's
+    scratch root) and drop the in-process memo, so each phase configures
+    from nothing, as its numbers in PERF.md assume; returns the root."""
+    import tempfile
+    from repro_torch.core import autotune
+    root = tempfile.mkdtemp(prefix="plans-", dir=SCRATCH["root"])
+    os.environ[autotune.CACHE_ENV] = root
+    autotune.clear_plan_memo()
+    return root
+
+
+# the run's scratch directory (plan caches, checkpoints), removed at exit
+SCRATCH = {"root": None}
+
+
+def pagerank_sets(parts):
+    """PageRank's per-node out / in index sets."""
+    return ([p.out_idx.astype(np.uint32) for p in parts],
+            [p.in_idx.astype(np.uint32) for p in parts])
+
+
+def plan_cache_probe(root: str, inputs: str, output: str) -> int:
+    """``chip_smoke.py --plan-cache-probe ROOT IN OUT``: a restarted
+    process configures PageRank's index sets from the plan cache at ROOT
+    and writes its reduce of IN's values to OUT (the plan_cache phase)."""
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.core.api import SparseAllreduce
+    from repro_torch.core.autotune import PlanCache
+    with np.load(inputs) as f:
+        out_sets = [f[f"o{i}"] for i in range(M)]
+        in_sets = [f[f"i{i}"] for i in range(M)]
+        values = [f[f"v{i}"] for i in range(M)]
+    ar = SparseAllreduce(M, DEGREES, backend="device", device=DEVICE,
+                         plan_cache=PlanCache(root=root))
+    t0 = time.perf_counter()
+    ar.config(out_sets, in_sets)
+    torch.cuda.synchronize()
+    config_s = time.perf_counter() - t0
+    np.savez(output, *ar.reduce(values))
+    emit({"config_cache": ar.config_cache, "config_s": config_s})
+    return 0
+
+
+def phase_plan_cache(torch, parts):
+    """Config tiers on PageRank's index sets: fresh, memo, disk (memo
+    cleared), disk again in a restarted process; the same reduce bits on
+    normal floats from all four; ``degrees="auto"`` tuned, then cached."""
+    from repro_torch.core import autotune
+    from repro_torch.core.api import SparseAllreduce
+    root = os.environ[autotune.CACHE_ENV]
+    out_sets, in_sets = pagerank_sets(parts)
+    rng = np.random.RandomState(21)
+    values = [rng.randn(len(o)).astype(np.float32) for o in out_sets]
+    tiers, results, total = {}, [], {}
+    for want in ("fresh", "memo", "disk"):
+        if want == "disk":
+            autotune.clear_plan_memo()
+        ar = SparseAllreduce(M, DEGREES, backend="device", device=DEVICE)
+        t0 = time.perf_counter()
+        _, launches = main_path(lambda: ar.config(out_sets, in_sets))
+        torch.cuda.synchronize()
+        tiers[want] = time.perf_counter() - t0
+        assert ar.config_cache == want, (want, ar.config_cache)
+        got, more = main_path(lambda: ar.reduce(values))
+        for k in launches:
+            total[k] = total.get(k, 0) + launches[k] + more[k]
+        results.append(got)
+        if want == "fresh":
+            first = ar
+        elif want == "memo":
+            assert ar.reduce_fn is first.reduce_fn
+    inputs = os.path.join(root, "probe_in.npz")
+    output = os.path.join(root, "probe_out.npz")
+    np.savez(inputs, **{f"o{i}": o for i, o in enumerate(out_sets)},
+             **{f"i{i}": x for i, x in enumerate(in_sets)},
+             **{f"v{i}": v for i, v in enumerate(values)})
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--plan-cache-probe", root, inputs, output],
+                          capture_output=True, text=True, timeout=300,
+                          check=True)
+    restart_s = time.perf_counter() - t0
+    probe = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert probe["config_cache"] == "disk", probe
+    with np.load(output) as f:
+        results.append([f[f"arr_{i}"] for i in range(M)])
+    for other in results[1:]:
+        assert all(np.array_equal(a, b) for a, b in zip(results[0], other)), \
+            "config tiers reduce to different bits"
+    n0 = float(np.mean([len(o) for o in out_sets]))
+    sources = [SparseAllreduce(M, "auto", backend="device", device=DEVICE,
+                               expected_nnz=n0, index_range=N_VERTICES
+                               ).degrees_source for _ in range(2)]
+    assert sources == ["tuned", "cache"], sources
+    emit({"phase": "plan_cache", "ok": True, "nodes": M,
+          "degrees": list(DEGREES),
+          "config_s": {"fresh": tiers["fresh"], "memo": tiers["memo"],
+                       "disk": tiers["disk"],
+                       "disk_restarted_process": probe["config_s"]},
+          "restarted_process_s": restart_s,
+          "auto_degrees_sources": sources,
+          "tolerance": "reduce bits of normal floats equal across fresh, "
+                       "memo, disk and disk in a restarted process",
+          "launches": total})
+    return total
+
+
+def phase_calibrate(torch, parts):
+    """Fabric fit over the stacked transport, timed-trial plan selection
+    (fused merge) and resolve_degrees under the fit.  The trials are
+    timing tools, not main-path calls: their launches are reported here
+    and counted nowhere else."""
+    import functools
+    from repro_torch.core import autotune
+    from repro_torch.core.topology import ButterflyPlan
+    from repro_torch.kernels import _build
+    out_sets, _ = pagerank_sets(parts)
+    n0 = float(np.mean([len(o) for o in out_sets]))
+    t0 = time.perf_counter()
+    fabric = autotune.calibrate_fabric(M, device=DEVICE, store=True)
+    calibrate_s = time.perf_counter() - t0
+    backend = autotune.backend_name(DEVICE)
+    meta, _ = autotune.default_cache().load(autotune.fabric_cache_key(
+        backend=backend, num_devices=M))
+    assert autotune.calibrated_fabric(backend=backend,
+                                      num_devices=M) == fabric
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    report = autotune.select_plan(
+        M, n0, N_VERTICES, fabric, top_k=5,
+        confirm=functools.partial(autotune.measure_plan, device=DEVICE,
+                                  merge="fused"))
+    select_s = time.perf_counter() - t0
+    trial_launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    _build.reset_launches()
+    degrees, source = autotune.resolve_degrees(M, n0=n0,
+                                               total_range=N_VERTICES,
+                                               fabric=fabric)
+    assert source == "tuned" and math.prod(degrees) == M
+    emit({"phase": "calibrate", "ok": True, "nodes": M,
+          "stage_degrees": list(autotune.stage_degrees(M)),
+          "payload_entries": [256, 4096, 32768],
+          "alpha_s": fabric.alpha_s, "beta_bytes_per_s":
+          fabric.beta_bytes_per_s, "gamma_s": fabric.gamma_s,
+          "fit_residual": meta["fit_residual"], "calibrate_s": calibrate_s,
+          "select": {"n0": n0, "total_range": N_VERTICES, "merge": "fused",
+                     "candidates": [
+                         {"degrees": list(d), "modeled_ms": t * 1e3,
+                          "measured_ms": report.measured_s[
+                              str(ButterflyPlan(M, d))] * 1e3}
+                         for t, d in report.candidates],
+                     "winner": list(report.plan.degrees),
+                     "decreasing": report.decreasing, "seconds": select_s},
+          "resolved_degrees": list(degrees), "resolved_source": source,
+          "trial_launches": trial_launches, "launches": {}})
+    return {}
+
+
+def phase_resilient_planned(torch, parts):
+    """``ResilientAllreduce(64, (16, 4), replication=2)`` on PageRank's
+    index sets (dyadic values): a replica-absorbed dead set repaired in
+    place, a lost group shrunk to 63 survivors equal to a fresh reduce
+    over them, the shrink reused, and a deeper loss raising
+    ``QuorumLost``; then, with ``degrees="auto"``, the same loss shrunk
+    with degrees from ``resolve_degrees(shrunk_from=64)`` on the base's
+    plan cache (which then serves them), equal to the same reduce."""
+    from repro_torch.core import autotune
+    from repro_torch.core.api import SparseAllreduce
+    from repro_torch.core.replication import replica_groups
+    from repro_torch.core.topology import tune
+    from repro_torch.resilience import (DegradedPolicy, QuorumLost,
+                                        ResilientAllreduce)
+    out_sets, in_sets = pagerank_sets(parts)
+    n0 = float(np.mean([len(o) for o in out_sets]))
+    rng = np.random.RandomState(8)
+    values = [(rng.randint(-8, 9, len(o)) / 1024).astype(np.float32)
+              for o in out_sets]
+    groups = replica_groups(REPLICATION * M, REPLICATION)
+    (absorbed,) = good_dead_sets(REPLICATION * M, 1)
+    lost = set(groups[5])
+    deep = set().union(*groups[:M // 2 + 1])
+    deads = [None, absorbed, lost, lost, deep]
+    ra = ResilientAllreduce(M, DEGREES, replication=REPLICATION,
+                            probe=lambda step, attempt: deads[step],
+                            policy=DegradedPolicy(max_retries=0),
+                            device=DEVICE, expected_nnz=n0,
+                            index_range=N_VERTICES)
+    total, ms = {}, {}
+
+    def step(i, sup=ra):
+        t0 = time.perf_counter()
+        out, launches = main_path(lambda: sup.reduce(values, step=i))
+        ms[i] = (time.perf_counter() - t0) * 1e3
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        return out
+
+    t0 = time.perf_counter()
+    main_path(lambda: ra.config(out_sets, in_sets))
+    config_s = time.perf_counter() - t0
+    base = step(0)
+    assert not base.degraded
+    rep = step(1)
+    assert rep.event.klass == "replica-absorbed" and not rep.degraded
+    assert ra.base.config_cache == "repair"
+    assert all(np.array_equal(rep.values[i], base.values[i])
+               for i in range(M)), "repair changed bits"
+    shrink = step(2)
+    sh = shrink.shrink
+    surv = shrink.event.survivors
+    assert shrink.degraded and len(surv) == M - 1 and 5 not in surv
+    want_degrees = autotune.resolve_degrees(
+        M - 1, n0=n0, total_range=N_VERTICES, replication=REPLICATION,
+        shrunk_from=M, cache=autotune.PlanCache(
+            os.path.join(os.environ[autotune.CACHE_ENV], "resolve")))[0]
+    assert sh["degrees"] == want_degrees == tune(
+        M - 1, n0=n0, total_range=N_VERTICES).degrees, sh
+    assert sh["replication"] == REPLICATION
+    fresh = SparseAllreduce(M - 1, sh["degrees"], backend="device",
+                            replication=REPLICATION, device=DEVICE)
+    fresh.config([out_sets[i] for i in surv], [in_sets[i] for i in surv])
+    want = fresh.reduce([values[i] for i in surv])
+    assert all(np.array_equal(shrink.values[sid], want[k])
+               for k, sid in enumerate(surv)), "shrink != fresh survivors"
+    again = step(3)
+    assert ra.stats["shrinks"] == 1 and ra.stats["shrink_reuses"] == 1
+    assert all(np.array_equal(again.values[s], shrink.values[s])
+               for s in surv)
+    try:
+        step(4)
+        raise AssertionError("a loss below quorum was accepted")
+    except QuorumLost:
+        pass
+    auto = ResilientAllreduce(M, "auto", replication=REPLICATION,
+                              probe=lambda step, attempt: lost
+                              if step == 6 else None,
+                              policy=DegradedPolicy(max_retries=0),
+                              device=DEVICE, expected_nnz=n0,
+                              index_range=N_VERTICES)
+    main_path(lambda: auto.config(out_sets, in_sets))
+    assert not step(5, auto).degraded
+    auto_shrink = step(6, auto)
+    ash = auto_shrink.shrink
+    assert ash["degrees_source"] == "tuned", ash
+    assert autotune.resolve_degrees(
+        M - 1, n0=n0, total_range=N_VERTICES, replication=REPLICATION,
+        shrunk_from=M, cache=auto.base.plan_cache) == \
+        (ash["degrees"], "cache"), "auto shrink did not store its degrees"
+    assert all(np.array_equal(auto_shrink.values[sid], want[k])
+               for k, sid in enumerate(surv)), "auto shrink != survivors"
+    emit({"phase": "resilient_planned", "ok": True, "logical_nodes": M,
+          "replication": REPLICATION, "degrees": list(DEGREES),
+          "absorbed_dead": sorted(absorbed), "lost_group": sorted(lost),
+          "survivors": len(surv), "shrink_degrees": list(sh["degrees"]),
+          "shrink_degrees_source": sh["degrees_source"],
+          "shrink_config_cache": sh["config_cache"],
+          "quorum_lost_dead": len(deep), "config_s": config_s,
+          "reduce_ms": ms[0], "repair_ms": ms[1], "first_shrink_ms": ms[2],
+          "reused_shrink_ms": ms[3], "stats": ra.stats,
+          "auto_degrees": list(auto.base.plan.degrees),
+          "auto_shrink_degrees": list(ash["degrees"]),
+          "auto_shrink_degrees_source": ash["degrees_source"],
+          "auto_shrink_ms": ms[6],
+          "tolerance": "bit for bit: repair vs fault-free, shrink and "
+                       "auto shrink vs a fresh reduce over the survivors "
+                       "(dyadic)",
+          "launches": total})
+    return total
+
+
+def survivor_oracle(idx, val, rows):
+    """float64 union (indices, sums) of the chunks of ``rows``."""
+    from repro_torch.core.sparse_vec import SENTINEL
+    sel = idx[rows]
+    keep = sel != SENTINEL
+    u, inv = np.unique(sel[keep], return_inverse=True)
+    return u, np.bincount(inv, weights=val[rows][keep].astype(np.float64))
+
+
+def phase_resilient_union(torch):
+    """``ResilientAllreduce`` on replicated_union's input (32 logical
+    nodes, (8, 4), r = 2) with both replicas of one shard dead: 31
+    survivors at r = 2 over one flat layer of 31 runs, fused and banded,
+    equal to a fresh reduce over the survivors and the float64 oracle."""
+    from repro_torch.core.allreduce import shape_bucket
+    from repro_torch.core.api import SparseAllreduce
+    from repro_torch.core.sparse_vec import SENTINEL
+    from repro_torch.core.topology import tune
+    from repro_torch.resilience import DegradedPolicy, ResilientAllreduce
+    nodes, lost = REP_UNION_NODES, 5
+    idx, val, _, _ = union_wire_inputs(nodes)
+    surv = [i for i in range(nodes) if i != lost]
+    want_idx, want_val = survivor_oracle(idx, val, surv)
+    n = len(want_idx)
+    out_cap = shape_bucket(n)
+    ti = torch.as_tensor(idx, device=DEVICE)
+    tv = torch.as_tensor(val, device=DEVICE)
+    want_i = torch.as_tensor(want_idx, device=DEVICE)
+    want_v = torch.as_tensor(want_val.astype(np.float32), device=DEVICE)
+    pairs, total = [], {}
+    for merge in ("fused", "banded"):
+        ra = ResilientAllreduce(
+            nodes, REP_UNION_DEGREES, replication=REPLICATION,
+            probe=lambda step, attempt: {lost, lost + nodes},
+            policy=DegradedPolicy(max_retries=0), merge=merge,
+            device=DEVICE, index_range=WIRE_RANGE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res, launches = main_path(lambda: ra.union_reduce(ti, tv, out_cap))
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        assert res.degraded and res.event.survivors == tuple(surv)
+        # 31 survivors: prime, so tune falls back to one flat layer
+        assert res.shrink["degrees"] == tune(
+            nodes - 1, n0=ra.expected_nnz, total_range=WIRE_RANGE).degrees \
+            and res.shrink["replication"] == REPLICATION, res.shrink
+        fresh = SparseAllreduce(nodes - 1, res.shrink["degrees"],
+                                backend="device",
+                                replication=REPLICATION, merge=merge,
+                                device=DEVICE)
+        fi, fv, fo = fresh.union_reduce(ti[surv], tv[surv], out_cap)
+        for k, sid in enumerate(surv):
+            gi, gv, go = res.values[sid]
+            assert torch.equal(gi, fi[k]) and torch.equal(gv, fv[k]), \
+                (merge, sid, "vs fresh")
+            assert int(go) == int(fo[k]) == 0, (merge, sid, int(go))
+            assert torch.equal(gi[:n], want_i) and \
+                bool((gi[n:] == SENTINEL).all()), (merge, sid, "idx")
+            assert torch.equal(gv[:n], want_v), (merge, sid, "vs oracle")
+        del fi, fv, fo, res
+        ms = cuda_ms(lambda: ra.union_reduce(ti, tv, out_cap), reps=3,
+                     warmup=1)
+        assert ra.stats["shrinks"] == 1 and ra.stats["shrink_reuses"] >= 1
+        degrees = ra.last_shrink["degrees"]
+        pairs.append({"merge": merge, "first_call_ms": first_ms,
+                      "reused_shrink_ms": ms, "max_memory_allocated":
+                      int(peak), "launches": {k: v for k, v in
+                                              launches.items() if v}})
+    emit({"phase": "resilient_union", "ok": True, "logical_nodes": nodes,
+          "replication": REPLICATION, "degrees": list(REP_UNION_DEGREES),
+          "lost_shard": lost, "survivors": len(surv),
+          "survivor_degrees": list(degrees), "union_count": n,
+          "out_capacity": out_cap, "pairs": pairs,
+          "tolerance": "bit for bit vs a fresh reduce over the survivors "
+                       "and the float64 oracle (dyadic)",
+          "launches": total})
+    del ti, tv, want_i, want_v
+    return total
+
+
+def soak_seed() -> int:
+    """The first seed whose rack schedule over the POOL positions kills an
+    engine position (one of the first M) at a round where the loop
+    consults it (block starts from FAULT_AT on)."""
+    from repro_torch.core.faults import make_schedule
+    checked = [r for r in range(0, ROUNDS, CKPT_EVERY) if r >= FAULT_AT]
+    for seed in range(100):
+        sched = make_schedule("rack", POOL, RACK, seed=seed, rack_size=RACK)
+        if any(min(sched.dead_at(r)) < M for r in checked):
+            return seed
+    raise AssertionError("no seed hits an engine position")
+
+
+def phase_supervised_pagerank(torch, parts):
+    """``SupervisedEngineLoop`` (M = 64 over a pool of 80, 10 rounds,
+    checkpoints every 2) with a rack schedule from round 3: final state
+    and last_q equal the fault-free run bit for bit, with a remap."""
+    from repro_torch.core.faults import make_schedule
+    from repro_torch.graph.pagerank import make_pagerank_app, pagerank_state
+    from repro_torch.resilience import SupervisedEngineLoop
+    seed = soak_seed()
+    app, out_sets, in_sets = make_pagerank_app(parts, N_VERTICES, DAMPING)
+    runs, total = {}, {}
+    for name in ("clean", "rack"):
+        sched = None if name == "clean" else make_schedule(
+            "rack", POOL, RACK, seed=seed, rack_size=RACK)
+        ckpt = os.path.join(SCRATCH["root"], f"supervised-{name}")
+        loop = SupervisedEngineLoop(out_sets, in_sets, app, degrees=DEGREES,
+                                    schedule=sched, fault_at=FAULT_AT,
+                                    ckpt_dir=ckpt, ckpt_every=CKPT_EVERY,
+                                    pool=POOL, device=DEVICE)
+        remaps = []
+        supervise = loop._supervise
+
+        def timed(rnd, loop=loop, supervise=supervise, remaps=remaps):
+            before = loop.remaps
+            t0 = time.perf_counter()
+            supervise(rnd)
+            if loop.remaps != before:
+                remaps.append({"round": rnd,
+                               "seconds": time.perf_counter() - t0,
+                               "config_cache": loop.engine.config_cache,
+                               "nodes_first": loop.engine.nodes[0]})
+        loop._supervise = timed
+        extras, p0 = pagerank_state(parts, N_VERTICES, loop.engine.u_cap,
+                                    loop.engine.uin_cap, device=DEVICE)
+        t0 = time.perf_counter()
+        (state, last_q), launches = main_path(
+            lambda: loop.run(ROUNDS, p0, extras))
+        torch.cuda.synchronize()
+        runs[name] = {"state": state, "last_q": last_q, "remaps": remaps,
+                      "seconds": time.perf_counter() - t0,
+                      "events": [e.klass for e in loop.events]}
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        del extras, p0
+    clean, rack = runs["clean"], runs["rack"]
+    assert len(rack["remaps"]) >= 1, rack["events"]
+    assert torch.equal(clean["state"], rack["state"]) and \
+        torch.equal(clean["last_q"], rack["last_q"]), "remapped run differs"
+    emit({"phase": "supervised_pagerank", "ok": True,
+          "vertices": N_VERTICES, "nodes": M, "pool": POOL,
+          "degrees": list(DEGREES), "rounds": ROUNDS,
+          "ckpt_every": CKPT_EVERY, "schedule": {
+              "kind": "rack", "num_failures": RACK, "rack_size": RACK,
+              "seed": seed, "fault_at": FAULT_AT},
+          "events": rack["events"], "remaps": rack["remaps"],
+          "clean_run_s": clean["seconds"], "rack_run_s": rack["seconds"],
+          "tolerance": "final state and last_q bit for bit vs the "
+                       "fault-free run",
+          "launches": total})
+    del runs
+    return total
+
+
+def phase_soak_resume(torch):
+    """``python -m repro_torch.launch.soak --job pagerank`` at the smoke's
+    graph size in subprocesses: a fault-free baseline, a rack-fault run
+    killed at round 4 (exit 17), and its ``--resume``; final.npz equal to
+    the baseline's array by array.  The kernels run in the subprocesses,
+    so their launches (as each run prints them) are reported here and
+    kept apart from the in-process main-path counts."""
+    seed = soak_seed()
+    base_args = ["--job", "pagerank", "--vertices", str(N_VERTICES),
+                 "--edges", str(N_EDGES), "--graph-nodes", str(M),
+                 "--pool", str(POOL), "--steps", str(ROUNDS),
+                 "--ckpt-every", str(CKPT_EVERY), "--seed", str(seed),
+                 "--device", DEVICE]
+    rack = ["--faults", "rack", "--fault-at", str(FAULT_AT),
+            "--num-failures", str(RACK), "--rack-size", str(RACK)]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    runs = {}
+
+    def soak(name, out, extra, rc):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m",
+                               "repro_torch.launch.soak", "--out", out,
+                               *base_args, *extra], env=env, cwd=ROOT,
+                              capture_output=True, text=True, timeout=600)
+        assert proc.returncode == rc, (name, proc.returncode,
+                                       proc.stdout[-2000:],
+                                       proc.stderr[-4000:])
+        launches = [json.loads(line.split(" ", 1)[1]) for line in
+                    proc.stdout.splitlines()
+                    if line.startswith("SOAK_LAUNCHES ")]
+        runs[name] = {"seconds": time.perf_counter() - t0, "rc": rc,
+                      "launches": {k: v for k, v in launches[0].items() if v}
+                      if launches else None}
+        return proc.stdout
+
+    base = os.path.join(SCRATCH["root"], "soak-base")
+    faulted = os.path.join(SCRATCH["root"], "soak-faulted")
+    soak("baseline", base, [], 0)
+    out = soak("killed", faulted, rack + ["--kill-at", "4"], 17)
+    assert "KILL round 4" in out, out
+    out = soak("resumed", faulted, rack + ["--resume"], 0)
+    assert "resumed at round 4" in out, out
+    with np.load(os.path.join(base, "final.npz")) as a, \
+            np.load(os.path.join(faulted, "final.npz")) as b:
+        assert sorted(a.files) == ["last_q", "scores", "state"]
+        for k in a.files:
+            assert np.array_equal(a[k], b[k]), k
+    with open(os.path.join(faulted, "final.meta.json")) as f:
+        meta = json.load(f)
+    emit({"phase": "soak_resume", "ok": True, "seed": seed,
+          "args": base_args + rack, "runs": runs,
+          "remaps": meta["remaps"], "events": meta["events"],
+          "tolerance": "final.npz (state, last_q, scores) equal array by "
+                       "array to the fault-free baseline",
+          "launches": {}})
+    return {}
+
+
 def bound_ms(nbytes: int) -> float:
     """Least milliseconds to move ``nbytes`` at the card's memory rate."""
     return nbytes / HBM_BYTES_PER_S * 1e3
@@ -782,7 +1349,8 @@ def rank_timing(torch, runs, banded, calls):
            "library_ms": cuda_ms(lambda: torch.searchsorted(seq, qry),
                                  reps=max(3, reps // 4), warmup=2),
            "reps": reps}
-    stages = profile_kernels(torch, lambda: merge_ranks(runs, banded=banded))
+    stages = fresh_profile(("repro_torch.kernels.rank_merge", "merge_ranks"),
+                           (runs,), {"banded": banded})
     out["cuda_launches_per_call"] = sum(n for _, n in stages.values())
     out["stage_ms"] = {name: ms for name, (ms, _) in stages.items()}
     del seq, qry, got
@@ -829,7 +1397,8 @@ def rank_row(torch, recorded, banded, launches):
                     + ("165" if banded else "142"),
         "launches": launches[name], "max_abs_err": 0,
         "check": "exact vs plain at every shape (the replica stage's k = 2 "
-                 "included), modes 0/1/2, repeat identical",
+                 "and the survivors' flat k = 31 included), modes 0/1/2, "
+                 "repeat identical",
         "bound_by": "bytes"}
     row.update({k: shapes[0][k] for k in ("shape", "ms", "plain_ms",
                                           "bound_ms", "library_ms")})
@@ -853,11 +1422,77 @@ def general_inputs(torch, pos, val, scale):
     return q, torch.rand(scale.shape, generator=gen, device=pos.device)
 
 
-def stage_ms(torch, fn, reps: int = 5):
-    """Device ms per call of each kernel ``fn`` launches, by name, from a
-    ``torch.profiler`` trace of ``reps`` calls."""
-    return {name: ms for name, (ms, _) in
-            profile_kernels(torch, fn, reps).items()}
+# profiler traces run in a fresh process (``fresh_profiler``): late in
+# this script's own process, traces lost the device events of their first
+# calls (runs S1, F, F2, F4 and R1 of PR 17), which a fresh process has
+# not shown (tools/profiler_window.py: 513 whole traces in 4 minutes)
+FRESH = {"proc": None, "jobs": None, "results": None, "calls": 0,
+         "traces": 0}
+PROFILER = {"traces": 0}
+
+
+@contextlib.contextmanager
+def fresh_profiler():
+    """A fresh process that runs ``fresh_profile``'s jobs while the block
+    runs; stopped when it ends."""
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    FRESH["jobs"], FRESH["results"] = ctx.Queue(), ctx.Queue()
+    FRESH["proc"] = proc = ctx.Process(
+        target=profiler_child, args=(FRESH["jobs"], FRESH["results"]),
+        daemon=True)
+    proc.start()
+    try:
+        yield
+    finally:
+        FRESH["jobs"].put(None)
+        proc.join(timeout=60)
+        if proc.is_alive():
+            proc.terminate()
+            proc.join()
+
+
+def fresh_profile(target, args, kwargs=None, reps: int = 5):
+    """``profile_kernels`` of one call of ``target`` in ``fresh_profiler``'s
+    process: ``(module, name)`` names a function, ``(module, class, init
+    kwargs, method)`` a method of a new instance; the tensors of ``args``
+    and ``kwargs`` are shared with it through CUDA IPC, not copied."""
+    FRESH["jobs"].put((target, args, kwargs or {}, reps))
+    while True:
+        try:
+            status, out, traces = FRESH["results"].get(timeout=5)
+            break
+        except queue.Empty:
+            if not FRESH["proc"].is_alive():
+                raise RuntimeError("profiler process exited with code "
+                                   f"{FRESH['proc'].exitcode}") from None
+    if status != "ok":
+        raise RuntimeError("profiler process failed:\n" + out)
+    FRESH["calls"] += 1
+    FRESH["traces"] += traces
+    return out
+
+
+def profiler_child(jobs, results):
+    """``fresh_profiler``'s process: ``profile_kernels`` of each job until
+    ``None``; a failure's traceback goes back to the caller, which
+    raises."""
+    import importlib
+    import traceback
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    for target, args, kwargs, reps in iter(jobs.get, None):
+        obj = getattr(importlib.import_module(target[0]), target[1])
+        fn = getattr(obj(**target[2]), target[3]) if len(target) > 2 else obj
+        before = PROFILER["traces"]
+        try:
+            stages = profile_kernels(torch, lambda: fn(*args, **kwargs), reps)
+            # idle, the shared tensors released, before the caller goes on
+            del args, kwargs, fn, obj
+            torch.cuda.synchronize()
+            results.put(("ok", stages, PROFILER["traces"] - before))
+        except Exception:
+            results.put(("error", traceback.format_exc(), 0))
 
 
 def profile_kernels(torch, fn, reps: int = 5, tries: int = 5):
@@ -865,51 +1500,60 @@ def profile_kernels(torch, fn, reps: int = 5, tries: int = 5):
     launches (template instances summed under one name), from a
     ``torch.profiler`` trace of ``reps`` calls; only the device's own
     events count (an operator's or a launch call's device time is its
-    kernels' again).  The profiler now and then drops the device events
-    of whole calls at a trace's edges, so each trace starts with a
-    warm-up step of one call that is not recorded, the calls sit 5 ms of
-    host time inside the recorded window on both sides, and a trace is
-    taken again, up to ``tries`` times in all, unless it holds device
-    events and every kernel was launched the same whole number of times
-    in each of the ``reps`` calls; the last such failure raises."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
+    kernels' again).  Each trace starts with a warm-up step of one call
+    that is not recorded, and the calls sit 20 ms of host time inside the
+    recorded window on both sides.  A trace is taken again, up to
+    ``tries`` times in all, unless it holds device events and every
+    kernel was launched the same whole number of times in each of the
+    ``reps`` calls; otherwise this raises."""
     fn()
     torch.cuda.synchronize()
-    traces = []
+    counts = None
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-                     on_trace_ready=lambda p: traces.append(p.key_averages())
-                     ) as prof:
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-            time.sleep(0.005)
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            time.sleep(0.005)
-            prof.step()
-        total = {}
-        for evt in traces.pop():
-            if (evt.device_type == DeviceType.CPU
-                    or evt.key.startswith("ProfilerStep")):
-                continue
-            us = getattr(evt, "self_device_time_total", None)
-            if us is None:
-                us = getattr(evt, "self_cuda_time_total", 0)
-            if us > 0:
-                key = evt.key.replace("(anonymous namespace)::", "")
-                key = key[5:] if key.startswith("void ") else key
-                name = re.split(r"[<(]", key)[0].split("::")[-1]
-                ms, n = total.get(name, (0.0, 0))
-                total[name] = (ms + us / 1e3, n + evt.count)
+        total = trace_once(torch, fn, reps)
+        PROFILER["traces"] += 1
         if total and all(n % reps == 0 for _, n in total.values()):
             return {name: (ms / reps, n // reps)
                     for name, (ms, n) in total.items()}
+        counts = {name: n for name, (_, n) in total.items()}
     raise RuntimeError(f"profiler: no whole trace of {reps} calls in {tries} "
-                       f"tries; the last held {total}")
+                       f"tries; the last held {counts}")
+
+
+def trace_once(torch, fn, reps: int) -> dict:
+    """``{name: (device ms, launches)}`` summed over one profiler trace of
+    ``reps`` calls of ``fn`` (after one unrecorded warm-up call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    traces = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: traces.append(p.key_averages())
+                 ) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(0.02)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+        prof.step()
+    total = {}
+    for evt in traces.pop():
+        if (evt.device_type == DeviceType.CPU
+                or evt.key.startswith("ProfilerStep")):
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0)
+        if us > 0:
+            key = evt.key.replace("(anonymous namespace)::", "")
+            key = key[5:] if key.startswith("void ") else key
+            name = re.split(r"[<(]", key)[0].split("::")[-1]
+            ms, n = total.get(name, (0.0, 0))
+            total[name] = (ms + us / 1e3, n + evt.count)
+    return total
 
 
 def dense_scatter_large(torch, fn, pos, val, num_rows, scale):
@@ -1032,10 +1676,12 @@ def banded_call(torch, args, kwargs, calls):
         pos, keys.expand(pos.shape[0], -1).contiguous())), "window table"
     kept = int(((pos >= 0) & (pos < num_rows)).sum())
     del got, want
+    # the library yardstick: index_add_ of the (widened) values; for the
+    # int8 wire it leaves out the scale, as row 4's does
     out = {"calls": calls, "check": check + "; repeat identical; window "
            "table = searchsorted", "max_abs_err": err, "kept_sources": kept,
-           **scatter_timing(torch, fn, args, kwargs, None if scale is not None
-                            else index_add_call(torch, pos, val, num_rows),
+           **scatter_timing(torch, fn, args, kwargs,
+                            index_add_call(torch, pos, val, num_rows),
                             reps=50)}
     out["bound_all_pos_ms"] = out["bound_ms"]
     out["bound_ms"] = bound_ms(
@@ -1043,7 +1689,8 @@ def banded_call(torch, args, kwargs, calls):
                 + (0 if scale is None else 4))
         + keys.numel() * pos.shape[0] * 8
         + pos.shape[0] * num_rows * val.shape[-1] * 4)
-    stages = profile_kernels(torch, lambda: fn(*args, **kwargs))
+    stages = fresh_profile(("repro_torch.kernels.onehot_scatter",
+                            "banded_onehot_scatter_add"), args, kwargs)
     out["cuda_launches_per_call"] = sum(n for _, n in stages.values())
     assert out["cuda_launches_per_call"] == 2, stages
     out["stage_ms"] = {name: ms for name, (ms, _) in stages.items()}
@@ -1248,8 +1895,9 @@ def kernel_rows(torch, rec, launches, parts):
         "check": dense_scatter_large(torch, onehot_scatter_add, pos, val,
                                      num_rows, None)
         + "; bit-exact vs plain on card (dyadic)",
-        "stage_ms": stage_ms(torch, lambda: onehot_scatter_add(
-            pos, val, num_rows, **kw)),
+        "stage_ms": {name: ms for name, (ms, _) in fresh_profile(
+            ("repro_torch.kernels.onehot_scatter", "onehot_scatter_add"),
+            (pos, val, num_rows), kw).items()},
         "dropped_sources": int(((pos < 0) | (pos >= num_rows)).sum()),
         **scatter_timing(torch, onehot_scatter_add, (pos, val, num_rows), kw,
                          index_add_call(torch, pos, val, num_rows))}
@@ -1260,6 +1908,19 @@ def kernel_rows(torch, rec, launches, parts):
         calls=rec["scatter"].calls[("replicated_union", "f32")])
     for key in ("name", "route", "source", "replaces", "launches"):
         del row["replica_stage"][key]
+    # the survivors' flat layer of 31 runs (resilient_union, fused)
+    ((_, _, (_, k31, cap31)),) = [key for key in rec["rank"].args
+                             if key[0] == "resilient_union"
+                             and key[1] == "dense" and key[2][1] > 2]
+    (skey,) = [key for key in scat if key[:2] == ("resilient_union", "f32")
+               and key[2][1] == k31 * cap31]
+    args, kwargs = scat[skey]
+    row["survivor_layer"] = dict(
+        scatter_row(torch, "onehot_scatter_add", onehot_scatter_add, args,
+                    kwargs, launches, index_add_call(torch, *args)),
+        calls=rec["scatter"].calls[skey], k=k31)
+    for key in ("name", "route", "source", "replaces", "launches"):
+        del row["survivor_layer"][key]
     rows.append(row)
     args, kwargs = scat[("union_wire", "scaled")]
     row = scatter_row(torch, "onehot_scatter_add_scaled", onehot_scatter_add,
@@ -1279,6 +1940,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--plan-cache-probe"]:
+        return plan_cache_probe(*sys.argv[2:5])
+    SCRATCH["root"] = tempfile.mkdtemp(prefix="chip-smoke-")
+    try:
+        return smoke(torch)
+    finally:
+        shutil.rmtree(SCRATCH["root"], ignore_errors=True)
+
+
+def smoke(torch) -> int:
+    """Every phase, then the kernels line and the last line."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.data.pipeline import powerlaw_graph
     from repro_torch.graph import engine
@@ -1312,6 +1984,7 @@ def main() -> int:
 
     def run(name, fn, *args):
         PHASE["name"] = name
+        fresh_plan_cache()
         return fn(torch, *args)
 
     per_phase = {"planned": run("planned", phase_planned, parts),
@@ -1334,13 +2007,24 @@ def main() -> int:
                                           phase_replicated_planned, parts)
     per_phase["replicated_union"] = run("replicated_union",
                                         phase_replicated_union)
+    per_phase["plan_cache"] = run("plan_cache", phase_plan_cache, parts)
+    per_phase["calibrate"] = run("calibrate", phase_calibrate, parts)
+    per_phase["resilient_planned"] = run("resilient_planned",
+                                         phase_resilient_planned, parts)
+    per_phase["resilient_union"] = run("resilient_union",
+                                       phase_resilient_union)
+    per_phase["supervised_pagerank"] = run("supervised_pagerank",
+                                           phase_supervised_pagerank, parts)
+    per_phase["soak_resume"] = run("soak_resume", phase_soak_resume)
     torch.cuda.synchronize()
     launches = {k: sum(p.get(k, 0) for p in per_phase.values())
                 for k in _build.LAUNCHES}
     for r in rec.values():
         r.restore()
     emit({"phase": "main_path_launches", "launches": launches,
-          "per_phase": per_phase, "graph_s": graph_s})
+          "per_phase": per_phase, "graph_s": graph_s,
+          "note": "in-process main-path calls; the soak's subprocess "
+                  "launches are in its phase line"})
     # off the main path: the ELL kernel (PageRank runs the CSR kernel), the
     # dense scatter's layout stages and the banded scatter's window table,
     # each launched on its own
@@ -1349,7 +2033,15 @@ def main() -> int:
     assert all(v > 0 for k, v in launches.items() if k not in off_path), \
         launches
 
-    rows = kernel_rows(torch, rec, launches, parts)
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_start", "memory_allocated":
+          torch.cuda.memory_allocated(), "memory_reserved_before": reserved,
+          "memory_reserved": torch.cuda.memory_reserved()})
+    with fresh_profiler():
+        rows = kernel_rows(torch, rec, launches, parts)
+    emit({"phase": "profiler", "process": "fresh", "calls": FRESH["calls"],
+          "traces": FRESH["traces"]})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

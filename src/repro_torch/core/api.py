@@ -24,9 +24,21 @@ Both backends take ``replication=r`` and ``dead`` (paper §V):
 for any dead set that leaves each replica group an alive member, and
 raises ``DeadLogicalNode`` otherwise.  :meth:`SparseAllreduce.
 reconfig_dead` swaps the dead set of a configured instance without
-replanning.  ``degrees="auto"`` resolves through ``topology.tune``.  Not
-ported yet, raising ``NotImplementedError`` with its ROADMAP item: the
-persistent plan cache and ``retune`` (Queue 1 item 10).
+replanning.
+
+``degrees="auto"`` resolves through the autotuner
+(:mod:`repro_torch.core.autotune`): the persistent plan cache
+(``$REPRO_PLAN_CACHE`` or ``~/.cache/repro/plans``) is read before the
+cost-model sweep runs.  On the device backend :meth:`SparseAllreduce.
+config` is served from three tiers, reported in ``config_cache``: the
+in-process memo (``"memo"``: the same frozen plan object and reduce
+callable), the plan cache on disk (``"disk"``: the frozen routing arrays,
+moved to the device once), else a host replan (``"fresh"``), which is
+then stored in both.  ``nodes=`` names the pool positions that host the
+stacked physical nodes (default ``range(num_physical)``); with the
+device, it is part of the memo and disk keys, as the reference's mesh
+device ids are.  On one card the positions change no computation: the
+stacked reduce is the same whichever positions are named.
 """
 from __future__ import annotations
 
@@ -37,6 +49,7 @@ import torch
 
 from repro_torch.kernels.wirecodec import LOSSY_WIRE
 
+from . import autotune
 from .allreduce import check_merge, make_device_plan, run_union_allreduce
 from .netmodel import EC2_2013, Fabric
 from .planned import PlannedSparseAllreduce, plan_sparse_allreduce
@@ -60,12 +73,21 @@ class SparseAllreduce:
                  value_width: int = 1, device=None,
                  expected_nnz: float = 1e5, index_range: float = 1e6,
                  merge: str = "sort", wire: str = "raw",
-                 plan_cache: bool = False, retune: bool = False):
+                 plan_cache=True, retune: bool = False,
+                 nodes: Optional[Sequence[int]] = None):
         """``merge`` ("sort" | "fused" | "banded") picks the per-layer
         merge of :meth:`union_reduce` and ``wire`` its exchanged payload
         (``repro_torch.kernels.wirecodec``); the planned :meth:`reduce`
         has neither.  ``device`` binds the device backend (default: the
-        current CUDA device, raising without one)."""
+        current CUDA device, raising without one).
+
+        ``plan_cache``: ``True`` (default) uses the process cache at
+        ``$REPRO_PLAN_CACHE`` / ``~/.cache/repro/plans``, a ``PlanCache``
+        pins a root, ``False`` turns the disk tier off (``degrees="auto"``
+        still tunes, ``config`` still memoizes in-process).
+        ``retune=True`` bypasses cached degree reads and overwrites them.
+        ``nodes``: the pool positions of the ``num_physical`` stacked
+        nodes (module docstring)."""
         check_merge(merge)
         check_wire(wire)
         if backend == "sim" and wire in LOSSY_WIRE:
@@ -73,21 +95,41 @@ class SparseAllreduce:
                 f"backend='sim' models message bytes, not value precision; "
                 f"wire={wire!r} has no sim semantics (use 'raw' or "
                 f"'delta', or backend='device')")
-        if plan_cache or retune:
-            raise NotImplementedError(
-                "the persistent plan cache and retune are not ported yet "
-                "(ROADMAP Queue 1 item 10)")
         if backend not in ("sim", "device"):
             raise ValueError(f"unknown backend {backend!r}")
+        if plan_cache is True:
+            self.plan_cache = autotune.default_cache()
+        elif plan_cache is False or plan_cache is None:
+            self.plan_cache = None
+        elif isinstance(plan_cache, autotune.PlanCache):
+            self.plan_cache = plan_cache
+        else:
+            raise ValueError(
+                f"plan_cache must be True, False or a PlanCache (to pin a "
+                f"root, pass PlanCache(root=...)), got {plan_cache!r}")
         self.merge = merge
         self.wire = wire
         self.num_nodes = num_nodes
         self.degrees_source = "explicit"
         if degrees == "auto":
-            plan = tune(num_nodes, n0=expected_nnz, total_range=index_range,
-                        fabric=fabric, wire=wire, value_width=value_width)
-            degrees, self.degrees_source = plan.degrees, "tuned"
+            if self.plan_cache is not None:
+                degrees, self.degrees_source = autotune.resolve_degrees(
+                    num_nodes, n0=expected_nnz, total_range=index_range,
+                    fabric=fabric, merge=merge, replication=replication,
+                    width=value_width, cache=self.plan_cache, retune=retune,
+                    wire=wire)
+            else:
+                plan = tune(num_nodes, n0=expected_nnz,
+                            total_range=index_range, fabric=fabric,
+                            wire=wire, value_width=value_width)
+                degrees, self.degrees_source = plan.degrees, "tuned"
         self.plan = ButterflyPlan(num_nodes, tuple(degrees))
+        m_phys = num_nodes * replication
+        self.nodes = tuple(range(m_phys)) if nodes is None else tuple(
+            int(p) for p in nodes)
+        if len(self.nodes) != m_phys or len(set(self.nodes)) != m_phys:
+            raise ValueError(f"nodes must name {m_phys} distinct pool "
+                             f"positions, got {self.nodes}")
         self.backend = backend
         self.perm = HashPerm.make(seed)
         self.width = value_width
@@ -103,7 +145,8 @@ class SparseAllreduce:
         self._first_alive = None
         self._repair_cache = {}
         # how the last config() / reconfig_dead() was satisfied on the
-        # device backend: None | "fresh" | "repair" (a dead-set swap)
+        # device backend: None | "fresh" | "memo" | "disk" | "repair" (a
+        # dead-set swap)
         self.config_cache = None
 
     @property
@@ -124,39 +167,95 @@ class SparseAllreduce:
         node's result rows).  On ``sim`` it builds the message-level
         schedule; on ``device`` it freezes the routing of all physical
         replicas (``plan_sparse_allreduce``) and binds the reduce to the
-        device.  Raises ``DeadLogicalNode`` when ``dead`` kills a whole
-        replica group.  Returns the modeled ``ReduceStats`` of a simulator
-        config on both backends.
+        device, served from the memo, the disk cache or a fresh replan
+        (module docstring; ``config_cache`` says which).  Raises
+        ``DeadLogicalNode`` when ``dead`` kills a whole replica group.
+        Returns the modeled ``ReduceStats`` of a simulator config (on
+        ``device``, the stats stored with the frozen plan).
         """
         self._in_lens = [len(i) for i in in_indices]
         self._out_lens = [len(o) for o in out_indices]
-        sim = SimSparseAllreduce(
-            self.plan, replication=self.replication, dead=self.dead,
-            perm=self.perm, fabric=self.fabric, value_width=self.width)
-        stats = sim.config(out_indices, in_indices)
         if self.backend == "sim":
-            self._sim = sim
-            return stats
+            self._sim = SimSparseAllreduce(
+                self.plan, replication=self.replication, dead=self.dead,
+                perm=self.perm, fabric=self.fabric, value_width=self.width)
+            return self._sim.config(out_indices, in_indices)
         if self.wire in LOSSY_WIRE:
             raise NotImplementedError(
                 f"the planned reduce path ships pre-routed values only (no "
                 f"index stream), and quantized planned payloads are not "
                 f"implemented; wire={self.wire!r} is only supported on the "
                 f"union path (union_reduce)")
-        first_alive = first_alive_replicas(self.num_physical,
-                                           self.replication, self.dead)
-        dplan = make_device_plan(
-            [("nodes", self.num_physical)], {"nodes": self.plan.degrees},
-            in_capacity=max(self._out_lens),
-            out_capacity=sum(self._out_lens), replication=self.replication)
-        self._planned = plan_sparse_allreduce(
-            dplan, out_indices, in_indices, perm=self.perm, width=self.width,
-            dead=self.dead)
-        self._reduce_fn = self._planned.make_reduce_fn(self._device())
+        r, m_phys = self.replication, self.num_physical
+        # raises DeadLogicalNode before anything is planned or bound
+        first_alive = first_alive_replicas(m_phys, r, self.dead)
+        device = self._device()
+        fp = autotune.planned_fingerprint(
+            device, self.nodes, self.plan.degrees, r, self.dead, self.width,
+            self.perm, out_indices, in_indices, fabric=self.fabric)
+        memo = autotune.memo_lookup(fp)
+        if memo is not None:
+            self._planned, self._reduce_fn, stats = memo
+            self.config_cache = "memo"
+        else:
+            planned, stats = self._config_from_disk(fp)
+            if planned is None:
+                planned, stats = self._config_fresh(fp, out_indices,
+                                                    in_indices)
+            self._planned = planned
+            self._reduce_fn = planned.make_reduce_fn(device)
+            autotune.memo_store(fp, (planned, self._reduce_fn, stats))
         self._first_alive = first_alive
         self._repair_cache = {}
-        self.config_cache = "fresh"
         return stats
+
+    def _config_from_disk(self, fp: str):
+        """``(planned, stats)`` from the plan cache, or ``(None, None)``
+        (no cache, a miss, or a corrupt entry, which then replans)."""
+        if self.plan_cache is None:
+            return None, None
+        hit = self.plan_cache.load(autotune.planned_cache_key(fp))
+        if hit is None:
+            return None, None
+        meta, arrays = hit
+        try:
+            planned = autotune.planned_from_artifact(
+                arrays, meta, {"nodes": self.plan.degrees})
+            stats = autotune.stats_from_meta(meta["stats"])
+        except Exception:
+            return None, None
+        autotune.plan_memo_stats["disk_hits"] += 1
+        self.config_cache = "disk"
+        return planned, stats
+
+    def _config_fresh(self, fp: str, out_indices, in_indices):
+        """Host replan: the frozen routing, its modeled stats (a simulator
+        shadow config) and, with a cache, the artifact on disk."""
+        r, m_phys = self.replication, self.num_physical
+        dplan = make_device_plan(
+            [("nodes", m_phys)], {"nodes": self.plan.degrees},
+            in_capacity=max(self._out_lens),
+            out_capacity=sum(self._out_lens), replication=r)
+        planned = plan_sparse_allreduce(
+            dplan, out_indices, in_indices, perm=self.perm, width=self.width,
+            dead=self.dead)
+        shadow = SimSparseAllreduce(
+            self.plan, replication=r, dead=self.dead, perm=self.perm,
+            fabric=self.fabric, value_width=self.width)
+        stats = shadow.config(out_indices, in_indices)
+        self.config_cache = "fresh"
+        if self.plan_cache is not None:
+            arrays, meta = autotune.planned_to_artifact(planned)
+            meta["stats"] = autotune.stats_to_meta(stats)
+            meta["staging"] = {
+                "u_cap": planned.u_cap, "uin_cap": planned.uin_cap,
+                "out_lens": list(self._out_lens),
+                "in_lens": list(self._in_lens),
+                "num_physical": m_phys, "nodes": list(self.nodes),
+                "degrees": list(self.plan.degrees)}
+            self.plan_cache.store(autotune.planned_cache_key(fp), meta,
+                                  arrays)
+        return planned, stats
 
     # ------------------------------------------------------------------
     def reconfig_dead(self, dead: Optional[Set[int]]) -> None:

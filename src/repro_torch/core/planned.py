@@ -41,12 +41,65 @@ class _LayerMaps:
 
 
 @dataclasses.dataclass(frozen=True)
+class _FixedOrderSum:
+    """A scatter-add frozen into a fixed order (a segment layout).
+
+    ``slots [M, ...]`` sends source ``(n, i)`` (flattened row-major) to
+    slot ``slots[n, i]`` of node n's ``size`` outputs; slot ``size`` (the
+    drop bin) and anything outside ``[0, size)`` is left out.  ``order``
+    lists the kept sources grouped by destination, each group in
+    increasing source position, and ``offsets`` ``[M * size + 1]`` where
+    each group starts.  At reduce time one gather puts the values in that
+    order and ``torch.segment_reduce`` adds each group from 0 in turn:
+    the order a CPU ``index_add_`` adds in, with no float atomics, so the
+    bits are the same on every run.  ``fan`` is the most sources any
+    destination has (at most the degree for a merge scatter)."""
+    order: torch.Tensor        # int64 [kept sources]
+    offsets: torch.Tensor      # int64 [M * size + 1]
+    rows: int                  # M * size
+    fan: int
+
+    @classmethod
+    def build(cls, slots: np.ndarray, size: int, device) -> "_FixedOrderSum":
+        """The layout of ``slots`` (int [M, ...]) for ``size`` slots a
+        node, on ``device``."""
+        m = slots.shape[0]
+        s = slots.reshape(m, -1).astype(np.int64)
+        keep = (s >= 0) & (s < size)
+        dst = (s + (np.arange(m, dtype=np.int64) * size)[:, None])[keep]
+        src = np.flatnonzero(keep)
+        by_dst = np.argsort(dst, kind="stable")
+        counts = np.bincount(dst, minlength=m * size)
+        offsets = np.zeros(m * size + 1, np.int64)
+        np.cumsum(counts, out=offsets[1:])
+        return cls(order=torch.as_tensor(src[by_dst], device=device),
+                   offsets=torch.as_tensor(offsets, device=device),
+                   rows=m * size, fan=int(counts.max(initial=0)))
+
+    def __call__(self, src: torch.Tensor, wshape: Tuple[int, ...]
+                 ) -> torch.Tensor:
+        """``out [M * size, *wshape]``: each slot's sources of ``src``
+        (``[M, ..., *wshape]``, flattened as ``slots``) summed in order."""
+        width = int(np.prod(wshape, dtype=np.int64))
+        if self.order.numel() == 0:
+            return torch.zeros((self.rows,) + wshape, dtype=src.dtype,
+                               device=src.device)
+        picked = src.reshape(-1, width).index_select(0, self.order)
+        # 2-D data: one thread per (segment, column), adding in order
+        out = torch.segment_reduce(picked, "sum", offsets=self.offsets,
+                                   axis=0, unsafe=True)
+        return out.reshape((self.rows,) + wshape)
+
+
+@dataclasses.dataclass(frozen=True)
 class _DeviceRouting:
     """Frozen routing on one device, pre-flattened for the batched ops:
-    gathers keep per-node positions (clamped, with a validity mask);
-    scatters carry ``node * (size + 1) + slot`` offsets into flattened
-    ``[M * (size + 1)]`` buffers whose last slot per node is the drop bin."""
-    user_scatter: torch.Tensor                  # [M * u_cap]
+    gathers keep per-node positions (clamped, with a validity mask); the
+    down half's scatters are :class:`_FixedOrderSum` layouts into
+    flattened ``[M * size]`` buffers; the up half's scatters carry ``node
+    * (size + 1) + slot`` offsets into ``[M * (size + 1)]`` buffers whose
+    last slot per node is the drop bin."""
+    user_scatter: _FixedOrderSum                # -> [M * sorted_size]
     layers: Tuple[Tuple[torch.Tensor, ...], ...]  # per layer, see _route_layer
     bottom_gather: torch.Tensor                 # [M, q_cap]
     bottom_hit: torch.Tensor                    # [M, q_cap] bool
@@ -102,9 +155,11 @@ class PlannedSparseAllreduce:
     * :meth:`device_args` -- the frozen routing tensors on a device, which
       the reduce methods take after the values.
 
-    The value sums of the down half are float ``index_add_`` scatters; on
-    CUDA they use atomics, so results may differ from run to run in the
-    last ulp.  Sums of dyadic values are exact whatever the order.
+    The value sums of the down half run in a fixed order, frozen with the
+    routing (:class:`_FixedOrderSum`): each destination adds its sources
+    in increasing source position, as a CPU ``index_add_`` does, with no
+    float atomics, so a reduce gives the same bits on every run and on
+    CPU and CUDA alike.
 
     ``weights`` (r-way replicated plans, or a ``dead`` set): ``[M]``
     per-physical-node contribution weights, applied to the values before
@@ -160,15 +215,15 @@ class PlannedSparseAllreduce:
         for L in self.layers:
             sg, sm = _gather_pair(L.send_gather, device)
             ug, um = _gather_pair(L.up_send_gather, device)
-            layers.append((sg, sm, _flat_offsets(L.merge_scatter, L.merged_size,
-                                                 device),
+            layers.append((sg, sm, _FixedOrderSum.build(
+                               L.merge_scatter, L.merged_size, device),
                            ug, um, _flat_offsets(L.up_recv_scatter, L.up_size,
                                                  device)))
         bg, _ = _gather_pair(self.bottom_gather, device)
         ug, um = _gather_pair(self.user_gather, device)
         routing = _DeviceRouting(
-            user_scatter=_flat_offsets(self.user_scatter, self.sorted_size,
-                                       device),
+            user_scatter=_FixedOrderSum.build(self.user_scatter,
+                                              self.sorted_size, device),
             layers=tuple(layers), bottom_gather=bg,
             bottom_hit=torch.as_tensor(self.bottom_hit, device=device),
             user_gather=ug, user_hit=um,
@@ -221,20 +276,15 @@ class PlannedSparseAllreduce:
             values = values * routing.weights.to(values.dtype).reshape(
                 (m,) + (1,) * (values.ndim - 1))
 
-        def scatter_add(flat_index, src, size):
-            out = torch.zeros((m * (size + 1),) + wshape, dtype=values.dtype,
-                              device=values.device)
-            out.index_add_(0, flat_index, src.reshape((-1,) + wshape))
-            return out.reshape((m, size + 1) + wshape)[:, :size]
-
-        # coalesce user values onto sorted slots (+1 drop bin for padding)
-        cur = scatter_add(routing.user_scatter, values, self.sorted_size)
+        # coalesce user values onto sorted slots (padding: the drop bin)
+        cur = routing.user_scatter(values, wshape).reshape(
+            (m, self.sorted_size) + wshape)
         for l, L in enumerate(self.layers):
             send_g, send_m, merge_s = routing.layers[l][:3]
             k, cap = L.send_gather.shape[1], L.send_gather.shape[2]
             picked = _gather(cur, send_g, send_m).reshape((m, k, cap) + wshape)
             (recv,) = routing.transport.all_to_all(l, picked)
-            cur = scatter_add(merge_s, recv, L.merged_size)
+            cur = merge_s(recv, wshape).reshape((m, L.merged_size) + wshape)
         return _gather(cur, routing.bottom_gather, routing.bottom_hit)
 
     def reduce_up_on_device(self, up: torch.Tensor,

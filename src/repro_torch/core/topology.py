@@ -349,8 +349,8 @@ def tune(num_nodes: int, n0: float, total_range: float,
          hidden_compute_s: float = 0.0):
     """Rank all degree sequences by modeled time; return best (or top-n list).
 
-    Model assumptions (documented, not measured; the calibrated autotuner
-    is not ported yet):
+    Model assumptions (documented, not measured; ``core.autotune`` fits
+    the fabric to timings):
 
     * payload compression follows :meth:`ButterflyPlan.expected_counts` —
       i.e. per-node indices are uniform-hashed samples, the Bernoulli-union

@@ -215,10 +215,13 @@ def csr_matvec_wide(row_ptr: torch.Tensor, cols: torch.Tensor,
     sum_j wts[j] * x[m, cols[j], :]`` over row ``m * n_rows + r``, x
     ``[M, N, W]`` -> ``[M, n_rows, W]``, the counterpart of
     :func:`ell_matvec` at W > 1.  Plain torch ops: each nonzero's row of x
-    is gathered and weighted, then added into its row with ``index_add_``
-    (atomics on CUDA, so sums are exact in any order only for values like
-    HADI's 0/1 bits; general floats may differ in the last ulp from run
-    to run).  Memory: ``nnz * W`` values of scratch."""
+    is gathered and weighted, then added into its row with ``index_add_``.
+    On CUDA that adds with atomics in no fixed order.  It stays so for
+    HADI, its one caller: HADI's sums are of 0/1 bits with weight 1,
+    exact in any order, so its bits repeat (the planned reduce, whose
+    sums are of general floats, adds in a fixed order instead); general
+    floats here may differ in the last ulp from run to run.  Memory:
+    ``nnz * W`` values of scratch."""
     m, n, w = x.shape
     r = row_ptr.shape[0] - 1
     n_rows = r // m if m else 0
@@ -272,14 +275,22 @@ class GraphEngine:
     reference's amortization counters: ``dispatches`` grows by one per
     ``run``, ``rounds`` by k, and ``step_traces`` by one each time a
     k-round callable is built (cached per ``(k, collect)``, as the
-    reference caches its traced scan).  ``overlap=True``, the persistent
-    plan cache and ``retune`` are not ported yet and raise.
+    reference caches its traced scan).
+
+    ``degrees="auto"`` resolves through the autotuner's plan cache, and
+    the ``config`` underneath is served from the memo, the disk cache or
+    a fresh replan (``config_cache``, also in :meth:`sync_report`);
+    ``plan_cache`` / ``retune`` forward to ``SparseAllreduce``.
+    ``nodes`` names the pool positions of the M stacked nodes (default
+    ``range(M)``); :meth:`remesh` rebinds the same program to others.
+    ``overlap=True`` is not ported yet and raises.
     """
 
     def __init__(self, out_sets, in_sets, app: EngineApp, *,
                  degrees="auto", device=None, seed: int = 0,
-                 fabric: Fabric = EC2_2013, plan_cache: bool = False,
-                 retune: bool = False, overlap: bool = False):
+                 fabric: Fabric = EC2_2013, plan_cache=True,
+                 retune: bool = False, overlap: bool = False,
+                 nodes: Optional[Sequence[int]] = None):
         if overlap:
             raise NotImplementedError(
                 "GraphEngine(overlap=True) is not ported yet (ROADMAP "
@@ -291,10 +302,13 @@ class GraphEngine:
         self.in_sets = [np.asarray(i, np.uint32) for i in in_sets]
         self.seed = seed
         self.fabric = fabric
+        self.plan_cache_arg = plan_cache
         self.ar = SparseAllreduce(self.num_nodes, degrees, backend="device",
                                   device=device, seed=seed, fabric=fabric,
                                   value_width=app.value_width,
-                                  plan_cache=plan_cache, retune=retune)
+                                  plan_cache=plan_cache, retune=retune,
+                                  nodes=nodes)
+        self.nodes = self.ar.nodes
         self.config_stats = self.ar.config(self.out_sets, self.in_sets)
         self.config_cache = self.ar.config_cache
         self.planned, self.device = self.ar.planned_parts()
@@ -306,6 +320,21 @@ class GraphEngine:
         self._routing = self.planned.device_args(self.device)
         self._run_cache: Dict[Tuple[int, str], Callable] = {}
         self.report = {"dispatches": 0, "rounds": 0, "step_traces": 0}
+
+    def remesh(self, nodes: Sequence[int]) -> "GraphEngine":
+        """The same engine program on other pool positions ``nodes`` (M of
+        them): the recovery move when a position dies and spares exist
+        (``repro_torch.resilience.engine``).  Partition, index pattern,
+        *resolved* degrees and seed carry over, so the routing and every
+        reduce result equal this engine's; on one card the stacked
+        computation is the same tensor program, so the bits are equal by
+        construction.  Configs are memo-keyed on the positions, so a
+        remap back to positions used before is a memo hit."""
+        return GraphEngine(self.out_sets, self.in_sets, self.app,
+                           degrees=self.ar.plan.degrees, device=self.device,
+                           seed=self.seed, fabric=self.fabric,
+                           plan_cache=self.plan_cache_arg, retune=False,
+                           nodes=nodes)
 
     @property
     def transport(self):

@@ -11,6 +11,7 @@ every partial sum is exact whatever the order).  In-process: the
 carry-across of a reference plan-cache artifact, the transport's
 collective semantics and exchange count, and the API's guards.
 """
+import importlib.util
 import os
 import subprocess
 import sys
@@ -70,8 +71,9 @@ for degs in %(planned)r:
     tag = "x".join(map(str, degs))
     dplan = make_device_plan([("d", 8)], {"d": degs}, 128, 1024)
     p = plan_sparse_allreduce(dplan, out_idx, in_idx, perm=HashPerm.make(11))
-    out[f"p_{tag}"] = np.asarray(p.make_reduce_fn(mesh)(
-        jnp.asarray(inp[f"p_vals_{p.u_cap}"])))
+    fn = p.make_reduce_fn(mesh)
+    out[f"p_{tag}"] = np.asarray(fn(jnp.asarray(inp[f"p_vals_{p.u_cap}"])))
+    out[f"pg_{tag}"] = np.asarray(fn(jnp.asarray(inp[f"p_gvals_{p.u_cap}"])))
 np.savez(sys.argv[2], **out)
 print("REFERENCE_OK")
 """ % {"union": UNION_DEGREES, "planned": PLANNED_DEGREES}
@@ -105,6 +107,13 @@ def _planned_inputs():
     return out_idx, out_val, in_idx
 
 
+def _general_values(out_idx):
+    """Normal float32 values (not dyadic: sums round, so their order
+    shows in the last bits)."""
+    rng = np.random.RandomState(4)
+    return [rng.randn(len(o)).astype(np.float32) for o in out_idx]
+
+
 def _stage(values, u_cap):
     out = np.zeros((len(values), u_cap), np.float32)
     for n, v in enumerate(values):
@@ -124,6 +133,7 @@ def reference(tmp_path_factory):
         inp[f"p_out{i}"], inp[f"p_in{i}"] = out_idx[i], in_idx[i]
     u_cap = max(len(o) for o in out_idx)
     inp[f"p_vals_{u_cap}"] = _stage(out_val, u_cap)
+    inp[f"p_gvals_{u_cap}"] = _stage(_general_values(out_idx), u_cap)
     np.savez(d / "in.npz", **inp)
     r = subprocess.run([sys.executable, "-c", REFERENCE_CODE, str(d / "in.npz"),
                         str(d / "out.npz")], env=_ENV, capture_output=True,
@@ -165,6 +175,53 @@ def test_planned_reduce_matches_reference_8dev(reference, degs):
     oracle = dense_oracle(out_idx, out_val, in_idx, HashPerm.make(11))
     for n in range(M):
         np.testing.assert_allclose(got[n, : len(in_idx[n])].numpy(), oracle[n],
+                                   rtol=1e-6, atol=1e-6)
+
+
+def _index_add_down(p, values):
+    """The planned reduce as it summed before its down half took a fixed
+    order: ``tools/planned_sum_ab.py``'s ``index_add_down``, then the up
+    half."""
+    spec = importlib.util.spec_from_file_location(
+        "planned_sum_ab", os.path.join(os.path.dirname(__file__), "..",
+                                       "tools", "planned_sum_ab.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    routing = p.device_args("cpu")
+    return p.reduce_up_on_device(tool.index_add_down(p, values, routing),
+                                 routing)
+
+
+@pytest.mark.parametrize("width", [1, 3])
+@pytest.mark.parametrize("degs", PLANNED_DEGREES)
+def test_planned_fixed_order_sum(reference, degs, width):
+    """The down half's fixed-order sums (``_FixedOrderSum``): equal to
+    the former ``index_add_`` scatters bit for bit on dyadic values (and
+    on the CPU, which added in source order, on general floats too), the
+    same bits on every call, and within the planned tolerance of the
+    reference's device reduce on general floats.  The user scatter has
+    repeated out indices (fan > 1) and every merge scatter fan <= its
+    degree."""
+    out_idx, out_val, in_idx = _planned_inputs()
+    dplan = make_device_plan([("d", M)], {"d": degs}, 128, 1024)
+    p = plan_sparse_allreduce(dplan, out_idx, in_idx, perm=HashPerm.make(11),
+                              width=width)
+    routing = p.device_args("cpu")
+    assert routing.user_scatter.fan > 1
+    for l, k in enumerate(degs):
+        assert 1 <= routing.layers[l][2].fan <= k
+    fn = p.make_reduce_fn("cpu")
+    for values in (out_val, _general_values(out_idx)):
+        staged = _stage(values, p.u_cap)
+        if width > 1:
+            staged = np.stack([staged * (j + 1) for j in range(width)], -1)
+        x = torch.as_tensor(staged)
+        got = fn(x)
+        assert torch.equal(got, _index_add_down(p, x))
+        assert torch.equal(got, fn(x))
+    if width == 1:
+        tag = "x".join(map(str, degs))
+        np.testing.assert_allclose(got.numpy(), reference["pg_" + tag],
                                    rtol=1e-6, atol=1e-6)
 
 
@@ -264,21 +321,65 @@ def test_api_sim_backend_keeps_replication():
         np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9)
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    ({"plan_cache": True}, "item 10"), ({"retune": True}, "item 10"),
+@pytest.mark.parametrize("kwargs,outcome", [
+    ({"plan_cache": True}, "sim"), ({"retune": True}, "sim"),
     ({"backend": "device", "replication": 2, "merge": "banded",
-      "plan_cache": True}, "item 10"),
+      "plan_cache": True}, "reduce"),
     ({"backend": "device", "dead": {1}, "wire": "delta+int8ef",
-      "retune": True}, "item 10"),
-    ({"backend": "device", "replication": 2, "retune": True}, "item 10"),
-    ({"backend": "device", "dead": {1}, "plan_cache": True}, "item 10")])
-def test_api_unported_options_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        SparseAllreduce(M, (4, 2), device="cpu", **kwargs)
+      "retune": True}, "lossy-and-dead"),
+    ({"backend": "device", "replication": 2, "retune": True}, "reduce"),
+    ({"backend": "device", "dead": {1}, "plan_cache": True}, "dead")])
+def test_api_unported_options_raise(kwargs, outcome, tmp_path):
+    """The options that raised while the plan cache was unported (ROADMAP
+    item 10) now build and configure as the reference's do:
+    ``plan_cache=True`` binds the process cache, ``retune=True`` re-tunes
+    ``degrees="auto"`` past a cached entry, and each configuration reduces
+    to the oracle -- or raises what the reference raises there: a dead
+    node at r = 1 loses its group (``DeadLogicalNode``) and a lossy wire
+    has no planned path (``NotImplementedError``)."""
+    from repro_torch.core import autotune
+    from repro_torch.core.replication import DeadLogicalNode
+    ar = SparseAllreduce(M, (4, 2), device="cpu", **kwargs)
+    want_cache = autotune.default_cache() \
+        if kwargs.get("plan_cache", True) else None
+    assert ar.plan_cache is want_cache
+    if kwargs.get("retune"):
+        cache = autotune.PlanCache(str(tmp_path))
+        auto = {k: v for k, v in kwargs.items() if k != "dead"}
+        auto.update(plan_cache=cache, expected_nnz=1e3, index_range=1e4)
+        for _ in range(2):
+            again = SparseAllreduce(M, "auto", device="cpu", **auto)
+            assert again.degrees_source == "tuned"
+        assert cache.stats["stores"] == 2
+    out_idx, out_val, in_idx = _planned_inputs()
+    if outcome in ("sim", "reduce"):
+        ar.config(out_idx, in_idx)
+        if outcome == "reduce":
+            assert ar.config_cache in ("fresh", "memo", "disk")
+        oracle = dense_oracle(out_idx, out_val, in_idx, ar.perm)
+        for got, want in zip(ar.reduce(out_val), oracle):
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+        return
+    if outcome == "lossy-and-dead":
+        with pytest.raises(NotImplementedError, match="union path"):
+            ar.config(out_idx, in_idx)
+    with pytest.raises(DeadLogicalNode):
+        ar.config(out_idx, in_idx) if outcome == "dead" else \
+            ar.union_reduce(*_union_inputs()[:2], M * C)
 
 
-def test_api_auto_degrees_resolve_through_tune():
+def test_api_auto_degrees_resolve_through_tune(tmp_path):
+    """``degrees="auto"`` resolves through the plan cache (pinned to its
+    own root, so other tests' entries never decide the source): tuned by
+    ``topology.tune``'s ranking, then served from the cache."""
+    from repro_torch.core.autotune import PlanCache
     from repro_torch.core.topology import tune
-    ar = SparseAllreduce(64, "auto", expected_nnz=1e5, index_range=1e6)
+    cache = PlanCache(root=str(tmp_path))
+    ar = SparseAllreduce(64, "auto", expected_nnz=1e5, index_range=1e6,
+                         plan_cache=cache)
     assert ar.degrees_source == "tuned"
     assert ar.plan.degrees == tune(64, 1e5, 1e6).degrees
+    again = SparseAllreduce(64, "auto", expected_nnz=1e5, index_range=1e6,
+                            plan_cache=cache)
+    assert again.degrees_source == "cache"
+    assert again.plan.degrees == ar.plan.degrees

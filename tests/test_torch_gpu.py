@@ -19,6 +19,11 @@ table's adversarial cases, and its table (``banded_windows``) exactly
 against ``searchsorted``; the SpMVs within rtol 1e-5 (float32 sums in
 another order), the CSR kernel also bit-identical across two launches.
 """
+import json
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -697,3 +702,101 @@ def test_graph_apps_run_on_cuda_by_default(cuda):
     lam_r, v_r = power_iteration_reference(edges, 2000, iters=20)
     assert abs(lam - lam_r) / lam_r < 1e-4
     assert abs(v @ v_r) / (np.linalg.norm(v) * np.linalg.norm(v_r)) > 1 - 1e-6
+
+
+@pytest.mark.gpu
+def test_planned_reduce_repeats_bit_identical_on_gpu(cuda):
+    """The planned reduce's fixed-order sums on the card: general floats
+    reduce to the same bits on every call, at W = 1 and W = 3, and agree
+    with the CPU run within rtol 1e-6."""
+    from repro_torch.core.api import SparseAllreduce
+    rng = np.random.RandomState(12)
+    m, degs = 16, (4, 4)
+    out_idx = [rng.randint(0, 20000, rng.randint(500, 2000))
+               .astype(np.uint32) for _ in range(m)]
+    in_idx = [rng.choice(20000, 800, replace=False).astype(np.uint32)
+              for _ in range(m)]
+    for width in (1, 3):
+        shape = (lambda n: (n, width)) if width > 1 else (lambda n: (n,))
+        vals = [rng.randn(*shape(len(o))).astype(np.float32)
+                for o in out_idx]
+        gpu = SparseAllreduce(m, degs, backend="device", value_width=width)
+        gpu.config(out_idx, in_idx)
+        cpu = SparseAllreduce(m, degs, backend="device", value_width=width,
+                              device="cpu")
+        cpu.config(out_idx, in_idx)
+        first = gpu.reduce(vals)
+        for _ in range(2):
+            for a, b in zip(gpu.reduce(vals), first):
+                assert np.array_equal(a, b)
+        for a, b in zip(first, cpu.reduce(vals)):
+            np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_resilient_union_odd_survivors_on_gpu(cuda):
+    """Losing both replicas of one of 8 logical shards at r = 2 leaves 7
+    survivors (prime: one flat layer of 7 runs, an odd merge tree): the
+    fused and banded survivor reduces on the card equal their CPU runs
+    bit for bit (dyadic values)."""
+    from repro_torch.resilience import DegradedPolicy, ResilientAllreduce
+    rng = np.random.RandomState(13)
+    m, c = 8, 700
+    idx = np.full((m, c), SENT, np.int64)
+    val = np.zeros((m, c), np.float32)
+    for n in range(m):
+        k = rng.randint(300, c)
+        # distinct sorted indices (never choice(2**30, replace=False): it
+        # permutes all 2**30 values)
+        u = np.unique(rng.randint(0, 1 << 30, 2 * c, dtype=np.int64))
+        idx[n, :k] = np.sort(rng.permutation(u)[:k])
+        val[n, :k] = rng.randint(-128, 129, k) / 64.0
+    for merge in ("fused", "banded"):
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            ra = ResilientAllreduce(m, (4, 2), replication=2, dead={3, 11},
+                                    policy=DegradedPolicy(max_retries=0),
+                                    merge=merge, device=dev)
+            res = ra.union_reduce(idx, val, m * c)
+            assert res.shrink["degrees"] == (7,) and \
+                res.shrink["replication"] == 2
+            outs[dev] = res.values
+        for sid, (gi, gv, gf) in outs["cuda"].items():
+            ci, cv, cf = outs["cpu"][sid]
+            assert torch.equal(gi.cpu(), ci) and torch.equal(gv.cpu(), cv)
+            assert int(gf) == int(cf)
+
+
+@pytest.mark.gpu
+def test_soak_runs_on_cuda_by_default(cuda, tmp_path):
+    """The PageRank soak without ``--device`` runs on the card: killed and
+    resumed under a rack schedule it ends bit for bit on its fault-free
+    run, and within rtol 1e-5 of the CPU run."""
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    args = ["--job", "pagerank", "--steps", "8", "--ckpt-every", "2",
+            "--vertices", "3000", "--edges", "20000", "--graph-nodes", "8",
+            "--pool", "16"]
+    rack = ["--faults", "rack", "--fault-at", "3", "--num-failures", "5",
+            "--rack-size", "5"]
+
+    def soak(out, *extra, rc=0):
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.soak",
+                            "--out", str(tmp_path / out), *args, *extra],
+                           env=env, capture_output=True, text=True,
+                           timeout=600)
+        assert r.returncode == rc, r.stdout + r.stderr
+        return r.stdout
+
+    out = soak("base")
+    launches = json.loads(out.split("SOAK_LAUNCHES ")[1].splitlines()[0])
+    assert launches["spmv_csr"] == 8
+    soak("cpu", "--device", "cpu")
+    soak("faulted", *rack, "--kill-at", "4", rc=17)
+    assert "resumed at round 4" in soak("faulted", *rack, "--resume")
+    with np.load(tmp_path / "base" / "final.npz") as a, \
+            np.load(tmp_path / "faulted" / "final.npz") as b, \
+            np.load(tmp_path / "cpu" / "final.npz") as c:
+        for k in a.files:
+            assert np.array_equal(a[k], b[k]), k
+            np.testing.assert_allclose(a[k], c[k], rtol=1e-5, atol=1e-10)

@@ -125,9 +125,19 @@ def test_engine_guards():
     sets = [np.arange(4, dtype=np.uint32)] * 2
     with pytest.raises(NotImplementedError, match="item 12"):
         GraphEngine(sets, sets, app, degrees=(2,), device="cpu", overlap=True)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        GraphEngine(sets, sets, app, degrees=(2,), device="cpu",
-                    plan_cache=True)
+    # the plan cache (ROADMAP item 10) is ported: the engine takes it,
+    # reports the tier its config came from, and serves a second engine
+    # on the same pattern from the memo
+    first = GraphEngine(sets, sets, app, degrees=(2,), device="cpu",
+                        plan_cache=True, nodes=(5, 9))
+    assert first.sync_report()["config_cache"] in ("fresh", "memo", "disk")
+    again = GraphEngine(sets, sets, app, degrees=(2,), device="cpu",
+                        plan_cache=True, nodes=(5, 9))
+    assert again.config_cache == "memo" and again.planned is first.planned
+    moved = first.remesh((1, 2))
+    assert moved.nodes == (1, 2) and moved.ar.plan.degrees == (2,)
+    s0 = torch.tensor([[1.0, 2.0, 3.0, 4.0], [5.0, 6.0, 7.0, 8.0]])
+    assert torch.equal(moved.run(1, s0)[0], first.run(1, s0)[0])
 
 
 def test_identity_app_round_trips_values():

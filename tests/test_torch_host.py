@@ -252,7 +252,10 @@ def test_port_imports_no_jax_nor_reference():
 
 def test_port_import_leaves_jax_unloaded():
     code = ("import sys; import repro_torch.core.api, "
-            "repro_torch.graph.pagerank, repro_torch.kernels.ops; "
+            "repro_torch.graph.pagerank, repro_torch.kernels.ops, "
+            "repro_torch.core.autotune, repro_torch.kernels.costmodel, "
+            "repro_torch.checkpoint.store, repro_torch.resilience, "
+            "repro_torch.launch.soak; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules); print('NOJAX')")

@@ -253,11 +253,14 @@ def test_reconfig_dead_swaps_weights_and_caches():
     set without a replan, reads ``config_cache == "repair"``, reuses its
     repaired plan per dead set, and on a lost group raises before any
     state changes."""
+    from repro_torch.core import autotune
     m, degs = 8, (4, 2)
     out_idx, out_val, in_idx, _, _ = workload(m, seed=m)
     d1, d2 = {1, 10}, {0, 13}
+    # a first config of this pattern: no memo entry, no disk entry
+    autotune.clear_plan_memo()
     ar = SparseAllreduce(m, degs, backend="device", replication=2, dead=d1,
-                         device="cpu", seed=m)
+                         device="cpu", seed=m, plan_cache=False)
     ar.config(out_idx, in_idx)
     assert ar.config_cache == "fresh"
     first = ar.reduce(out_val)
