@@ -94,8 +94,25 @@ line each, after the ``nvidia-smi`` name/power-limit line):
 16. soak_resume -- ``python -m repro_torch.launch.soak --job pagerank`` at
    the same graph size in subprocesses: baseline, a rack-fault run killed
    at round 4 (exit 17), its ``--resume``; final.npz equal array by array;
-17. kernels -- each kernel on the inputs it got on the main path (phases
-   2-15, layer 0 / first round; the two merge-rank kernels at every shape
+17. train -- the training stack at full width: ``make_train_step`` on
+   qwen1.5-0.5b untied (24 layers, d 1,024, vocab 151,936, bf16) over M =
+   8 data positions stacked on the card, degrees (4, 2), batch 8 x seq
+   256 (sparse capacities in 256, out 2,048), three steps from the same
+   weights and batches under ``hier`` and ``sparse`` with sort / fused /
+   banded (raw), fused with ``delta`` and ``delta+int8ef``, banded with
+   ``delta+int8ef``, then fused / raw again: step, forward + backward,
+   sync and update ms (CUDA events; the median of steps 2-3), tokens/s,
+   peak memory, losses and overflow; losses finite, the first within 1.5
+   of ln(vocab), overflow 0, ``delta`` = ``raw`` and the repeat bit for
+   bit, the step-1 float32 embedding sync equal across the merges and to
+   ``hier``'s within rtol 1e-5 (+ 1e-7 x max), every other synced leaf
+   bit-identical across the sparse configurations;
+18. soak_train -- ``python -m repro_torch.launch.soak --job train
+   --reduced --dp 4 --replication 2`` in subprocesses: baseline, a rack
+   fault from step 3 killed at step 4 (exit 17), its ``--resume``;
+   final.npz and losses equal;
+19. kernels -- each kernel on the inputs it got on the main path (phases
+   2-17, layer 0 / first round; the two merge-rank kernels at every shape
    the main path handed them, the replica stage's [64, 2, C] and the
    survivors' flat [62, 31, C] included, the dense scatter also at the
    replica stage and the survivor layer, the CSR SpMV at each graph
@@ -115,7 +132,11 @@ line each, after the ``nvidia-smi`` name/power-limit line):
    stable argsort; the ELL SpMV rtol 1e-5; the CSR SpMV rtol 1e-5 on
    PageRank's first graph, and on the other graphs within 1e-5 x (|A|
    |x|) of the float64 product and 1e-4 x (|A| |x|) of the plain version,
-   and repeatable), with
+   and repeatable; rows 1-6 also at every shape of the train phase --
+   the rank rows in ``shapes`` with phase ``train``, the scatter rows in
+   ``train``, w = 1,024 values a row of general floats, bit for bit
+   against the plain version on a CPU copy, with their launches a step,
+   byte bound and ``index_add_`` time), with
    CUDA-event times of kernel, plain version and the nearest single
    PyTorch call, and the least time the card needs.  The ELL kernel, off
    the main path now, is held to its plain version on ELL tables built
@@ -169,12 +190,22 @@ REP_UNION_NODES, REP_UNION_DEGREES = 32, (8, 4)
 POOL, RACK, FAULT_AT, CKPT_EVERY = 80, 5, 3, 2
 # the phases whose recorded kernel inputs make up the shapes of a row, in
 # the order the rows list them
-ROW_PHASES = ("union_wire", "replicated_union", "resilient_union", "union")
+ROW_PHASES = ("union_wire", "replicated_union", "resilient_union", "union",
+              "train")
 GRAPH_PHASES = ("pagerank", "spectral", "pagerank_large",
                 "supervised_pagerank")
 # phases whose scatter calls are told apart by shape (one per layer)
-SHAPED_SCATTER_PHASES = ("resilient_union",)
+SHAPED_SCATTER_PHASES = ("resilient_union", "train")
 WIRES = ("raw", "delta", "delta+bf16", "delta+int8ef")
+# the train phase: qwen1.5-0.5b untied at full width on M = 8 stacked
+# data positions, degrees (4, 2), the launcher's batch 8 x seq 256
+TRAIN_ARCH, TRAIN_M, TRAIN_DEGREES = "qwen1.5-0.5b", 8, (4, 2)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 3
+TRAIN_CONFIGS = (("hier", "sort", "raw"), ("sparse", "sort", "raw"),
+                 ("sparse", "fused", "raw"), ("sparse", "banded", "raw"),
+                 ("sparse", "fused", "delta"),
+                 ("sparse", "fused", "delta+int8ef"),
+                 ("sparse", "banded", "delta+int8ef"))
 
 
 def emit(obj) -> None:
@@ -1305,6 +1336,193 @@ def phase_soak_resume(torch):
     return {}
 
 
+def train_close(torch, got, want, what):
+    """allclose at rtol 1e-5 and atol 1e-7 x the larger max|value|."""
+    atol = 1e-7 * max(float(want.abs().max()), float(got.abs().max()))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=atol, msg=what)
+
+
+def phase_train(torch):
+    """The training stack at full width: ``make_train_step`` on
+    qwen1.5-0.5b (untied: the sparse embedding leaf exists) over M = 8
+    stacked data positions, degrees (4, 2), batch 8 x seq 256 (256 tokens
+    a position: sparse capacities in 256, out 2,048), three steps per
+    configuration from the same weights and batches: ``hier``, then
+    ``sparse`` with sort / fused / banded (raw), fused with ``delta`` and
+    ``delta+int8ef``, banded with ``delta+int8ef``; then fused / raw
+    again.  Per configuration: step ms (median of steps 2-3) with the
+    forward + backward, sync and update ms by CUDA events, tokens/s,
+    peak memory, losses, overflow.  Asserts: losses finite, the first
+    within 1.5 of ln(vocab); overflow 0; ``delta`` = ``raw`` bit for bit
+    (fused); the step-1 float32 embedding sync equal across the merges
+    and to ``hier``'s (rtol 1e-5, atol 1e-7 x max), every other synced
+    leaf bit-identical across the sparse configurations; the repeat
+    bit-identical (losses and final parameters)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import batch_stream
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.step import make_train_step, mesh_ctx
+    cfg = get_config(TRAIN_ARCH, "untied")
+    mc = mesh_ctx(TRAIN_M, device=DEVICE)
+    t0 = time.perf_counter()
+    params0 = T.init_params(cfg, 1, seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in T.tree_leaves(params0))
+    stream = batch_stream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    batches = [next(stream) for _ in range(TRAIN_STEPS)]
+    opt = AdamW()
+    hint = max(8, TRAIN_BATCH * TRAIN_SEQ // TRAIN_M)
+    ln_v = math.log(cfg.vocab)
+    total, rows, keep, seen = {}, [], {}, set()
+
+    def run(sync, merge, wire):
+        step, _ = make_train_step(
+            cfg, mc, sync=sync, opt=opt, dp_degrees={"data": TRAIN_DEGREES},
+            sparse_tokens_hint=hint, sync_merge=merge, sync_wire=wire)
+        params, st = params0, opt.init(params0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = {"losses": [], "overflow": [], "step_ms": [], "fwd_bwd_ms": [],
+               "sync_ms": [], "update_ms": []}
+        for i, batch in enumerate(batches):
+            ev = {s: torch.cuda.Event(enable_timing=True)
+                  for s in ("start", "fwd_bwd", "sync", "update")}
+            capture = {} if i == 0 else None
+            ev["start"].record()
+            params, st, m = step(params, st, batch,
+                                 mark=lambda s: ev[s].record(),
+                                 capture=capture)
+            torch.cuda.synchronize()
+            out["losses"].append(float(m["loss"]))
+            out["overflow"].append(int(m["sync_overflow"]))
+            out["step_ms"].append(ev["start"].elapsed_time(ev["update"]))
+            out["fwd_bwd_ms"].append(ev["start"].elapsed_time(ev["fwd_bwd"]))
+            out["sync_ms"].append(ev["fwd_bwd"].elapsed_time(ev["sync"]))
+            out["update_ms"].append(ev["sync"].elapsed_time(ev["update"]))
+            if capture is not None:
+                out["capture"] = capture
+        out["peak"] = torch.cuda.max_memory_allocated()
+        out["params"] = params
+        return out
+
+    for sync, merge, wire in TRAIN_CONFIGS + (("sparse", "fused", "raw"),):
+        name = f"{sync}/{merge}/{wire}" if sync == "sparse" else sync
+        repeat = name in seen
+        res, launches = main_path(lambda: run(sync, merge, wire))
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        losses = res["losses"]
+        assert all(math.isfinite(x) for x in losses), (name, losses)
+        assert abs(losses[0] - ln_v) < 1.5, (name, losses[0], ln_v)
+        assert res["overflow"] == [0] * TRAIN_STEPS, (name, res["overflow"])
+        med = lambda xs: float(np.median(xs[1:]))
+        step_ms = med(res["step_ms"])
+        rows.append({
+            "config": name + (" (repeat)" if repeat else ""),
+            "step_ms": step_ms, "fwd_bwd_ms": med(res["fwd_bwd_ms"]),
+            "sync_ms": med(res["sync_ms"]), "update_ms": med(res["update_ms"]),
+            "step_ms_all": res["step_ms"],
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+            "max_memory_allocated": int(res["peak"]), "losses": losses,
+            "sync_overflow": res["overflow"],
+            "launches": {k: v for k, v in launches.items() if v}})
+        cap = res.pop("capture")
+        if sync == "hier":
+            keep["hier_emb"] = cap["emb"]["f32"]
+        elif "sort_synced" not in keep:
+            keep["sort_synced"] = cap["synced"]
+            keep["sort_emb"] = cap["emb"]["f32"]
+            train_close(torch, cap["emb"]["f32"], keep["hier_emb"],
+                        "sparse embedding rows vs hier")
+        elif wire == "raw":
+            train_close(torch, cap["emb"]["f32"], keep["sort_emb"],
+                        f"{name} embedding sync vs sort")
+            for (path, a), (_, b) in zip(T.tree_leaves(cap["synced"]),
+                                         T.tree_leaves(keep["sort_synced"])):
+                if path != ("emb",):
+                    assert torch.equal(a, b), (name, path)
+        if name == "sparse/fused/raw" and not repeat:
+            keep[name] = (losses, res["params"])
+        elif name in ("sparse/fused/delta", "sparse/fused/raw"):
+            want_l, want_p = keep["sparse/fused/raw"]
+            what = "repeat" if repeat else "delta vs raw"
+            assert losses == want_l, (what, losses, want_l)
+            assert all(torch.equal(a, b) for (_, a), (_, b) in zip(
+                T.tree_leaves(res["params"]), T.tree_leaves(want_p))), what
+        seen.add(name)
+        del res, cap
+    del keep, params0
+    torch.cuda.empty_cache()
+    emit({"phase": "train", "ok": True, "arch": cfg.name,
+          "params": n_params, "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab, "dtype": str(cfg.dtype), "data_positions":
+          TRAIN_M, "degrees": list(TRAIN_DEGREES), "batch": TRAIN_BATCH,
+          "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "sparse_in_capacity": hint,
+          "init_s": init_s, "ln_vocab": ln_v, "configs": rows,
+          "tolerance": "losses finite, step-1 loss within 1.5 of ln(vocab); "
+                       "overflow 0; delta = raw bit for bit; step-1 f32 "
+                       "embedding sync across merges and vs hier rtol 1e-5 "
+                       "+ 1e-7 x max, other synced leaves bit-identical; "
+                       "repeat bit-identical",
+          "launches": total})
+    return total
+
+
+def phase_soak_train(torch):
+    """``python -m repro_torch.launch.soak --job train --reduced --dp 4
+    --replication 2`` in subprocesses: a fault-free baseline, a run under
+    a rack schedule from step 3 killed at step 4 (exit 17), and its
+    ``--resume``; final.npz equal array by array and the same losses."""
+    base_args = ["--job", "train", "--reduced", "--steps", "6",
+                 "--ckpt-every", "2", "--batch", "4", "--seq", "32",
+                 "--dp", "4", "--replication", "2", "--seed", "0",
+                 "--pool", "16", "--device", DEVICE]
+    rack = ["--faults", "rack", "--fault-at", "3", "--num-failures", "5",
+            "--rack-size", "5"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    runs = {}
+
+    def soak(name, out, extra, rc):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m",
+                               "repro_torch.launch.soak", "--out", out,
+                               *base_args, *extra], env=env, cwd=ROOT,
+                              capture_output=True, text=True, timeout=600)
+        assert proc.returncode == rc, (name, proc.returncode,
+                                       proc.stdout[-2000:],
+                                       proc.stderr[-4000:])
+        runs[name] = {"seconds": time.perf_counter() - t0, "rc": rc}
+        return proc.stdout
+
+    base = os.path.join(SCRATCH["root"], "soak-train-base")
+    faulted = os.path.join(SCRATCH["root"], "soak-train-faulted")
+    soak("baseline", base, [], 0)
+    out = soak("killed", faulted, rack + ["--kill-at", "4"], 17)
+    assert "KILL step 4" in out, out
+    out = soak("resumed", faulted, rack + ["--resume"], 0)
+    assert "resumed at step 4" in out, out
+    with np.load(os.path.join(base, "final.npz")) as a, \
+            np.load(os.path.join(faulted, "final.npz")) as b:
+        assert sorted(a.files) == sorted(b.files) and len(a.files) > 10
+        for k in a.files:
+            assert np.array_equal(a[k], b[k]), k
+    metas = []
+    for d in (base, faulted):
+        with open(os.path.join(d, "final.meta.json")) as f:
+            metas.append(json.load(f))
+    assert metas[0]["losses"] == metas[1]["losses"]
+    assert metas[0]["events"] == [] and metas[1]["events"], metas[1]
+    emit({"phase": "soak_train", "ok": True, "args": base_args + rack,
+          "runs": runs, "events": metas[1]["events"],
+          "losses": metas[0]["losses"],
+          "tolerance": "final.npz (params, optimizer state) equal array by "
+                       "array and losses equal to the fault-free baseline",
+          "launches": {}})
+    return {}
+
+
 def bound_ms(nbytes: int) -> float:
     """Least milliseconds to move ``nbytes`` at the card's memory rate."""
     return nbytes / HBM_BYTES_PER_S * 1e3
@@ -1697,20 +1915,95 @@ def banded_call(torch, args, kwargs, calls):
     return out
 
 
-def banded_rows(torch, rec, launches):
+def train_merge_configs(merge: str, scaled: bool) -> int:
+    """How many train configurations run ``merge`` (with the int8 wire's
+    scales or without); the fused / raw repeat counts."""
+    runs = TRAIN_CONFIGS + (("sparse", "fused", "raw"),)
+    return sum(1 for sync, m, wire in runs if sync == "sparse" and m == merge
+               and (wire == "delta+int8ef") == scaled)
+
+
+def train_scatter_shapes(torch, rec, name, banded, launches):
+    """A scatter kernel at every shape the train phase handed it (one per
+    butterfly layer; ``val`` [M, k * cap, 1024] float32 rows of the
+    embedding gradient, or int8 + scale): bit for bit against its plain
+    version on a CPU copy (which sums in source order, the kernel's), within
+    rtol 1e-6 + 1e-6 x max of the plain version on the card (atomic
+    ``index_add_`` sums), two calls identical; calls and launches a step;
+    kernel, plain and ``index_add_`` ms; the byte bound (kept sources' pos,
+    values and scales, the output; banded: also the window table); the
+    CUDA launches and device ms per stage (profiler)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.onehot_scatter import (BANDED_ROWS,
+                                                    banded_onehot_scatter_add,
+                                                    onehot_scatter_add)
+    fn = banded_onehot_scatter_add if banded else onehot_scatter_add
+    scaled = name.endswith("_scaled")
+    keys = sorted((k for k in rec.args if k[0] == "train"
+                   and (k[1] == "scaled") == scaled),
+                  key=lambda k: k[-1][1])
+    n_cfg = train_merge_configs("banded" if banded else "fused", scaled)
+    out = []
+    for key in keys:
+        args, kwargs = rec.args[key]
+        pos, val, num_rows = args
+        scale = kwargs.get("scale")
+        got = fn(*args, **kwargs)
+        on_cpu = ref.onehot_scatter_add_ref(
+            pos.cpu(), val.cpu(), num_rows,
+            None if scale is None else scale.cpu())
+        assert torch.equal(got.cpu(), on_cpu), (name, key, "vs CPU plain")
+        want = ref.onehot_scatter_add_ref(pos, val, num_rows, scale)
+        torch.testing.assert_close(got, want, rtol=1e-6,
+                                   atol=1e-6 * float(want.abs().max()))
+        assert torch.equal(got, fn(*args, **kwargs)), (name, "repeat")
+        err = float((got - want).abs().max())
+        del got, want, on_cpu
+        kept = int(((pos >= 0) & (pos < num_rows)).sum())
+        entry = {"phase": "train", "calls": rec.calls[key],
+                 "launches_per_step": rec.calls[key] / (TRAIN_STEPS * n_cfg),
+                 "max_abs_err": err, "kept_sources": kept,
+                 "check": "bit-exact vs plain on a CPU copy (general "
+                          "floats); rtol 1e-6 + 1e-6 x max vs plain on card; "
+                          "repeat identical",
+                 **scatter_timing(torch, fn, args, kwargs,
+                                  index_add_call(torch, pos, val, num_rows),
+                                  reps=20)}
+        if banded:
+            tiles = -(-num_rows // BANDED_ROWS) + 1
+            entry["bound_all_pos_ms"] = entry["bound_ms"]
+            entry["bound_ms"] = bound_ms(
+                kept * (4 + val.shape[-1] * val.element_size()
+                        + (0 if scale is None else 4))
+                + tiles * pos.shape[0] * 8
+                + pos.shape[0] * num_rows * val.shape[-1] * 4)
+        stages = fresh_profile(("repro_torch.kernels.onehot_scatter",
+                                fn.__name__), args, kwargs)
+        entry["cuda_launches_per_call"] = sum(n for _, n in stages.values())
+        entry["stage_ms"] = {k: ms for k, (ms, _) in stages.items()}
+        out.append(entry)
+    assert out and sum(e["calls"] for e in out) == launches[name], \
+        (name, [e["calls"] for e in out], launches[name])
+    return out
+
+
+def banded_rows(torch, rec, launches, train_launches):
     """Rows 5 and 6: the banded scatter at every (phase, butterfly layer,
     value dtype) the main path handed it, union_wire's layer 0 first; each
-    row's top-level numbers are that call's (f32, or int8 + scale)."""
+    row's top-level numbers are that call's (f32, or int8 + scale); the
+    train phase's shapes (general floats, w = 1,024) in ``train``."""
     rows = []
     for name, kinds in (("banded_onehot_scatter_add", ("f32", "bf16")),
                         ("banded_onehot_scatter_add_scaled", ("scaled",))):
-        keys = sorted((k for k in rec.args if k[1] in kinds),
+        keys = sorted((k for k in rec.args if k[1] in kinds
+                       and k[0] != "train"),
                       key=lambda k: (ROW_PHASES.index(k[0]), k[2][1],
                                      kinds.index(k[1])))
         shapes = [dict(banded_call(torch, *rec.args[k], rec.calls[k]),
                        phase=k[0]) for k in keys]
-        assert sum(e["calls"] for e in shapes) == launches[name], \
-            (name, [e["calls"] for e in shapes], launches[name])
+        train = train_scatter_shapes(torch, rec, name, True, train_launches)
+        assert sum(e["calls"] for e in shapes + train) == launches[name], \
+            (name, [e["calls"] for e in shapes + train], launches[name])
         line = "177" if name == "banded_onehot_scatter_add" else "156"
         rows.append({
             "name": name, "route": "cuda",
@@ -1725,7 +2018,7 @@ def banded_rows(torch, rec, launches):
             **{k: shapes[0][k] for k in ("shape", "val_dtype", "ms",
                                          "plain_ms", "bound_ms", "bound_by",
                                          "library_ms", "bound_all_pos_ms")},
-            "shapes": shapes})
+            "shapes": shapes, "train": train})
     return rows
 
 
@@ -1877,14 +2170,21 @@ def rank_shapes(rec, kind):
     return [(rec.args[key][0][0], rec.calls[key], key[0]) for key in keys]
 
 
-def kernel_rows(torch, rec, launches, parts):
+def kernel_rows(torch, rec, launches, parts, train_launches):
     """Every kernel on its recorded main-path inputs vs its plain version,
-    in the order of the TPU kernel table."""
+    in the order of the TPU kernel table; ``train_launches`` are the train
+    phase's own counts (its shapes are checked on general floats)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.onehot_scatter import onehot_scatter_add
     scat = rec["scatter"].args
     rows = [rank_row(torch, rank_shapes(rec["rank"], kind), kind == "banded",
                      launches) for kind in ("dense", "banded")]
+    for row, merge in zip(rows, ("fused", "banded")):
+        n_cfg = train_merge_configs(merge, False) + train_merge_configs(
+            merge, True)
+        for e in row["shapes"]:
+            if e["phase"] == "train":
+                e["launches_per_step"] = e["launches"] / (TRAIN_STEPS * n_cfg)
     args, kwargs = scat[("union", "f32")]
     row = scatter_row(torch, "onehot_scatter_add", onehot_scatter_add, args,
                       kwargs, launches, index_add_call(torch, *args))
@@ -1921,14 +2221,20 @@ def kernel_rows(torch, rec, launches, parts):
         calls=rec["scatter"].calls[skey], k=k31)
     for key in ("name", "route", "source", "replaces", "launches"):
         del row["survivor_layer"][key]
+    row["train"] = train_scatter_shapes(torch, rec["scatter"],
+                                        "onehot_scatter_add", False,
+                                        train_launches)
     rows.append(row)
     args, kwargs = scat[("union_wire", "scaled")]
     row = scatter_row(torch, "onehot_scatter_add_scaled", onehot_scatter_add,
                       args, kwargs, launches, index_add_call(torch, *args))
     row["check"] += "; " + dense_scatter_large(
         torch, onehot_scatter_add, *args, kwargs["scale"])
+    row["train"] = train_scatter_shapes(torch, rec["scatter"],
+                                        "onehot_scatter_add_scaled", False,
+                                        train_launches)
     rows.append(row)
-    rows.extend(banded_rows(torch, rec["banded"], launches))
+    rows.extend(banded_rows(torch, rec["banded"], launches, train_launches))
     csr_args = rec["spmv"].args[("pagerank", "first")][0]
     rows.append(spmv_ell_row(torch, parts, *csr_args[:4], launches))
     rows.append(spmv_csr_row(torch, rec["spmv"], launches))
@@ -2016,6 +2322,8 @@ def smoke(torch) -> int:
     per_phase["supervised_pagerank"] = run("supervised_pagerank",
                                            phase_supervised_pagerank, parts)
     per_phase["soak_resume"] = run("soak_resume", phase_soak_resume)
+    per_phase["train"] = run("train", phase_train)
+    per_phase["soak_train"] = run("soak_train", phase_soak_train)
     torch.cuda.synchronize()
     launches = {k: sum(p.get(k, 0) for p in per_phase.values())
                 for k in _build.LAUNCHES}
@@ -2039,7 +2347,7 @@ def smoke(torch) -> int:
           torch.cuda.memory_allocated(), "memory_reserved_before": reserved,
           "memory_reserved": torch.cuda.memory_reserved()})
     with fresh_profiler():
-        rows = kernel_rows(torch, rec, launches, parts)
+        rows = kernel_rows(torch, rec, launches, parts, per_phase["train"])
     emit({"phase": "profiler", "process": "fresh", "calls": FRESH["calls"],
           "traces": FRESH["traces"]})
     emit({"kernels": rows})

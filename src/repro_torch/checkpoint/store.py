@@ -5,8 +5,9 @@ other's artifacts: a tree (dicts, lists, tuples of arrays or tensors) is
 flattened to ``name -> ndarray`` (``a/b`` for dict keys, ``#i`` for
 sequence items) and written as ``<path>.npz``, then an optional
 ``<path>.meta.json`` sidecar.  Tensors are written through
-``.cpu().numpy()``; :func:`load` given tensors in ``like`` returns
-tensors on ``like``'s device.
+``.cpu().numpy()`` (bfloat16 widened to float32, exactly, since numpy
+has no bfloat16); :func:`load` given tensors in ``like`` returns tensors
+of ``like``'s dtype on its device.
 
 Crash safety: :func:`save` is **atomic** -- each file is written to a
 tempfile in the target directory, fsynced, then ``os.replace``d over the
@@ -35,9 +36,13 @@ class CheckpointError(RuntimeError):
 
 
 def to_numpy(x) -> np.ndarray:
-    """An array or tensor (any device) as a host ndarray."""
+    """An array or tensor (any device) as a host ndarray; a bfloat16
+    tensor comes back as float32 (every bfloat16 value is a float32)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach()
+        if x.dtype == torch.bfloat16:
+            x = x.to(torch.float32)
+        return x.cpu().numpy()
     return np.asarray(x)
 
 
@@ -135,7 +140,7 @@ def load(path: str, like: Any) -> Any:
             raise ValueError(f"{prefix[:-1]}: stored shape {arr.shape} != "
                              f"{tuple(tree.shape)}")
         if isinstance(tree, torch.Tensor):
-            return torch.as_tensor(arr, device=tree.device)
+            return torch.as_tensor(arr, device=tree.device).to(tree.dtype)
         return arr
     return rebuild(like)
 

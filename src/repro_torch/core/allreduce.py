@@ -24,8 +24,10 @@ reference.  r-way replication (paper §V) is a plain layer: the physical
 plan prepends a degree-r replica-merge stage (``make_device_plan(
 replication=r)``), and each physical node's values are multiplied by its
 ``contribution_weights`` entry before it, so every logical shard is
-summed from its first alive replica.  The dense baselines are a later
-slice.
+summed from its first alive replica.  The dense baselines run on
+stacked ``[M, n]`` tensors too: the ring is the transport's ``psum``, the
+hierarchical and binary butterflies a tiled reduce-scatter per layer down
+and a tiled all-gather per layer up.
 """
 from __future__ import annotations
 
@@ -355,3 +357,50 @@ def run_union_allreduce(plan: DevicePlan, idx: torch.Tensor, val: torch.Tensor,
         SparseChunk(idx=idx, val=val), plan, plan.edges_tensors(idx.device),
         transport, merge=merge, wire=wire, weight=weight)
     return chunk.idx, chunk.val, ovf
+
+
+# ---------------------------------------------------------------------------
+# Dense baselines (paper §II) on stacked [M, n] tensors
+# ---------------------------------------------------------------------------
+
+def dense_allreduce_ring(x: torch.Tensor,
+                         transport: StackedTransport) -> torch.Tensor:
+    """The reference's stock ``lax.psum`` over the data axis: the
+    transport's whole-mesh sum of the stacked ``[M, ...]`` tensor, every
+    node receiving the total."""
+    return transport.psum(x)
+
+
+def dense_allreduce_hierarchical(x: torch.Tensor, plan: DevicePlan,
+                                 transport: StackedTransport) -> torch.Tensor:
+    """Heterogeneous-degree hierarchical dense allreduce of a stacked
+    ``[M, n]`` tensor: a tiled reduce-scatter down the butterfly layers,
+    then a tiled all-gather back up.  ``n`` must divide by the butterfly
+    size; ``transport`` is bound to ``plan.logical``.  Costs ``2 * depth``
+    exchanges; every node's row holds the full sum."""
+    if x.shape[1] % plan.num_nodes:
+        raise ValueError(f"length {x.shape[1]} is not divisible by the "
+                         f"butterfly size {plan.num_nodes}")
+    for l in range(len(plan.stages)):
+        x = transport.reduce_scatter(l, x)
+    for l in range(len(plan.stages) - 1, -1, -1):
+        (x,) = transport.all_gather(l, x)
+    return x
+
+
+def dense_allreduce_binary(x: torch.Tensor, axis_size: int,
+                           transport: Optional[StackedTransport] = None
+                           ) -> torch.Tensor:
+    """Degree-2 butterfly (hypercube) allreduce of a stacked ``[M, n]``
+    tensor: log2(M) reduce-scatter layers, then the all-gathers.
+    ``transport`` (default: a fresh one on ``x``'s device) must be bound
+    to ``ButterflyPlan(axis_size, (2,) * log2(axis_size))``."""
+    depth = int(math.log2(axis_size))
+    plan = ButterflyPlan(axis_size, (2,) * depth)
+    if transport is None:
+        transport = StackedTransport(plan, x.device)
+    for l in range(depth):
+        x = transport.reduce_scatter(l, x)
+    for l in range(depth - 1, -1, -1):
+        (x,) = transport.all_gather(l, x)
+    return x

@@ -15,8 +15,11 @@ permutation of the stacked tensor, precomputed once per stage:
   ``[k*C, ...]``.
 
 Results are therefore bit for bit those of the reference's collectives.
-An exchange moves each tensor in its own dtype (int32 packed words, bf16
-or int8 values, f32 scales), and ``calls`` counts exchanges (one per call,
+The dense
+butterfly's tiled ``reduce_scatter`` is a gather of each member's chunk
+and a sum of them in member order.  An exchange moves each tensor in its
+own dtype (int32 packed words, bf16 or int8 values, f32 scales), and
+``calls`` counts exchanges (one per call,
 however many tensors it moves), so a test can hold a reduce to its
 ``2 * depth`` exchanges.  :meth:`StackedTransport.position` is each
 node's position in its stage group, the reference's ``(axis_index //
@@ -110,6 +113,25 @@ class StackedTransport:
         m, k = self.num_nodes, self.plan.degrees[layer]
         return tuple(x.index_select(0, rows).reshape(
             (m, k * x.shape[1]) + x.shape[2:]) for x in xs)
+
+    def reduce_scatter(self, layer: int, x: torch.Tensor) -> torch.Tensor:
+        """Tiled group reduce-scatter of layer ``layer`` (the reference's
+        ``lax.psum_scatter(..., tiled=True)``) on a ``[M, n, ...]`` tensor
+        with n divisible by the degree k (one exchange): node n at group
+        position j receives ``sum_t x[g_t(n)]`` over chunk j of size n / k,
+        the k members' chunks added in member order, ``[M, n / k, ...]``."""
+        self.calls += 1
+        m, k = self.num_nodes, self.plan.degrees[layer]
+        if x.shape[0] != m or x.shape[1] % k:
+            raise ValueError(f"reduce_scatter: [{m}, n] with n divisible by "
+                             f"{k} expected, got {tuple(x.shape)}")
+        c = x.shape[1] // k
+        rows = x.reshape((m * k, c) + x.shape[2:])
+        src = self._a2a[layer].view(m, k)      # member t's chunk j(n)
+        out = rows.index_select(0, src[:, 0])
+        for t in range(1, k):
+            out += rows.index_select(0, src[:, t])
+        return out
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """Whole-mesh sum of a per-node ``[M, ...]`` tensor, broadcast

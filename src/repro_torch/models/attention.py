@@ -1,0 +1,100 @@
+"""GQA attention, the training path (reference: ``repro.models.attention``).
+
+``attn_train`` is the reference's full-sequence attention at one
+tensor-parallel shard: project q/k/v (with the optional QKV bias), rotate
+q and k, score every query against every key in the activation dtype,
+mask (causal, and a sliding window when ``window > 0``) with ``NEG``,
+softmax in float32 and cast the weights back to the activation dtype,
+then the weighted values and the output projection.  Plain torch ops in
+the reference's order; there is no TPU kernel here.  The query-chunked
+``attn_train_blocked`` (sequences of 8,192 tokens and more), decode and
+cross-attention are not ported yet (ROADMAP Queue 1 item 22 and item 14).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from .common import ModelConfig, linear, rope, vec
+
+NEG = -1e30
+BLOCKED_ATTN_THRESHOLD = 8192
+
+
+def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig, tp: int):
+    """q [..., T, Hl, hd], k and v [..., T, KVl, hd] in x's dtype."""
+    lead = x.shape[:-1]
+    hl, kvl, hd = cfg.heads_local(tp), cfg.kv_local(tp), cfg.hd
+    q = linear(x, p["wq"])
+    k = linear(x, p["wk"])
+    v = linear(x, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + vec(p["bq"], q), k + vec(p["bk"], k), v + vec(p["bv"], v)
+    return (q.reshape(lead + (hl, hd)), k.reshape(lead + (kvl, hd)),
+            v.reshape(lead + (kvl, hd)))
+
+
+def _group_scores_to_out(q, k, v, mask, cfg: ModelConfig, tp: int):
+    """q [B,T,Hl,hd], k/v [B,S,KVl,hd], mask [T,S] or [B,T,S] ->
+    [B,T,Hl*hd]: each group of Hl/KVl query heads shares one kv head."""
+    b, t, hl, hd = q.shape
+    kvl = k.shape[2]
+    g = hl // kvl if hl % kvl == 0 else 0
+    scale = math.sqrt(float(hd))
+    if g == 0:  # padded heads not divisible by kv: map head -> kv by ratio
+        qk_map = (torch.arange(hl, device=q.device) * kvl) // hl
+        k = k.index_select(2, qk_map)             # [B,S,Hl,hd]
+        v = v.index_select(2, qk_map)
+        scores = torch.einsum("bthd,bshd->bhts", q, k).to(torch.float32)
+        scores = scores / scale
+        m = mask[None, None] if mask.ndim == 2 else mask[:, None]
+        scores = torch.where(m, scores, torch.full_like(scores, NEG))
+        w = torch.softmax(scores, dim=-1).to(q.dtype)
+        out = torch.einsum("bhts,bshd->bthd", w, v)
+    else:
+        qg = q.reshape(b, t, kvl, g, hd)
+        scores = torch.einsum("btkgd,bskd->bkgts", qg, k).to(torch.float32)
+        scores = scores / scale
+        m = mask if mask.ndim == 3 else mask[None]
+        scores = torch.where(m[:, None, None], scores,
+                             torch.full_like(scores, NEG))
+        w = torch.softmax(scores, dim=-1).to(q.dtype)
+        out = torch.einsum("bkgts,bskd->btkgd", w, v).reshape(b, t, hl, hd)
+    return out.reshape(b, t, hl * hd)
+
+
+def attn_mask(t: int, window: int, causal: bool = True,
+              device=None) -> torch.Tensor:
+    """bool [T, T]: causal (key <= query), within ``window`` positions
+    when ``window > 0``; all true when not causal."""
+    ti = torch.arange(t, dtype=torch.int64, device=device)
+    rel = ti[:, None] - ti[None, :]
+    if not causal:
+        return torch.ones((t, t), dtype=torch.bool, device=device)
+    w_eff = window if window > 0 else t + 1
+    return (rel >= 0) & (rel < w_eff)
+
+
+def attn_train(p, x: torch.Tensor, cfg: ModelConfig, tp: int, window: int,
+               positions: Optional[torch.Tensor] = None,
+               causal: bool = True) -> torch.Tensor:
+    """Full-sequence attention of x [B, T, d] (position-stacked: [M, B, T,
+    d] with stacked weights); ``window`` 0 = full; ``positions`` [T] or
+    broadcastable to the leading dims + [T]."""
+    t = x.shape[-2]
+    if t >= BLOCKED_ATTN_THRESHOLD:
+        raise NotImplementedError(
+            f"sequences of {BLOCKED_ATTN_THRESHOLD} tokens and more need "
+            "attn_train_blocked, not ported yet (ROADMAP Queue 1 item 22)")
+    q, k, v = _project_qkv(p, x, cfg, tp)
+    if positions is None:
+        positions = torch.arange(t, dtype=torch.int64, device=x.device)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    mask = attn_mask(t, int(window), causal, device=x.device)
+    seq = (-1,) + tuple(q.shape[-3:])
+    out = _group_scores_to_out(q.reshape(seq), k.reshape((-1,) + k.shape[-3:]),
+                               v.reshape((-1,) + v.shape[-3:]), mask, cfg, tp)
+    return linear(out.reshape(x.shape[:-1] + (out.shape[-1],)), p["wo"])

@@ -1,0 +1,565 @@
+"""Train step and gradient sync over the stacked data mesh (reference: ``repro.train.step``).
+
+The reference runs one program per device under ``shard_map``: each data
+shard differentiates its rows' loss, then the gradients are synced over
+the data axes in one of three modes --
+
+* ``ring``   -- the whole-mesh sum (``lax.psum``);
+* ``hier``   -- the paper's heterogeneous-degree nested butterfly, dense:
+  a tiled reduce-scatter down the degree sequence, the all-gather back up
+  (``core.allreduce.dense_allreduce_hierarchical``);
+* ``sparse`` -- the paper's Sparse Allreduce for the input-embedding
+  gradient, whose rows are those the batch touched (§I-A.1), and
+  ``hier`` for every other leaf.  Tied embeddings make that gradient
+  dense in the vocabulary, so the sparse leaf exists only untied; a tied
+  model syncs it with ``hier``.
+
+The port keeps M data positions stacked on one device
+(:class:`MeshCtx`): parameters and AdamW state are held once, the batch
+is split into M row blocks as the reference shards rows, and each
+block's loss is differentiated with ``torch.autograd.grad`` into stacked
+``[M, ...]`` gradients -- in one batched program: every position runs on
+its own broadcast view of the parameters (``expand``, no copy), so the
+gradient of the summed block losses with respect to those views is each
+block's own gradient.  The sync runs over the stacked transport
+(``core.transport.StackedTransport``) through the port's union Sparse
+Allreduce and its CUDA merge kernels.  Every synced gradient's M rows
+are equal by construction; AdamW applies once, to row 0.  The bucketed
+overlap schedule (ROADMAP Queue 1 item 12), FSDP (item 19), a model axis
+(item 20) and a ``pod`` axis (item 21) are not ported yet and raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.allreduce import (MERGE_MODES, DevicePlan,
+                                        dense_allreduce_hierarchical,
+                                        make_device_plan,
+                                        sparse_allreduce_union)
+from repro_torch.core.sparse_vec import SENTINEL, HashPerm, SparseChunk
+from repro_torch.core.topology import ButterflyPlan, check_wire
+from repro_torch.core.transport import StackedTransport, resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.models.common import ModelConfig
+from repro_torch.models.sharding import (check_dense_family,
+                                         full_model_spec_tuples, is_fsdp_leaf)
+from repro_torch.optim.adamw import AdamW
+
+SYNC_PERM = HashPerm.make(1234)
+
+SYNC_OVERLAP_MODES = ("off", "bucketed")
+SYNC_MODES = ("ring", "hier", "sparse")
+
+
+# ---------------------------------------------------------------------------
+# Mesh bookkeeping
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MeshCtx:
+    """One ``data`` axis of ``data`` stacked positions on ``device``,
+    model = 1."""
+    data: int
+    device: torch.device
+    tp_axis: str = "model"
+    dp_axes: Tuple[str, ...] = ("data",)
+
+    @property
+    def tp(self) -> int:
+        """Tensor-parallel size (1)."""
+        return 1
+
+    @property
+    def dp(self) -> int:
+        """Data-parallel size M."""
+        return self.data
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """Axis sizes, as a mesh's ``shape``."""
+        return {"data": self.data, "model": 1}
+
+    def axis_ctx(self, cfg: ModelConfig) -> T.AxisCtx:
+        """The models' axis context."""
+        return T.AxisCtx(tp_axis=self.tp_axis, tp=1, dp_axes=self.dp_axes)
+
+
+def mesh_ctx(data: int, model: int = 1, pod: int = 1,
+             device=None) -> MeshCtx:
+    """The port's mesh: ``data`` stacked positions on ``device`` (default:
+    the current CUDA device).  A model axis or a pod axis raises."""
+    if model != 1:
+        raise NotImplementedError(
+            "the model axis (tp > 1) is not ported yet (ROADMAP Queue 1 "
+            "item 20)")
+    if pod != 1:
+        raise NotImplementedError(
+            "a pod axis is not ported yet (ROADMAP Queue 1 item 21)")
+    if data < 1:
+        raise ValueError(f"data axis must be >= 1, got {data}")
+    return MeshCtx(data=int(data), device=resolve_device(device))
+
+
+def tuned_dp_degrees(mc: MeshCtx, in_capacity: int, out_capacity: int,
+                     retune: bool = False) -> Dict[str, Tuple[int, ...]]:
+    """``dp_degrees="auto"``: the data axis's degrees from the port's
+    cached autotuner (``core.autotune.resolve_degrees``) under the stored
+    calibration of this backend and node count.  With none stored, the
+    stacked transport is calibrated once (``calibrate_fabric(store=True)``)
+    -- a TPU's nominal rates say nothing about this device."""
+    from repro_torch.core import autotune
+    if mc.dp == 1:
+        return {"data": ()}
+    backend = autotune.backend_name(mc.device)
+    fabric = autotune.calibrated_fabric(backend=backend, num_devices=mc.dp)
+    if fabric is None:
+        fabric = autotune.calibrate_fabric(mc.dp, device=mc.device,
+                                           store=True)
+    degs, _src = autotune.resolve_degrees(
+        mc.dp, n0=max(in_capacity, 1), total_range=max(out_capacity, 2) * 4,
+        fabric=fabric, serial_nic=False, mesh_sig=(("data", mc.dp),),
+        retune=retune)
+    return {"data": tuple(degs)}
+
+
+def default_dp_plan(mc: MeshCtx, in_capacity: int, out_capacity: int,
+                    degrees=None, retune: bool = False) -> DevicePlan:
+    """Butterfly plan over the data axis: ``degrees`` a dict, ``"auto"``
+    (:func:`tuned_dp_degrees`) or ``None`` (one round-robin stage)."""
+    if degrees == "auto":
+        degrees = tuned_dp_degrees(mc, in_capacity, out_capacity,
+                                   retune=retune)
+    elif degrees is None:
+        degrees = {"data": (mc.dp,)}
+    return make_device_plan([("data", mc.dp)], degrees,
+                            in_capacity=in_capacity,
+                            out_capacity=out_capacity)
+
+
+# ---------------------------------------------------------------------------
+# Gradient sync on stacked [M, ...] gradients
+# ---------------------------------------------------------------------------
+
+def _hier_allreduce_leaf(g: torch.Tensor, plan: DevicePlan,
+                         transport: StackedTransport,
+                         capture: Optional[dict] = None) -> torch.Tensor:
+    """One stacked leaf [M, ...] through the dense butterfly: float32,
+    flattened, padded to a multiple of M, reduced, cast back."""
+    m = plan.num_nodes
+    flat = g.to(torch.float32).reshape(m, -1)
+    n = flat.shape[1]
+    pad = (-n) % m
+    if pad:
+        flat = F.pad(flat, (0, pad))
+    out = dense_allreduce_hierarchical(flat, plan, transport)[:, :n]
+    if capture is not None:
+        capture["f32"] = out[0].reshape(g.shape[1:]).clone()
+    return out.reshape(g.shape).to(g.dtype)
+
+
+def _as_int32(x: torch.Tensor) -> torch.Tensor:
+    """uint32 values held in int64 read as int32 (the reference's
+    ``astype(jnp.int32)``)."""
+    return torch.where(x >= 2**31, x - 2**32, x)
+
+
+def sparse_sync_rows(grad: torch.Tensor, ids: torch.Tensor, mc: MeshCtx,
+                     dplan: DevicePlan, edges: Sequence[torch.Tensor],
+                     transport: StackedTransport,
+                     merge: str = "sort", wire: str = "raw",
+                     ef: Optional[torch.Tensor] = None,
+                     capture: Optional[dict] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor,
+                                Optional[torch.Tensor]]:
+    """Sparse Allreduce of a row-sparse gradient table over the data axis.
+
+    grad: [M, V, d] each position's gradient; ids: [M, N] the token ids of
+    each position's rows.  Each position hashes its unique ids
+    (``SYNC_PERM``), sorts them into ``in_capacity`` slots, gathers those
+    rows and runs the union butterfly; the union's rows are written back
+    into a ``[V + 1, d]`` buffer whose last row takes the padding.
+    Returns (synced [M, V, d] in grad's dtype, overflow [M], new carry).
+
+    ``ef`` [M, V, d] float32: the ``wire="delta+int8ef"`` error-feedback
+    carry, added to the rows sent; the residual of one per-row int8
+    quantization of the sent rows is stored back into the carry (the
+    reference's bounded proxy for the per-stage re-quantization).
+    ``capture``, when given, receives the float32 synced row 0 under
+    ``"f32"`` (a test hook).
+    """
+    from repro_torch.kernels.wirecodec import dequant8_rows, quant8_rows
+    m, v_l, d = grad.shape
+    dev = grad.device
+    ids = ids.reshape(m, -1).to(torch.int64)
+    mine = (ids >= 0) & (ids < v_l)
+    hashed = torch.where(mine, SYNC_PERM.fwd(ids),
+                         torch.full_like(ids, SENTINEL))
+    hsorted = torch.sort(hashed, dim=-1).values
+    cap_in = dplan.in_capacity
+    valid = hsorted != SENTINEL
+    is_head = torch.cat([torch.ones((m, 1), dtype=torch.bool, device=dev),
+                         hsorted[:, 1:] != hsorted[:, :-1]], 1) & valid
+    pos = torch.cumsum(is_head.to(torch.int64), -1) - 1
+    slot = torch.where(is_head & (pos < cap_in), pos, cap_in)
+    uniq = torch.full((m, cap_in + 1), SENTINEL, dtype=torch.int64,
+                      device=dev).scatter_(1, slot, hsorted)[:, :cap_in]
+    okr = uniq != SENTINEL
+    safe_rows = torch.clamp(_as_int32(SYNC_PERM.inv(uniq)), 0, v_l - 1)
+    node = torch.arange(m, device=dev)[:, None]
+    keep = okr[..., None].to(torch.float32)
+    vals = grad[node, safe_rows].to(torch.float32) * keep
+    new_ef = None
+    if ef is not None:
+        vals = vals + ef[node, safe_rows].to(torch.float32) * keep
+        q, s = quant8_rows(vals.reshape(m * cap_in, d))
+        resid = (vals - dequant8_rows(q, s).reshape(m, cap_in, d)) * keep
+        ef_dest = torch.where(okr, safe_rows, v_l)
+        new_ef = torch.cat([ef.to(torch.float32),
+                            torch.zeros((m, 1, d), dtype=torch.float32,
+                                        device=dev)], 1)
+        new_ef[node, ef_dest] = resid
+        new_ef = new_ef[:, :v_l]
+    chunk, ovf = sparse_allreduce_union(
+        SparseChunk(idx=uniq, val=vals), dplan, edges, transport,
+        merge=merge, wire=wire)
+    ok = chunk.idx != SENTINEL
+    dest = torch.where(ok, _as_int32(SYNC_PERM.inv(chunk.idx)), v_l)
+    synced = torch.zeros((m, v_l + 1, d), dtype=torch.float32, device=dev)
+    synced[node, dest] = chunk.val * ok[..., None].to(chunk.val.dtype)
+    synced = synced[:, :v_l]
+    if capture is not None:
+        capture["f32"] = synced[0].clone()
+    return synced.to(grad.dtype), ovf, new_ef
+
+
+@dataclasses.dataclass
+class SyncPlans:
+    """The sync's plans, the sparse plan's edges, and one stacked
+    transport per plan (the whole-mesh sum runs on ``psum``'s)."""
+    hier_plan: Optional[DevicePlan]
+    sparse_plan: Optional[DevicePlan]
+    sparse_edges: Optional[List[torch.Tensor]]
+    hier: Optional[StackedTransport]
+    sparse: Optional[StackedTransport]
+    psum: StackedTransport
+
+
+def sync_grads(grads, cfg: ModelConfig, mc: MeshCtx, mode: str,
+               plans: SyncPlans, token_ids: Optional[torch.Tensor],
+               merge: str = "sort", wire: str = "raw",
+               ef: Optional[torch.Tensor] = None,
+               repl_weight: Optional[torch.Tensor] = None,
+               dp_logical: Optional[int] = None,
+               rows: Optional[int] = None, consume: bool = False,
+               capture: Optional[dict] = None):
+    """Combine stacked per-position gradients [M, ...] into the gradient
+    of the global mean loss: ``(synced, overflow [M], new carry)``.
+
+    Leaves go in sorted-path order.  ``repl_weight`` [M] (r-way replicated
+    data parallelism, paper §V): each position's ``contribution_weights``
+    entry multiplies its gradients before the sum, so each logical shard
+    counts once, from its first alive replica, and the mean divides by
+    ``dp_logical`` (= M / r).  ``rows=0`` keeps only row 0 of each synced
+    leaf (the rows are equal); ``consume=True`` drops each input leaf from
+    ``grads`` once synced, so the stacked gradients are freed leaf by
+    leaf.  ``capture`` receives the float32 sync of the embedding leaf
+    (``capture["emb"]``, a test hook)."""
+    spec = dict(T.tree_leaves(full_model_spec_tuples(cfg, mc.tp)))
+    dp = float(dp_logical if dp_logical is not None else mc.dp)
+    overflow = torch.zeros(mc.dp, dtype=torch.int64, device=mc.device)
+    new_ef = ef
+    out = []
+    for path in [p for p, _ in T.tree_leaves(grads)]:
+        parent = grads
+        for k in path[:-1]:
+            parent = parent[k]
+        g = parent[path[-1]]
+        if consume:
+            del parent[path[-1]]
+        if cfg.fsdp and is_fsdp_leaf(spec[path]):
+            raise NotImplementedError(
+                "fsdp=True is not ported yet (ROADMAP Queue 1 item 19)")
+        if repl_weight is not None:
+            g = g * repl_weight.to(g.dtype).reshape((-1,) + (1,) * (g.ndim - 1))
+        cap = {} if capture is not None and path == ("emb",) else None
+        if mode == "sparse" and path == ("emb",) and not cfg.tie_embeddings:
+            r, ovf, nef = sparse_sync_rows(
+                g, token_ids, mc, plans.sparse_plan, plans.sparse_edges,
+                plans.sparse, merge=merge, wire=wire, ef=ef, capture=cap)
+            overflow = overflow + ovf
+            if nef is not None:
+                new_ef = nef
+        elif mode in ("hier", "sparse") and plans.hier_plan is not None \
+                and g[0].numel() >= mc.dp:
+            r = _hier_allreduce_leaf(g, plans.hier_plan, plans.hier,
+                                     capture=cap)
+        else:
+            r = plans.psum.psum(g)
+        del g
+        r = r / dp
+        if cap is not None:
+            capture["emb"] = cap
+        out.append((path, r if rows is None else r[rows].clone()))
+        del r
+    return T.tree_from_leaves(
+        full_model_spec_tuples(cfg, mc.tp), out), overflow, new_ef
+
+
+def _sharded_grad_norm(grads) -> torch.Tensor:
+    """Global grad norm of one copy of the synced gradients, leaf by leaf
+    in sorted-path order (at tp = 1 every element is counted once)."""
+    total = None
+    for _, g in T.tree_leaves(grads):
+        sq = torch.sum(torch.square(g.to(torch.float32)))
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
+def _build_sync_plans(cfg: ModelConfig, mc: MeshCtx, sync: str, dp_degrees,
+                      sparse_tokens_hint: Optional[int],
+                      retune: bool) -> SyncPlans:
+    """The plan set of one (cfg, mesh, sync) combination, shared by
+    :func:`make_train_step` and :func:`make_sync_fn`: the hier plan
+    (capacities unused), and for ``sparse`` a union plan sized to the
+    batch's sparsity -- in = min(tokens a position, V) and out = min(V,
+    in * M), each rounded up to 8."""
+    sparse_plan = sparse_edges = hier_plan = None
+    hier_t = sparse_t = None
+    if sync in ("hier", "sparse"):
+        hier_plan = default_dp_plan(mc, 8, 8, dp_degrees, retune=retune)
+        hier_t = StackedTransport(hier_plan.logical, mc.device)
+    if sync == "sparse":
+        v_l = T.padded_vocab(cfg, mc.tp) // mc.tp
+        cin = int(min(v_l, sparse_tokens_hint or (1 << 16)))
+        cin = (cin + 7) // 8 * 8
+        cout = (min(v_l, cin * mc.dp) + 7) // 8 * 8
+        sp_degrees = dp_degrees
+        if dp_degrees == "auto":
+            sp_degrees = tuned_dp_degrees(mc, cin, cout, retune=retune)
+        sparse_plan = make_device_plan(
+            [("data", mc.dp)], sp_degrees or {"data": (mc.dp,)},
+            in_capacity=cin, out_capacity=cout)
+        sparse_edges = sparse_plan.edges_tensors(mc.device)
+        sparse_t = StackedTransport(sparse_plan.logical, mc.device)
+    psum_t = hier_t if hier_t is not None else StackedTransport(
+        ButterflyPlan(mc.dp, (mc.dp,) if mc.dp > 1 else ()), mc.device)
+    return SyncPlans(hier_plan, sparse_plan, sparse_edges, hier_t, sparse_t,
+                     psum_t)
+
+
+def _check_sync_settings(sync: str, sync_merge: str, sync_wire: str,
+                         sync_overlap: str) -> None:
+    """Shared validation of make_train_step / make_sync_fn."""
+    if sync not in SYNC_MODES:
+        raise ValueError(f"sync must be one of {SYNC_MODES}, got {sync!r}")
+    if sync_merge not in MERGE_MODES:
+        raise ValueError(
+            f"sync_merge must be one of {MERGE_MODES}, got {sync_merge!r}")
+    check_wire(sync_wire)
+    if sync_wire != "raw" and sync != "sparse":
+        raise ValueError(
+            f"sync_wire={sync_wire!r} only applies to the sparse sync path "
+            f"(got sync={sync!r}); ring/hier sync is dense and unencoded")
+    if sync_overlap not in SYNC_OVERLAP_MODES:
+        raise ValueError(f"sync_overlap must be one of {SYNC_OVERLAP_MODES}, "
+                         f"got {sync_overlap!r}")
+    if sync_overlap == "bucketed":
+        raise NotImplementedError(
+            "sync_overlap='bucketed' is not ported yet (ROADMAP Queue 1 "
+            "item 12)")
+
+
+def _replication(mc: MeshCtx, replication: int, dead):
+    """``(weights tensor or None, dp_logical)``; raises
+    ``DeadLogicalNode`` when a whole replica group is dead."""
+    if replication > 1 or dead:
+        from repro_torch.core.replication import contribution_weights
+        if mc.dp % replication:
+            raise ValueError(f"dp={mc.dp} not divisible by r={replication}")
+        w = contribution_weights(mc.dp, replication, dead)
+        return (torch.as_tensor(np.asarray(w, np.float32), device=mc.device),
+                mc.dp // replication)
+    return None, mc.dp
+
+
+def _stack_tokens(x, mc: MeshCtx) -> torch.Tensor:
+    """A [B, S] batch as [M, B / M, S] int64 on the mesh's device."""
+    t = torch.as_tensor(np.asarray(x)) if not isinstance(x, torch.Tensor) \
+        else x
+    t = t.to(device=mc.device, dtype=torch.int64)
+    if t.shape[0] % mc.dp:
+        raise ValueError(f"batch of {t.shape[0]} rows does not split over "
+                         f"{mc.dp} data positions")
+    return t.reshape((mc.dp, t.shape[0] // mc.dp) + tuple(t.shape[1:]))
+
+
+def make_sync_fn(cfg: ModelConfig, mc: MeshCtx, *, sync: str = "hier",
+                 dp_degrees=None, sync_merge: str = "sort",
+                 sync_wire: str = "raw", replication: int = 1,
+                 dead: Optional[set] = None, sync_overlap: str = "off",
+                 sparse_tokens_hint: Optional[int] = None,
+                 retune: bool = False, salt_shards: bool = True):
+    """The sync stage of :func:`make_train_step` alone, the bit-exactness
+    harness: ``(fn, spec)`` with ``fn(grads, token_ids) -> (synced,
+    overflow)``.  ``grads`` is one parameter-shaped gradient tree (every
+    data position holds it, as the reference's replicated layout does);
+    ``token_ids`` the [B, S] batch the sparse leaf's union is built from.
+    ``synced`` holds each leaf stacked [M, ...] (all rows equal) and
+    ``overflow`` is [M].  With ``salt_shards`` each *logical* shard's
+    copy is scaled by 2^-((n mod dp_logical) mod 4) first, so routing
+    faults cannot cancel and replicas stay identical.  Error feedback is
+    not threaded (``delta+int8ef`` syncs with no carry)."""
+    _check_sync_settings(sync, sync_merge, sync_wire, sync_overlap)
+    check_dense_family(cfg)
+    repl_w, dp_logical = _replication(mc, replication, dead)
+    plans = _build_sync_plans(cfg, mc, sync, dp_degrees, sparse_tokens_hint,
+                              retune)
+    node = torch.arange(mc.dp, device=mc.device)
+    salt = torch.exp2(-((node % dp_logical) % 4).to(torch.float32))
+
+    def fn(grads, token_ids):
+        def stack(g):
+            s = g.to(mc.device).unsqueeze(0).expand((mc.dp,) + tuple(g.shape))
+            if salt_shards:
+                s = s * salt.to(g.dtype).reshape((-1,) + (1,) * g.ndim)
+            return s
+        stacked = T.tree_from_leaves(grads, [(p, stack(g)) for p, g
+                                             in T.tree_leaves(grads)])
+        tokens = _stack_tokens(token_ids, mc).reshape(mc.dp, -1)
+        synced, overflow, _ = sync_grads(
+            stacked, cfg, mc, sync, plans, tokens, merge=sync_merge,
+            wire=sync_wire, repl_weight=repl_w, dp_logical=dp_logical)
+        return synced, overflow
+
+    return fn, full_model_spec_tuples(cfg, mc.tp)
+
+
+def train_fingerprint(cfg: ModelConfig, **settings) -> str:
+    """Digest of the config and run settings a checkpoint must match to
+    resume exactly (the soak refuses a mismatch)."""
+    payload = {"cfg": dataclasses.asdict(cfg),
+               "settings": {k: settings[k] for k in sorted(settings)}}
+    return hashlib.sha1(
+        json.dumps(payload, sort_keys=True, default=str).encode()
+    ).hexdigest()[:16]
+
+
+def make_train_step(cfg: ModelConfig, mc: MeshCtx, *, sync: str = "ring",
+                    opt: Optional[AdamW] = None, dp_degrees=None,
+                    aux_weight: float = 0.01, microbatch: int = 1,
+                    sparse_tokens_hint: Optional[int] = None,
+                    sync_merge: str = "sort", sync_wire: str = "raw",
+                    replication: int = 1, dead: Optional[set] = None,
+                    retune: bool = False, sync_overlap: str = "off"):
+    """``(step, specs)``: ``step(params, opt_state, batch) -> (params,
+    opt_state, metrics)`` over the stacked data mesh ``mc``.
+
+    batch: ``tokens`` / ``labels`` [B, S] (numpy or tensors), B divisible
+    by M.  Each position differentiates ``loss + aux_weight * aux`` of its
+    B / M rows (``microbatch`` > 1 accumulates float32 gradients over that
+    many row slices and divides, as the reference's scan does); the
+    stacked gradients are synced (``sync``, ``dp_degrees``,
+    ``sync_merge``, ``sync_wire``: as the reference's); the global norm
+    of the synced gradients feeds AdamW, which updates one copy of the
+    parameters.  ``replication=r`` / ``dead``: M / r logical shards
+    hosted r-way (the launcher tiles the batch r times), each counted from
+    its first alive replica.  ``sync_wire="delta+int8ef"`` carries the
+    error feedback in the optimizer state: pass an ``AdamWState`` the
+    first time, then the ``{"adamw": ..., "ef": [M, V, d]}`` dict the
+    step returned.  Metrics: ``loss`` and ``aux`` (means over the
+    positions), ``gnorm``, ``sync_overflow`` (the largest position's).
+
+    ``step(..., mark=fn)`` calls ``fn("fwd_bwd")``, ``fn("sync")`` and
+    ``fn("update")`` as each stage is enqueued (timing hooks);
+    ``capture={}`` receives the embedding leaf's float32 sync
+    (``capture["emb"]``) and row 0 of every synced leaf
+    (``capture["synced"]``).  Updates never write in place."""
+    _check_sync_settings(sync, sync_merge, sync_wire, sync_overlap)
+    check_dense_family(cfg)
+    if microbatch < 1:
+        raise ValueError(f"microbatch must be >= 1, got {microbatch}")
+    opt = opt or AdamW()
+    ax = mc.axis_ctx(cfg)
+    repl_w, dp_logical = _replication(mc, replication, dead)
+    plans = _build_sync_plans(cfg, mc, sync, dp_degrees, sparse_tokens_hint,
+                              retune)
+    use_ef = sync == "sparse" and sync_wire == "delta+int8ef"
+    ef_shape = (mc.dp, T.padded_vocab(cfg, mc.tp), cfg.d_model)
+
+    def grads_of(ps, tree, tokens, labels):
+        """Each position's gradients of its rows' loss, stacked [M, ...],
+        and the M losses and aux."""
+        loss, aux = T.forward_loss(tree, tokens, labels, cfg, ax)
+        gs = torch.autograd.grad((loss + aux_weight * aux).sum(), ps)
+        return gs, loss.detach(), aux.detach()
+
+    def step(params, opt_state, batch, mark: Optional[Callable] = None,
+             capture: Optional[dict] = None):
+        mark = mark or (lambda stage: None)
+        ef = None
+        if use_ef:
+            if not (isinstance(opt_state, dict) and "ef" in opt_state):
+                opt_state = {"adamw": opt_state, "ef": torch.zeros(
+                    ef_shape, dtype=torch.float32, device=mc.device)}
+            ef, opt_state = opt_state["ef"], opt_state["adamw"]
+        tokens = _stack_tokens(batch["tokens"], mc)
+        labels = _stack_tokens(batch["labels"], mc)
+        leaves = T.tree_leaves(params)
+        # position i differentiates through its own (broadcast) copy
+        ps = [p.detach().unsqueeze(0).expand((mc.dp,) + tuple(p.shape))
+              .requires_grad_(True) for _, p in leaves]
+        tree = T.tree_from_leaves(params, [(path, p) for (path, _), p
+                                           in zip(leaves, ps)])
+        if microbatch == 1:
+            stacked, losses, auxes = grads_of(ps, tree, tokens, labels)
+        else:
+            rows = tokens.shape[1]
+            if rows % microbatch:
+                raise ValueError(f"{rows} rows a position do not split "
+                                 f"into {microbatch} microbatches")
+            per = rows // microbatch
+            stacked = losses = auxes = None
+            for j in range(microbatch):
+                sl = slice(j * per, (j + 1) * per)
+                gs, l, a = grads_of(ps, tree, tokens[:, sl], labels[:, sl])
+                gs = [g.to(torch.float32) for g in gs]
+                if stacked is None:
+                    stacked, losses, auxes = gs, l, a
+                else:
+                    stacked = [s + g for s, g in zip(stacked, gs)]
+                    losses, auxes = losses + l, auxes + a
+                del gs
+            stacked = [s / microbatch for s in stacked]
+            losses, auxes = losses / microbatch, auxes / microbatch
+        del tree, ps
+        mark("fwd_bwd")
+        grads = T.tree_from_leaves(params, [(path, s) for (path, _), s
+                                            in zip(leaves, stacked)])
+        del stacked
+        synced, overflow, new_ef = sync_grads(
+            grads, cfg, mc, sync, plans,
+            tokens.reshape(mc.dp, -1), merge=sync_merge, wire=sync_wire,
+            ef=ef, repl_weight=repl_w, dp_logical=dp_logical, rows=0,
+            consume=True, capture=capture)
+        mark("sync")
+        if capture is not None:
+            capture["synced"] = synced
+        gnorm = _sharded_grad_norm(synced)
+        new_params, new_opt, _ = opt.update(synced, opt_state, params,
+                                            gnorm=gnorm)
+        if use_ef:
+            new_opt = {"adamw": new_opt, "ef": new_ef}
+        metrics = {"loss": losses.mean(), "aux": auxes.mean(), "gnorm": gnorm,
+                   "sync_overflow": overflow.max()}
+        mark("update")
+        return new_params, new_opt, metrics
+
+    specs = {"params": full_model_spec_tuples(cfg, mc.tp)}
+    return step, specs

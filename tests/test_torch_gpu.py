@@ -18,6 +18,10 @@ against a stable argsort; the banded scatter the same way on the window
 table's adversarial cases, and its table (``banded_windows``) exactly
 against ``searchsorted``; the SpMVs within rtol 1e-5 (float32 sums in
 another order), the CSR kernel also bit-identical across two launches.
+The training stack: a reduced train step through the merge kernels
+repeated on the card gives the same bits (and the CPU run's losses
+within rtol 1e-4), and both scatters at the training width (w = 1,024)
+equal their plain versions on a CPU copy bit for bit.
 """
 import json
 import os
@@ -800,3 +804,91 @@ def test_soak_runs_on_cuda_by_default(cuda, tmp_path):
         for k in a.files:
             assert np.array_equal(a[k], b[k]), k
             np.testing.assert_allclose(a[k], c[k], rtol=1e-5, atol=1e-10)
+
+
+def _train_run(device, merge, wire="raw", steps=2):
+    """Two reduced untied qwen1.5-0.5b steps over 8 stacked positions."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import batch_stream
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.step import make_train_step, mesh_ctx
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(),
+                              tie_embeddings=False)
+    step, _ = make_train_step(cfg, mesh_ctx(8, device=device), sync="sparse",
+                              dp_degrees={"data": (4, 2)}, sync_merge=merge,
+                              sync_wire=wire, sparse_tokens_hint=32)
+    params = T.init_params(cfg, 1, seed=0, device="cpu")
+    params = T.tree_from_leaves(params, [(p, t.to(device)) for p, t
+                                         in T.tree_leaves(params)])
+    st = AdamW().init(params)
+    stream = batch_stream(cfg, 8, 32, seed=0)
+    losses = []
+    for _ in range(steps):
+        params, st, m = step(params, st, next(stream))
+        losses.append(float(m["loss"]))
+    return losses, [t.cpu() for _, t in T.tree_leaves(params)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("merge,wire", [("fused", "raw"), ("banded", "raw"),
+                                        ("banded", "delta+int8ef")])
+def test_train_step_repeats_bit_identical_on_gpu(cuda, merge, wire):
+    """The reduced train step through the merge kernels: two runs on the
+    card give the same losses and parameters bit for bit (the embedding's
+    backward and every sum in a fixed order), within rtol 1e-4 of the CPU
+    run's losses."""
+    from repro_torch.kernels import _build
+    _build.reset_launches()
+    la, pa = _train_run(cuda, merge, wire)
+    name = "rank_counts" if merge == "fused" else "rank_counts_banded"
+    assert _build.LAUNCHES[name] == 4
+    lb, pb = _train_run(cuda, merge, wire)
+    assert la == lb
+    assert all(torch.equal(a, b) for a, b in zip(pa, pb))
+    lc, _ = _train_run("cpu", merge, wire)
+    np.testing.assert_allclose(la, lc, rtol=1e-4)
+
+
+def _wide_scatter_inputs(device, banded, scaled, rows=512, c=1024, w=1024):
+    """pos [8, c] int32 (banded: non-decreasing, at most 4 sources a row,
+    the tail parked at ``rows``), values [8, c, w] normal floats (int8
+    with a uniform scale when ``scaled``)."""
+    rng = np.random.RandomState(21)
+    pos = np.full((8, c), rows, np.int32)
+    for b in range(8):
+        if banded:
+            mult = rng.randint(0, 5, rows)
+            p = np.repeat(np.arange(rows), mult)[:c]
+            pos[b, :len(p)] = p
+        else:
+            pos[b] = rng.randint(-1, rows + 1, c)
+    if scaled:
+        val = rng.randint(-127, 128, (8, c, w)).astype(np.int8)
+        scale = rng.rand(8, c).astype(np.float32)
+    else:
+        val = rng.randn(8, c, w).astype(np.float32)
+        scale = None
+    t = lambda x: None if x is None else torch.as_tensor(x, device=device)
+    return t(pos), t(val), rows, t(scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("banded", [False, True])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_scatters_at_width_1024_equal_plain_on_cpu(cuda, banded, scaled):
+    """Both scatter kernels at the training sync's width (w = 1,024 floats
+    a row): bit for bit equal to their plain version on a CPU copy on
+    general floats, and a second launch identical."""
+    pos, val, rows, scale = _wide_scatter_inputs(cuda, banded, scaled)
+    if banded:
+        got = banded_onehot_scatter_add(pos, val, rows, band=4, scale=scale)
+        again = banded_onehot_scatter_add(pos, val, rows, band=4, scale=scale)
+    else:
+        got = onehot_scatter_add(pos, val, rows, scale=scale)
+        again = onehot_scatter_add(pos, val, rows, scale=scale)
+    want = ref.onehot_scatter_add_ref(pos.cpu(), val.cpu(), rows,
+                                      None if scale is None else scale.cpu())
+    assert got.shape == (8, rows, 1024)
+    assert torch.equal(got.cpu(), want) and torch.equal(got, again)

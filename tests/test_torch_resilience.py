@@ -11,7 +11,9 @@ degrees, equal the reference's bit for bit (dyadic values); the engine
 and soak arrays agree within rtol 1e-5 (the PageRank tolerance of
 test_torch_graph.py); the port's own remap and kill-and-resume equal its
 fault-free run bit for bit (the soak through subprocesses with
-``--device cpu``).  Without JAX: the checkpoint store (round trip,
+``--device cpu``), for the PageRank job and for the reduced train job
+(the reference's acceptance test: a rack fault at step 3 with r = 2,
+killed at step 4, resumed).  Without JAX: the checkpoint store (round trip,
 atomicity, corruption, list/latest, and each package reading the other's
 artifacts), ``classify`` against the reference, retry and backoff, the
 policy checks and the absorbed / shrink-reuse / fail / quorum lifecycle.
@@ -275,14 +277,48 @@ def test_soak_pagerank_kill_and_resume(ref, tmp_path):
     assert meta["remaps"] >= 1 and GROUP_LOST in meta["events"]
 
 
+TRAIN_ARGS = ("--job", "train", "--reduced", "--steps", 6,
+              "--ckpt-every", 2, "--batch", 4, "--seq", 32, "--dp", 4,
+              "--replication", 2, "--seed", 0)
+
+
 def test_soak_quorum_and_train_job(tmp_path):
     from repro_torch.launch import soak
-    with pytest.raises(NotImplementedError, match="item 11"):
-        soak.main(["--job", "train", "--out", str(tmp_path)])
+    # the reduced train job runs in this process and checkpoints
+    assert soak.main(["--job", "train", "--reduced", "--steps", "2",
+                      "--batch", "2", "--seq", "16", "--dp", "2",
+                      "--device", "cpu", "--out", str(tmp_path / "t")]) == 0
+    arrays, meta = store.load_flat(str(tmp_path / "t" / "final"))
+    assert len(meta["losses"]) == 2 and np.isfinite(meta["losses"]).all()
+    assert int(arrays["opt_step"]) == 2 and meta["events"] == []
+    assert store.list_checkpoints(str(tmp_path / "t"))[0][0] == 2
     # a pool without spares cannot remap: exit 3
     out = _soak(tmp_path / "q", *SOAK_ARGS, "--faults", "rack", "--pool", 4,
                 "--num-failures", 2, "--rack-size", 2, expect_rc=3)
     assert "QUORUM_LOST" in out
+
+
+def test_soak_train_kill_and_resume_bit_identical(tmp_path):
+    """The reference's acceptance on the port: a training run under a
+    mid-run rack schedule, killed at step 4 and resumed, ends with final
+    parameters and optimizer state bit-identical to the uninterrupted
+    fault-free run, and the same losses."""
+    import json
+    base, faulted = tmp_path / "base", tmp_path / "faulted"
+    out = _soak(base, *TRAIN_ARGS)
+    assert "SOAK_OK job=train" in out
+    out = _soak(faulted, *TRAIN_ARGS, *RACK, "--kill-at", 4, expect_rc=17)
+    assert "KILL step 4" in out
+    out = _soak(faulted, *TRAIN_ARGS, *RACK, "--resume")
+    assert "resumed at step 4" in out and "SOAK_OK job=train" in out
+    with np.load(base / "final.npz") as a, np.load(faulted / "final.npz") as b:
+        assert set(a.files) == set(b.files) and len(a.files) > 10
+        for k in a.files:
+            assert np.array_equal(a[k], b[k]), f"{k} differs"
+    ma = json.loads((base / "final.meta.json").read_text())
+    mb = json.loads((faulted / "final.meta.json").read_text())
+    assert ma["losses"] == mb["losses"]
+    assert ma["events"] == [] and mb["events"] != []
 
 
 # ---------------------------------------------------------------------------
