@@ -106,13 +106,39 @@ line each, after the ``nvidia-smi`` name/power-limit line):
    of ln(vocab), overflow 0, ``delta`` = ``raw`` and the repeat bit for
    bit, the step-1 float32 embedding sync equal across the merges and to
    ``hier``'s within rtol 1e-5 (+ 1e-7 x max), every other synced leaf
-   bit-identical across the sparse configurations;
+   bit-identical across the sparse configurations; each configuration
+   draws its weights afresh and donates them to the step;
 18. soak_train -- ``python -m repro_torch.launch.soak --job train
    --reduced --dp 4 --replication 2`` in subprocesses: baseline, a rack
    fault from step 3 killed at step 4 (exit 17), its ``--resume``;
    final.npz and losses equal;
-19. kernels -- each kernel on the inputs it got on the main path (phases
-   2-17, layer 0 / first round; the two merge-rank kernels at every shape
+19. train_moe -- granite-moe-3b-a800m untied at full width (32 layers, d
+   1,536, 40 experts top-8 of d_ff 512, vocab 49,155 padded to 49,168,
+   bf16, 3.37 B parameters) over M = 2 positions of 1,024 tokens, degrees
+   (2,): ``hier``, sparse sort / fused / banded (raw), fused and banded
+   ``delta+int8ef``, then fused / raw again, the train phase's asserts;
+   first the MoE's own numbers at layer 0 on step 1's batch (embed, block
+   0's attention, rmsnorm, ``moe_ffn``): dropped fraction, aux loss, the
+   copies each expert is sent (max, mean, min), those beyond cap_e, the
+   block's forward ms and the ms of the copy ``torch.matmul`` makes of
+   the broadcast expert weights;
+20. train_ssm -- xlstm-1.3b untied at full width (48 layers, 7 mLSTM + 1
+   sLSTM a period, d 2,048, vocab 50,304, bf16) over M = 8, degrees (4,
+   2), two steps a configuration: ``hier``, sparse fused / banded (raw),
+   fused and banded ``delta+int8ef``, the repeat, the train phase's
+   asserts, and the forward ms of one mLSTM and one sLSTM block; reduced
+   jamba (7 mamba + 1 attention, dense and MoE FFNs alternating, float32)
+   over M = 4, degrees (2, 2), three ``hier`` steps on the card, then
+   held to the CPU in this process, each step from the card's state
+   before it: loss and aux within rtol 1e-4 (step 1 a whole CPU step,
+   steps 2 and 3 a CPU forward), step 1's synced gradients within rtol
+   1e-4 + 1e-3 x max of the CPU step's, each step's gradient norm within
+   rtol 1e-5 of its synced gradients' on the CPU, and the card's state
+   after each step (parameters, both moments) within rtol 1e-6 + 1e-6 x
+   max of AdamW on the CPU from the card's state, synced gradients and
+   norm;
+21. kernels -- each kernel on the inputs it got on the main path (phases
+   2-20, layer 0 / first round; the two merge-rank kernels at every shape
    the main path handed them, the replica stage's [64, 2, C] and the
    survivors' flat [62, 31, C] included, the dense scatter also at the
    replica stage and the survivor layer, the CSR SpMV at each graph
@@ -132,9 +158,10 @@ line each, after the ``nvidia-smi`` name/power-limit line):
    stable argsort; the ELL SpMV rtol 1e-5; the CSR SpMV rtol 1e-5 on
    PageRank's first graph, and on the other graphs within 1e-5 x (|A|
    |x|) of the float64 product and 1e-4 x (|A| |x|) of the plain version,
-   and repeatable; rows 1-6 also at every shape of the train phase --
-   the rank rows in ``shapes`` with phase ``train``, the scatter rows in
-   ``train``, w = 1,024 values a row of general floats, bit for bit
+   and repeatable; rows 1-6 also at every shape of the train phases --
+   the rank rows in ``shapes`` with phase ``train``, ``train_moe`` or
+   ``train_ssm``, the scatter rows in ``train``, w = 1,024, 1,536 or
+   2,048 values a row of general floats, bit for bit
    against the plain version on a CPU copy, with their launches a step,
    byte bound and ``index_add_`` time), with
    CUDA-event times of kernel, plain version and the nearest single
@@ -145,7 +172,8 @@ line each, after the ``nvidia-smi`` name/power-limit line):
 The launch counts of the ``kernels`` line are those of the main-path
 calls alone (``config`` + ``reduce``, the first ``union_reduce`` of each
 (merge, wire), the ``pagerank``, ``hadi`` and ``power_iteration`` entry
-points, the supervised reduces and engine runs): each starts with every
+points, the supervised reduces and engine runs, each train
+configuration's steps): each starts with every
 count at 0 and is read right after, before any timing loop runs.  The
 soak's kernels run in its subprocesses, which print their own counts
 (the soak_resume line).  Each phase starts from an empty plan cache (a
@@ -155,10 +183,13 @@ unless its line says otherwise (``config_cache``).  Profiler traces
 (union_wire's and the kernels line's device ms and CUDA launches per
 call) are taken in a fresh process that shares the tensors through CUDA
 IPC; the ``profiler`` line counts its calls and traces.
+The ``main_path_launches`` line carries each phase's seconds and the
+``timing`` line the kernels line's and the whole run's.
 The last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU;
 exits non-zero without one or outside a checkout of the repository.
 """
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -172,6 +203,7 @@ import time
 
 import numpy as np
 
+T_START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 DEVICE = "cuda"
@@ -191,11 +223,12 @@ POOL, RACK, FAULT_AT, CKPT_EVERY = 80, 5, 3, 2
 # the phases whose recorded kernel inputs make up the shapes of a row, in
 # the order the rows list them
 ROW_PHASES = ("union_wire", "replicated_union", "resilient_union", "union",
-              "train")
+              "train", "train_moe", "train_ssm")
 GRAPH_PHASES = ("pagerank", "spectral", "pagerank_large",
                 "supervised_pagerank")
 # phases whose scatter calls are told apart by shape (one per layer)
-SHAPED_SCATTER_PHASES = ("resilient_union", "train")
+SHAPED_SCATTER_PHASES = ("resilient_union", "train", "train_moe",
+                         "train_ssm")
 WIRES = ("raw", "delta", "delta+bf16", "delta+int8ef")
 # the train phase: qwen1.5-0.5b untied at full width on M = 8 stacked
 # data positions, degrees (4, 2), the launcher's batch 8 x seq 256
@@ -206,6 +239,31 @@ TRAIN_CONFIGS = (("hier", "sort", "raw"), ("sparse", "sort", "raw"),
                  ("sparse", "fused", "delta"),
                  ("sparse", "fused", "delta+int8ef"),
                  ("sparse", "banded", "delta+int8ef"))
+# every train phase ends with fused / raw again, bit for bit the first
+REPEAT = ("sparse", "fused", "raw")
+# train_moe: granite-moe-3b-a800m untied at full width (MOE_LAYERS of 32,
+# the memory reckoning's cut being 24) on M = 2 positions of 1,024 tokens
+MOE_ARCH, MOE_M, MOE_DEGREES, MOE_LAYERS = "granite-moe-3b-a800m", 2, (2,), 32
+MOE_CONFIGS = (("hier", "sort", "raw"), ("sparse", "sort", "raw"),
+               ("sparse", "fused", "raw"), ("sparse", "banded", "raw"),
+               ("sparse", "fused", "delta+int8ef"),
+               ("sparse", "banded", "delta+int8ef"))
+# train_ssm: xlstm-1.3b untied at full width on M = 8 (SSM_STEPS a
+# configuration: its steps take seconds), then reduced jamba on M = 4,
+# replayed on the CPU
+SSM_ARCH, SSM_M, SSM_DEGREES, SSM_STEPS = "xlstm-1.3b", 8, (4, 2), 2
+SSM_CONFIGS = (("hier", "sort", "raw"), ("sparse", "fused", "raw"),
+               ("sparse", "banded", "raw"),
+               ("sparse", "fused", "delta+int8ef"),
+               ("sparse", "banded", "delta+int8ef"))
+HYBRID_ARCH, HYBRID_M, HYBRID_DEGREES = "jamba-1.5-large-398b", 4, (2, 2)
+# the configurations each train phase runs, its repeat included, and the
+# steps of each
+TRAIN_RUNS = {"train": TRAIN_CONFIGS + (REPEAT,),
+              "train_moe": MOE_CONFIGS + (REPEAT,),
+              "train_ssm": SSM_CONFIGS + (REPEAT,)}
+TRAIN_PHASE_STEPS = {"train": TRAIN_STEPS, "train_moe": TRAIN_STEPS,
+                     "train_ssm": SSM_STEPS}
 
 
 def emit(obj) -> None:
@@ -1342,46 +1400,53 @@ def train_close(torch, got, want, what):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=atol, msg=what)
 
 
-def phase_train(torch):
-    """The training stack at full width: ``make_train_step`` on
-    qwen1.5-0.5b (untied: the sparse embedding leaf exists) over M = 8
-    stacked data positions, degrees (4, 2), batch 8 x seq 256 (256 tokens
-    a position: sparse capacities in 256, out 2,048), three steps per
-    configuration from the same weights and batches: ``hier``, then
-    ``sparse`` with sort / fused / banded (raw), fused with ``delta`` and
-    ``delta+int8ef``, banded with ``delta+int8ef``; then fused / raw
-    again.  Per configuration: step ms (median of steps 2-3) with the
-    forward + backward, sync and update ms by CUDA events, tokens/s,
-    peak memory, losses, overflow.  Asserts: losses finite, the first
-    within 1.5 of ln(vocab); overflow 0; ``delta`` = ``raw`` bit for bit
-    (fused); the step-1 float32 embedding sync equal across the merges
-    and to ``hier``'s (rtol 1e-5, atol 1e-7 x max), every other synced
-    leaf bit-identical across the sparse configurations; the repeat
-    bit-identical (losses and final parameters)."""
-    from repro_torch.configs import get_config
+def host_leaves(tree):
+    """The leaves of a tensor tree as CPU copies, in sorted-path order."""
+    from repro_torch.models import transformer as T
+    return [(path, t.cpu()) for path, t in T.tree_leaves(tree)]
+
+
+def train_configs(torch, cfg, m, degrees, configs, steps=TRAIN_STEPS):
+    """``make_train_step`` of ``cfg`` over ``m`` stacked data positions
+    (degrees ``degrees``, the launcher's batch 8 x seq 256, random weights
+    from seed 0 drawn afresh on the card for each configuration and
+    donated to the step), ``steps`` steps of each (sync, merge, wire) in
+    ``configs`` and then of fused / raw again, each a main-path call.  Per
+    configuration: step ms (median of the steps after the first) with the
+    forward +
+    backward, sync and update ms by CUDA events, tokens/s, peak memory,
+    losses, overflow.  Asserts: losses finite, the first within 1.5 of
+    ln(vocab); overflow 0; ``delta`` = ``raw`` bit for bit (fused); the
+    step-1 float32 embedding sync equal across the merges and to
+    ``hier``'s (rtol 1e-5, atol 1e-7 x max), every other synced leaf
+    bit-identical across the sparse raw configurations (held on the
+    host); the repeat bit-identical (losses and final parameters, held on
+    the host).  Returns ``(rows, launches, info)``."""
     from repro_torch.launch.train import batch_stream
     from repro_torch.models import transformer as T
     from repro_torch.optim.adamw import AdamW
     from repro_torch.train.step import make_train_step, mesh_ctx
-    cfg = get_config(TRAIN_ARCH, "untied")
-    mc = mesh_ctx(TRAIN_M, device=DEVICE)
-    t0 = time.perf_counter()
-    params0 = T.init_params(cfg, 1, seed=0, device=DEVICE)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for _, t in T.tree_leaves(params0))
+    mc = mesh_ctx(m, device=DEVICE)
     stream = batch_stream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
-    batches = [next(stream) for _ in range(TRAIN_STEPS)]
+    batches = [next(stream) for _ in range(steps)]
     opt = AdamW()
-    hint = max(8, TRAIN_BATCH * TRAIN_SEQ // TRAIN_M)
+    hint = max(8, TRAIN_BATCH * TRAIN_SEQ // m)
     ln_v = math.log(cfg.vocab)
+    info = {"sparse_in_capacity": hint, "ln_vocab": ln_v, "init_s": [],
+            "steps": steps,
+            "memory_allocated_before": torch.cuda.memory_allocated()}
     total, rows, keep, seen = {}, [], {}, set()
 
     def run(sync, merge, wire):
         step, _ = make_train_step(
-            cfg, mc, sync=sync, opt=opt, dp_degrees={"data": TRAIN_DEGREES},
+            cfg, mc, sync=sync, opt=opt, dp_degrees={"data": degrees},
             sparse_tokens_hint=hint, sync_merge=merge, sync_wire=wire)
-        params, st = params0, opt.init(params0)
+        t0 = time.perf_counter()
+        params = T.init_params(cfg, 1, seed=0, device=DEVICE)
+        torch.cuda.synchronize()
+        info["init_s"].append(time.perf_counter() - t0)
+        info["params"] = sum(t.numel() for _, t in T.tree_leaves(params))
+        st = opt.init(params)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         out = {"losses": [], "overflow": [], "step_ms": [], "fwd_bwd_ms": [],
@@ -1391,23 +1456,27 @@ def phase_train(torch):
                   for s in ("start", "fwd_bwd", "sync", "update")}
             capture = {} if i == 0 else None
             ev["start"].record()
-            params, st, m = step(params, st, batch,
-                                 mark=lambda s: ev[s].record(),
-                                 capture=capture)
+            params, st, mets = step(params, st, batch,
+                                    mark=lambda s: ev[s].record(),
+                                    capture=capture)
             torch.cuda.synchronize()
-            out["losses"].append(float(m["loss"]))
-            out["overflow"].append(int(m["sync_overflow"]))
+            out["losses"].append(float(mets["loss"]))
+            out["overflow"].append(int(mets["sync_overflow"]))
             out["step_ms"].append(ev["start"].elapsed_time(ev["update"]))
             out["fwd_bwd_ms"].append(ev["start"].elapsed_time(ev["fwd_bwd"]))
             out["sync_ms"].append(ev["fwd_bwd"].elapsed_time(ev["sync"]))
             out["update_ms"].append(ev["sync"].elapsed_time(ev["update"]))
             if capture is not None:
-                out["capture"] = capture
+                out["emb"] = capture["emb"]["f32"]
+                if sync == "sparse" and wire == "raw":
+                    out["synced"] = host_leaves(capture["synced"])
+                del capture
         out["peak"] = torch.cuda.max_memory_allocated()
-        out["params"] = params
+        if (sync, merge) == REPEAT[:2] and wire in ("raw", "delta"):
+            out["params"] = host_leaves(params)
         return out
 
-    for sync, merge, wire in TRAIN_CONFIGS + (("sparse", "fused", "raw"),):
+    for sync, merge, wire in configs + (REPEAT,):
         name = f"{sync}/{merge}/{wire}" if sync == "sparse" else sync
         repeat = name in seen
         res, launches = main_path(lambda: run(sync, merge, wire))
@@ -1416,7 +1485,7 @@ def phase_train(torch):
         losses = res["losses"]
         assert all(math.isfinite(x) for x in losses), (name, losses)
         assert abs(losses[0] - ln_v) < 1.5, (name, losses[0], ln_v)
-        assert res["overflow"] == [0] * TRAIN_STEPS, (name, res["overflow"])
+        assert res["overflow"] == [0] * steps, (name, res["overflow"])
         med = lambda xs: float(np.median(xs[1:]))
         step_ms = med(res["step_ms"])
         rows.append({
@@ -1428,19 +1497,17 @@ def phase_train(torch):
             "max_memory_allocated": int(res["peak"]), "losses": losses,
             "sync_overflow": res["overflow"],
             "launches": {k: v for k, v in launches.items() if v}})
-        cap = res.pop("capture")
         if sync == "hier":
-            keep["hier_emb"] = cap["emb"]["f32"]
-        elif "sort_synced" not in keep:
-            keep["sort_synced"] = cap["synced"]
-            keep["sort_emb"] = cap["emb"]["f32"]
-            train_close(torch, cap["emb"]["f32"], keep["hier_emb"],
+            keep["hier_emb"] = res["emb"]
+        elif "sparse_synced" not in keep:
+            keep["sparse_synced"] = res["synced"]
+            keep["sparse_emb"] = res["emb"]
+            train_close(torch, res["emb"], keep["hier_emb"],
                         "sparse embedding rows vs hier")
         elif wire == "raw":
-            train_close(torch, cap["emb"]["f32"], keep["sort_emb"],
-                        f"{name} embedding sync vs sort")
-            for (path, a), (_, b) in zip(T.tree_leaves(cap["synced"]),
-                                         T.tree_leaves(keep["sort_synced"])):
+            train_close(torch, res["emb"], keep["sparse_emb"],
+                        f"{name} embedding sync vs the first sparse one")
+            for (path, a), (_, b) in zip(res["synced"], keep["sparse_synced"]):
                 if path != ("emb",):
                     assert torch.equal(a, b), (name, path)
         if name == "sparse/fused/raw" and not repeat:
@@ -1450,23 +1517,381 @@ def phase_train(torch):
             what = "repeat" if repeat else "delta vs raw"
             assert losses == want_l, (what, losses, want_l)
             assert all(torch.equal(a, b) for (_, a), (_, b) in zip(
-                T.tree_leaves(res["params"]), T.tree_leaves(want_p))), what
+                res["params"], want_p)), what
         seen.add(name)
-        del res, cap
-    del keep, params0
+        del res
+    del keep
     torch.cuda.empty_cache()
-    emit({"phase": "train", "ok": True, "arch": cfg.name,
-          "params": n_params, "layers": cfg.n_layers, "d_model": cfg.d_model,
-          "vocab": cfg.vocab, "dtype": str(cfg.dtype), "data_positions":
-          TRAIN_M, "degrees": list(TRAIN_DEGREES), "batch": TRAIN_BATCH,
-          "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "sparse_in_capacity": hint,
-          "init_s": init_s, "ln_vocab": ln_v, "configs": rows,
-          "tolerance": "losses finite, step-1 loss within 1.5 of ln(vocab); "
-                       "overflow 0; delta = raw bit for bit; step-1 f32 "
-                       "embedding sync across merges and vs hier rtol 1e-5 "
-                       "+ 1e-7 x max, other synced leaves bit-identical; "
-                       "repeat bit-identical",
-          "launches": total})
+    info["init_s"] = info["init_s"][0]
+    return rows, total, info
+
+
+TRAIN_TOLERANCE = ("losses finite, step-1 loss within 1.5 of ln(vocab); "
+                   "overflow 0; delta = raw bit for bit; step-1 f32 "
+                   "embedding sync across merges and vs hier rtol 1e-5 + "
+                   "1e-7 x max, other synced leaves bit-identical; repeat "
+                   "bit-identical")
+
+
+def train_line(phase, cfg, m, degrees, rows, info, total, **extra):
+    """The phase line of a train configuration set."""
+    return {"phase": phase, "ok": True, "arch": cfg.name,
+            "params": info["params"], "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "vocab": cfg.vocab,
+            "dtype": str(cfg.dtype), "data_positions": m,
+            "degrees": list(degrees), "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "steps": info["steps"],
+            "sparse_in_capacity": info["sparse_in_capacity"],
+            "init_s": info["init_s"], "ln_vocab": info["ln_vocab"],
+            "memory_allocated_before": info["memory_allocated_before"],
+            **extra,
+            "configs": rows, "tolerance": TRAIN_TOLERANCE, "launches": total}
+
+
+def phase_train(torch):
+    """The training stack at full width: qwen1.5-0.5b (untied: the sparse
+    embedding leaf exists) over M = 8 stacked data positions, degrees (4,
+    2), batch 8 x seq 256 (256 tokens a position: sparse capacities in
+    256, out 2,048): ``hier``, then ``sparse`` with sort / fused / banded
+    (raw), fused with ``delta`` and ``delta+int8ef``, banded with
+    ``delta+int8ef``; then fused / raw again (:func:`train_configs`)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(TRAIN_ARCH, "untied")
+    rows, total, info = train_configs(torch, cfg, TRAIN_M, TRAIN_DEGREES,
+                                      TRAIN_CONFIGS)
+    emit(train_line("train", cfg, TRAIN_M, TRAIN_DEGREES, rows, info, total))
+    return total
+
+
+def moe_layer0(torch, cfg, m, batch):
+    """The MoE's own numbers at layer 0 on ``batch`` (seed-0 weights,
+    positions stacked): embed, block 0's attention, rmsnorm, ``moe_ffn``
+    at the config's capacity -- dropped fraction and aux loss per
+    position, the top-k copies each expert is sent (max, mean, min, the
+    five largest), the copies beyond the expert capacity ``cap_e``, and
+    the block's forward ms (CUDA events).  Also the ms of the copy
+    ``torch.matmul`` makes of the three expert weights, broadcast over the
+    positions (stride 0), to [M * E, ...] for its batched product, and
+    that times two passes (the forward and the checkpoint's recompute) a
+    layer, a step's worth."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import common as C
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    params = T.init_params(cfg, 1, seed=0, device=DEVICE)
+    b0 = {k: v for k, v in params["blocks"]["b0"].items()}
+    b0 = T.tree_from_leaves(b0, [(p, t[0]) for p, t in T.tree_leaves(b0)])
+    tokens = torch.as_tensor(np.asarray(batch["tokens"]), device=DEVICE) \
+        .long().reshape(m, -1, TRAIN_SEQ)
+    with torch.no_grad():
+        x = C.embed(params["emb"], tokens).to(cfg.dtype)
+        h = C.rmsnorm(x, b0["ln1"], cfg.norm_eps)
+        x = x + A.attn_train(b0["attn"], h, cfg, 1, cfg.window)
+        h2 = C.rmsnorm(x, b0["ln2"], cfg.norm_eps)
+        moe_p = {k: v.unsqueeze(0).expand((m,) + tuple(v.shape))
+                 for k, v in b0["moe"].items()}
+        fwd = lambda: MOE.moe_ffn(moe_p, h2, cfg, 1,
+                                  capacity_factor=cfg.moe_capacity)
+        _, aux, dropped = fwd()
+        ms = cuda_ms(fwd, reps=5)
+        copy_ms = cuda_ms(lambda: [
+            moe_p[k].reshape((-1,) + tuple(moe_p[k].shape[2:]))
+            for k in ("w1", "w3", "w2")], reps=5)
+        n = h2[0].numel() // cfg.d_model
+        _, _, ek = MOE.router_topk(C.linear(
+            h2.reshape(m, n, -1).to(torch.float32), moe_p["router"]), cfg)
+        load = torch.stack([torch.bincount(ek[i].reshape(-1),
+                                           minlength=cfg.n_experts)
+                            for i in range(m)]).cpu()
+    cap_dev, cap_e = MOE.capacities(cfg, n, 1, cfg.moe_capacity)
+    del params, b0, moe_p, x, h, h2
+    return {"tokens_per_position": n, "cap_dev": cap_dev, "cap_e": cap_e,
+            "dropped": dropped.cpu().tolist(), "aux": aux.cpu().tolist(),
+            "load_max": load.max(1).values.tolist(),
+            "load_mean": load.float().mean(1).tolist(),
+            "load_min": load.min(1).values.tolist(),
+            "load_top5": [sorted(r, reverse=True)[:5]
+                          for r in load.tolist()],
+            "copies_beyond_cap_e": torch.clamp(load - cap_e, min=0)
+            .sum(1).tolist(), "moe_fwd_ms": ms,
+            "expert_weight_copy_ms": copy_ms,
+            "expert_weight_copy_ms_per_step": copy_ms * 2 * cfg.n_layers}
+
+
+def phase_train_moe(torch):
+    """granite-moe-3b-a800m untied at full width (MOE_LAYERS of its 32
+    layers, d 1,536, 40 experts top-8 of d_ff 512, vocab 49,155 padded to
+    49,168, bf16) over M = 2 stacked data positions, degrees (2,), batch
+    8 x seq 256 (1,024 tokens a position: capacities cap_dev 16,384,
+    cap_e 512; sparse capacities in 1,024, out 2,048): ``hier``, sparse
+    sort / fused / banded (raw), fused ``delta+int8ef``, then fused / raw
+    again, with :func:`train_configs`' asserts; the MoE's layer-0 numbers
+    on step 1's batch (:func:`moe_layer0`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import batch_stream
+    cfg = get_config(MOE_ARCH, "untied")
+    # the earlier phases' cached blocks go back first: train_moe peaks
+    # near 68 GB, and a 7.5 GiB float32 sync copy failed on a cache
+    # fragmented by small tensors in large segments
+    torch.cuda.empty_cache()
+    reduced = []
+    if MOE_LAYERS != cfg.n_layers:
+        reduced.append(f"layers {cfg.n_layers} -> {MOE_LAYERS}")
+        cfg = dataclasses.replace(cfg, n_layers=MOE_LAYERS)
+    layer0 = moe_layer0(torch, cfg, MOE_M,
+                        next(batch_stream(cfg, TRAIN_BATCH, TRAIN_SEQ, 0)))
+    torch.cuda.empty_cache()
+    rows, total, info = train_configs(torch, cfg, MOE_M, MOE_DEGREES,
+                                      MOE_CONFIGS)
+    emit(train_line("train_moe", cfg, MOE_M, MOE_DEGREES, rows, info, total,
+                    n_experts=cfg.n_experts, top_k=cfg.top_k,
+                    expert_d_ff=cfg.expert_d_ff, reduced=reduced,
+                    moe_layer0=layer0))
+    return total
+
+
+def hybrid_setup(device, donate):
+    """Reduced jamba's ``hier`` step over HYBRID_M stacked positions on
+    ``device``, its CPU-drawn seed-0 weights (the tree to rebuild states
+    on) and the three batches: ``(step, like, batches)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import batch_stream
+    from repro_torch.models import transformer as T
+    from repro_torch.train.step import make_train_step, mesh_ctx
+    cfg = get_config(HYBRID_ARCH).reduced()
+    step, _ = make_train_step(cfg, mesh_ctx(HYBRID_M, device=device),
+                              sync="hier", dp_degrees={"data": HYBRID_DEGREES},
+                              donate=donate)
+    stream = batch_stream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    return (step, T.init_params(cfg, 1, seed=0, device="cpu"),
+            [next(stream) for _ in range(TRAIN_STEPS)])
+
+
+def hybrid_loss(torch, like, state, batch):
+    """The step's loss and aux metrics of reduced jamba from a host state,
+    a forward alone on the CPU (each position's rows on its broadcast view
+    of the parameters, as the step stacks them)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config(HYBRID_ARCH).reduced()
+    tree = T.tree_from_leaves(like, [
+        (p, state["params"][p].unsqueeze(0).expand(
+            (HYBRID_M,) + tuple(state["params"][p].shape)))
+        for p, _ in T.tree_leaves(like)])
+    rows = lambda x: torch.as_tensor(np.asarray(x)).long().reshape(
+        HYBRID_M, -1, TRAIN_SEQ)
+    with torch.no_grad():
+        loss, aux = T.forward_loss(tree, rows(batch["tokens"]),
+                                   rows(batch["labels"]), cfg)
+    return float(loss.mean()), float(aux.mean())
+
+
+def tree_on(like, flat, device):
+    """A tree shaped as ``like`` of the tensors ``flat[path]`` on
+    ``device``."""
+    from repro_torch.models import transformer as T
+    return T.tree_from_leaves(like, [(p, flat[p].to(device))
+                                     for p, _ in T.tree_leaves(like)])
+
+
+def host_state(params, st):
+    """Parameters and AdamW state as host copies, keyed by path."""
+    return {"params": dict(host_leaves(params)), "step": st.step.cpu(),
+            "m": dict(host_leaves(st.m)), "v": dict(host_leaves(st.v))}
+
+
+def state_on(like, state, device):
+    """``(params, AdamWState)`` of a :func:`host_state` on ``device``."""
+    from repro_torch.optim.adamw import AdamWState
+    return (tree_on(like, state["params"], device),
+            AdamWState(step=state["step"].to(device),
+                       m=tree_on(like, state["m"], device),
+                       v=tree_on(like, state["v"], device)))
+
+
+def hybrid_card(torch):
+    """Reduced jamba's three ``hier`` steps on the card (no port kernel
+    runs): per step the host state before it, the loss, aux and gradient
+    norm, the synced gradients (host copies) and the host ms; and the
+    host state after the last step."""
+    from repro_torch.optim.adamw import AdamW
+    step, like, batches = hybrid_setup(DEVICE, donate=True)
+    params = tree_on(like, dict(host_leaves(like)), DEVICE)
+    st = AdamW().init(params)
+    out = []
+    for batch in batches:
+        rec = {"before": host_state(params, st)}
+        capture = {}
+        t0 = time.perf_counter()
+        params, st, mets = step(params, st, batch, capture=capture)
+        rec.update(loss=float(mets["loss"]), aux=float(mets["aux"]),
+                   gnorm=float(mets["gnorm"]),
+                   ms=(time.perf_counter() - t0) * 1e3,
+                   synced=dict(host_leaves(capture["synced"])))
+        out.append(rec)
+        del capture
+    return out, host_state(params, st)
+
+
+# the jamba replay's limits: (rtol, atol as a multiple of max|CPU value|).
+# grads: tests/test_torch_ssm.py's bound for reduced jamba against the
+# reference (its stack amplifies rounding in the backward); on an H100
+# the card's step-1 gradients part from the CPU's by about 2e-4 x max
+HYBRID_LIMITS = {"loss": (1e-4, 0.0), "aux": (1e-4, 0.0),
+                 "gnorm": (1e-5, 0.0), "grads": (1e-4, 1e-3),
+                 "update": (1e-6, 1e-6)}
+
+
+def excess(torch, got, want, limit):
+    """max |got - want| / (rtol |want| + atol max|want|): at most 1 is
+    within ``limit`` = (rtol, atol multiple)."""
+    got, want = torch.as_tensor(got, dtype=torch.float64), \
+        torch.as_tensor(want, dtype=torch.float64)
+    rtol, atol = limit
+    bound = rtol * want.abs() + atol * float(want.abs().max())
+    diff = (got - want).abs()
+    off = diff > 0
+    return float((diff[off] / bound[off]).max()) if bool(off.any()) else 0.0
+
+
+def hybrid_replay(torch, card, after):
+    """The CPU witness of :func:`hybrid_card`, in this process after the
+    card's steps, each step from the card's state before it.  Step 1 runs
+    whole on the CPU: the card's loss, aux and synced gradients (leaf by
+    leaf) against the CPU step's.  Steps 2 and 3: the card's loss and aux
+    against a CPU forward (:func:`hybrid_loss`).  Every step: the card's
+    gradient norm against the norm of its synced gradients on the CPU,
+    and the card's state after the step (parameters and both moments)
+    against AdamW on the CPU from the card's state before it and its
+    synced gradients and norm (the update alone).  Returns the readings:
+    for each check the largest :func:`excess` over steps and leaves (at
+    most 1 holds :data:`HYBRID_LIMITS`), where it was, and the CPU
+    losses."""
+    from repro_torch.optim.adamw import AdamW
+    step, like, batches = hybrid_setup("cpu", donate=False)
+    opt = AdamW()
+    worst = {k: (0.0, None) for k in HYBRID_LIMITS}
+
+    def seen(check, x, where):
+        if x > worst[check][0]:
+            worst[check] = (x, where)
+    cpu_losses = []
+    nexts = [rec["before"] for rec in card[1:]] + [after]
+    for i, (rec, batch, nxt) in enumerate(zip(card, batches, nexts)):
+        params, st = state_on(like, rec["before"], "cpu")
+        if i == 0:
+            capture = {}
+            _, _, mets = step(params, st, batch, capture=capture)
+            loss, aux = float(mets["loss"]), float(mets["aux"])
+            for path, g in host_leaves(capture["synced"]):
+                seen("grads", excess(torch, rec["synced"][path], g,
+                                     HYBRID_LIMITS["grads"]), (i, path))
+            del capture
+        else:
+            loss, aux = hybrid_loss(torch, like, rec["before"], batch)
+        cpu_losses.append(loss)
+        seen("loss", excess(torch, [rec["loss"]], [loss],
+                            HYBRID_LIMITS["loss"]), i)
+        seen("aux", excess(torch, [rec["aux"]], [aux], HYBRID_LIMITS["aux"]),
+             i)
+        gnorm = math.sqrt(sum(float(torch.sum(torch.square(g.double())))
+                              for g in rec["synced"].values()))
+        seen("gnorm", excess(torch, [rec["gnorm"]], [gnorm],
+                             HYBRID_LIMITS["gnorm"]), i)
+        grads = tree_on(like, rec["synced"], "cpu")
+        new_p, new_st, _ = opt.update(grads, st, params,
+                                      gnorm=torch.tensor(rec["gnorm"]))
+        assert int(new_st.step) == int(nxt["step"]), (i, "step")
+        for name, tree in (("params", new_p), ("m", new_st.m),
+                           ("v", new_st.v)):
+            for path, t in host_leaves(tree):
+                seen("update", excess(torch, nxt[name][path], t,
+                                      HYBRID_LIMITS["update"]),
+                     (i, name, path))
+    return {"excess": {k: v[0] for k, v in worst.items()},
+            "worst_at": {k: repr(v[1]) for k, v in worst.items()},
+            "cpu_losses": cpu_losses}
+
+
+def block_ms(torch, cfg, kind, m):
+    """Forward ms (CUDA events) of one ``kind`` block (seed-0 weights of
+    its first occurrence, position-stacked over ``m``) on an input of the
+    train shape [m, 8 / m, 256, d]."""
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import transformer as T
+    params = T.init_params(cfg, 1, seed=0, device=DEVICE)
+    blk = next(b for b in params["blocks"].values() if kind in b)
+    p = {k: v[0].unsqueeze(0).expand((m,) + tuple(v.shape[1:]))
+         for k, v in blk[kind].items()}
+    del params, blk
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    x = torch.randn((m, TRAIN_BATCH // m, TRAIN_SEQ, cfg.d_model),
+                    generator=gen, device=DEVICE).to(cfg.dtype)
+    fn = {"mlstm": SSM.mlstm_train, "slstm": SSM.slstm_train}[kind]
+    with torch.no_grad():
+        return cuda_ms(lambda: fn(p, x, cfg), reps=3, warmup=1)
+
+
+def phase_train_ssm(torch):
+    """xlstm-1.3b untied at full width (48 layers, 7 mLSTM + 1 sLSTM a
+    period, d 2,048, 4 heads of 512, vocab 50,304, bf16) over M = 8
+    stacked data positions, degrees (4, 2), batch 8 x seq 256, SSM_STEPS
+    steps a configuration: ``hier``, sparse fused / banded (raw), fused
+    and banded ``delta+int8ef``, then fused / raw again, with
+    :func:`train_configs`' asserts, and the forward ms of one mLSTM and
+    one sLSTM block; then reduced jamba (one period: 7 mamba + 1
+    attention, dense and MoE FFNs alternating, d 256, float32) over M = 4,
+    degrees (2, 2), ``hier``: three steps on the card
+    (:func:`hybrid_card`), each held to the CPU from the card's state
+    before it (:func:`hybrid_replay`), every check within
+    :data:`HYBRID_LIMITS`."""
+    from repro_torch.configs import get_config
+    cfg = get_config(SSM_ARCH, "untied")
+    blocks = {k: block_ms(torch, cfg, k, SSM_M) for k in ("mlstm", "slstm")}
+    torch.cuda.empty_cache()
+    rows, total, info = train_configs(torch, cfg, SSM_M, SSM_DEGREES,
+                                      SSM_CONFIGS, steps=SSM_STEPS)
+    (card, after), launches = main_path(lambda: hybrid_card(torch))
+    assert not any(launches.values()), launches
+    losses = [rec["loss"] for rec in card]
+    assert all(math.isfinite(x) for x in losses), losses
+    assert abs(losses[0] - math.log(512)) < 1.5, losses
+    t0 = time.perf_counter()
+    replay = hybrid_replay(torch, card, after)
+    replay_s = time.perf_counter() - t0
+    ok = all(x <= 1.0 for x in replay["excess"].values())
+    hcfg = get_config(HYBRID_ARCH).reduced()
+    emit(train_line("train_ssm", cfg, SSM_M, SSM_DEGREES, rows, info, total,
+                    ok=ok, heads=cfg.n_heads, pattern=list(cfg.pattern),
+                    block_fwd_ms=blocks,
+                    hybrid={"arch": hcfg.name, "reduced": ".reduced()",
+                            "pattern": list(hcfg.pattern),
+                            "ffn_pattern": list(hcfg.ffn_pattern),
+                            "d_model": hcfg.d_model,
+                            "dtype": str(hcfg.dtype),
+                            "data_positions": HYBRID_M,
+                            "degrees": list(HYBRID_DEGREES), "sync": "hier",
+                            "losses": losses,
+                            "aux": [rec["aux"] for rec in card],
+                            "gnorm": [rec["gnorm"] for rec in card],
+                            "step_ms": [rec["ms"] for rec in card],
+                            "cpu_replay_losses": replay["cpu_losses"],
+                            "cpu_replay_s": replay_s,
+                            "excess": replay["excess"],
+                            "worst_at": replay["worst_at"],
+                            "limits": HYBRID_LIMITS,
+                            "tolerance": "from the card's state before "
+                                         "each step: loss and aux vs the "
+                                         "CPU (step 1 a whole step, 2-3 a "
+                                         "forward), step 1's synced "
+                                         "gradients vs the CPU step's, "
+                                         "gnorm vs the CPU norm of the "
+                                         "card's gradients, AdamW's update "
+                                         "vs the CPU's from the card's "
+                                         "state and gradients; each within "
+                                         "(rtol, atol x max|CPU|) of "
+                                         "limits; excess <= 1 holds"}))
+    assert ok, replay
     return total
 
 
@@ -1915,18 +2340,19 @@ def banded_call(torch, args, kwargs, calls):
     return out
 
 
-def train_merge_configs(merge: str, scaled: bool) -> int:
-    """How many train configurations run ``merge`` (with the int8 wire's
-    scales or without); the fused / raw repeat counts."""
-    runs = TRAIN_CONFIGS + (("sparse", "fused", "raw"),)
-    return sum(1 for sync, m, wire in runs if sync == "sparse" and m == merge
-               and (wire == "delta+int8ef") == scaled)
+def train_merge_steps(phase: str, merge: str, scaled: bool) -> int:
+    """How many steps of train phase ``phase`` run ``merge`` (with the int8
+    wire's scales or without); the repeat's count."""
+    return TRAIN_PHASE_STEPS[phase] * sum(
+        1 for sync, m, wire in TRAIN_RUNS[phase]
+        if sync == "sparse" and m == merge
+        and (wire == "delta+int8ef") == scaled)
 
 
 def train_scatter_shapes(torch, rec, name, banded, launches):
-    """A scatter kernel at every shape the train phase handed it (one per
-    butterfly layer; ``val`` [M, k * cap, 1024] float32 rows of the
-    embedding gradient, or int8 + scale): bit for bit against its plain
+    """A scatter kernel at every shape the train phases handed it (one per
+    phase and butterfly layer; ``val`` [M, k * cap, w] float32 rows of the
+    embedding gradient, w = 1,024, 1,536 or 2,048, or int8 + scale): bit for bit against its plain
     version on a CPU copy (which sums in source order, the kernel's), within
     rtol 1e-6 + 1e-6 x max of the plain version on the card (atomic
     ``index_add_`` sums), two calls identical; calls and launches a step;
@@ -1939,12 +2365,13 @@ def train_scatter_shapes(torch, rec, name, banded, launches):
                                                     onehot_scatter_add)
     fn = banded_onehot_scatter_add if banded else onehot_scatter_add
     scaled = name.endswith("_scaled")
-    keys = sorted((k for k in rec.args if k[0] == "train"
+    keys = sorted((k for k in rec.args if k[0] in TRAIN_RUNS
                    and (k[1] == "scaled") == scaled),
-                  key=lambda k: k[-1][1])
-    n_cfg = train_merge_configs("banded" if banded else "fused", scaled)
+                  key=lambda k: (ROW_PHASES.index(k[0]), k[-1][1]))
     out = []
     for key in keys:
+        n_steps = train_merge_steps(key[0], "banded" if banded else "fused",
+                                    scaled)
         args, kwargs = rec.args[key]
         pos, val, num_rows = args
         scale = kwargs.get("scale")
@@ -1960,8 +2387,8 @@ def train_scatter_shapes(torch, rec, name, banded, launches):
         err = float((got - want).abs().max())
         del got, want, on_cpu
         kept = int(((pos >= 0) & (pos < num_rows)).sum())
-        entry = {"phase": "train", "calls": rec.calls[key],
-                 "launches_per_step": rec.calls[key] / (TRAIN_STEPS * n_cfg),
+        entry = {"phase": key[0], "calls": rec.calls[key],
+                 "launches_per_step": rec.calls[key] / n_steps,
                  "max_abs_err": err, "kept_sources": kept,
                  "check": "bit-exact vs plain on a CPU copy (general "
                           "floats); rtol 1e-6 + 1e-6 x max vs plain on card; "
@@ -1996,7 +2423,7 @@ def banded_rows(torch, rec, launches, train_launches):
     for name, kinds in (("banded_onehot_scatter_add", ("f32", "bf16")),
                         ("banded_onehot_scatter_add_scaled", ("scaled",))):
         keys = sorted((k for k in rec.args if k[1] in kinds
-                       and k[0] != "train"),
+                       and k[0] not in TRAIN_RUNS),
                       key=lambda k: (ROW_PHASES.index(k[0]), k[2][1],
                                      kinds.index(k[1])))
         shapes = [dict(banded_call(torch, *rec.args[k], rec.calls[k]),
@@ -2173,18 +2600,19 @@ def rank_shapes(rec, kind):
 def kernel_rows(torch, rec, launches, parts, train_launches):
     """Every kernel on its recorded main-path inputs vs its plain version,
     in the order of the TPU kernel table; ``train_launches`` are the train
-    phase's own counts (its shapes are checked on general floats)."""
+    phases' own counts, summed (their shapes are checked on general
+    floats)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.onehot_scatter import onehot_scatter_add
     scat = rec["scatter"].args
     rows = [rank_row(torch, rank_shapes(rec["rank"], kind), kind == "banded",
                      launches) for kind in ("dense", "banded")]
     for row, merge in zip(rows, ("fused", "banded")):
-        n_cfg = train_merge_configs(merge, False) + train_merge_configs(
-            merge, True)
         for e in row["shapes"]:
-            if e["phase"] == "train":
-                e["launches_per_step"] = e["launches"] / (TRAIN_STEPS * n_cfg)
+            if e["phase"] in TRAIN_RUNS:
+                n_steps = train_merge_steps(e["phase"], merge, False) \
+                    + train_merge_steps(e["phase"], merge, True)
+                e["launches_per_step"] = e["launches"] / n_steps
     args, kwargs = scat[("union", "f32")]
     row = scatter_row(torch, "onehot_scatter_add", onehot_scatter_add, args,
                       kwargs, launches, index_add_call(torch, *args))
@@ -2275,7 +2703,6 @@ def smoke(torch) -> int:
     emit({"phase": "build", "ok": True, "seconds": time.perf_counter() - t0,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "ptxas": ptxas})
-
     t0 = time.perf_counter()
     edges = powerlaw_graph(N_VERTICES, N_EDGES, alpha=2.0, seed=0)
     parts = build_partitions(edges, N_VERTICES, M)
@@ -2288,10 +2715,15 @@ def smoke(torch) -> int:
            "spmv": Recorder(engine, "spmv_csr",
                             lambda a, kw: (PHASE["name"], "first"))}
 
+    seconds = {}
+
     def run(name, fn, *args):
         PHASE["name"] = name
         fresh_plan_cache()
-        return fn(torch, *args)
+        t0 = time.perf_counter()
+        out = fn(torch, *args)
+        seconds[name] = time.perf_counter() - t0
+        return out
 
     per_phase = {"planned": run("planned", phase_planned, parts),
                  "union": run("union", phase_union),
@@ -2324,6 +2756,8 @@ def smoke(torch) -> int:
     per_phase["soak_resume"] = run("soak_resume", phase_soak_resume)
     per_phase["train"] = run("train", phase_train)
     per_phase["soak_train"] = run("soak_train", phase_soak_train)
+    per_phase["train_moe"] = run("train_moe", phase_train_moe)
+    per_phase["train_ssm"] = run("train_ssm", phase_train_ssm)
     torch.cuda.synchronize()
     launches = {k: sum(p.get(k, 0) for p in per_phase.values())
                 for k in _build.LAUNCHES}
@@ -2331,6 +2765,7 @@ def smoke(torch) -> int:
         r.restore()
     emit({"phase": "main_path_launches", "launches": launches,
           "per_phase": per_phase, "graph_s": graph_s,
+          "phase_seconds": seconds,
           "note": "in-process main-path calls; the soak's subprocess "
                   "launches are in its phase line"})
     # off the main path: the ELL kernel (PageRank runs the CSR kernel), the
@@ -2346,10 +2781,15 @@ def smoke(torch) -> int:
     emit({"phase": "kernels_start", "memory_allocated":
           torch.cuda.memory_allocated(), "memory_reserved_before": reserved,
           "memory_reserved": torch.cuda.memory_reserved()})
+    train_launches = {k: sum(per_phase[p].get(k, 0) for p in TRAIN_RUNS)
+                      for k in launches}
+    t0 = time.perf_counter()
     with fresh_profiler():
-        rows = kernel_rows(torch, rec, launches, parts, per_phase["train"])
+        rows = kernel_rows(torch, rec, launches, parts, train_launches)
     emit({"phase": "profiler", "process": "fresh", "calls": FRESH["calls"],
           "traces": FRESH["traces"]})
+    emit({"phase": "timing", "kernels_s": time.perf_counter() - t0,
+          "total_s": time.perf_counter() - T_START})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

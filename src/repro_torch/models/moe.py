@@ -1,0 +1,176 @@
+"""Mixture-of-experts FFN, the training block (reference: ``repro.models.moe``).
+
+The reference shards experts over the ``model`` axis and dispatches
+tokens to the expert-owning device with two ``all_to_all``s: bucket the
+token copies by destination, exchange fixed-capacity buckets, group the
+received copies by local expert, run the gated expert FFN, and return
+along the same route -- one layer of the paper's butterfly, with the
+same static capacities and counted drops.  The port runs tp = 1, where
+both ``all_to_all``s are over one device and are identities; it keeps the
+reference's buffer layout without them.  tp > 1 raises (ROADMAP Queue 1
+item 20).
+
+Position-stacked inputs (x [M, B, T, d] with parameters [M, ...], as
+``models.common`` describes) route, group, fill capacities and count
+drops per position: position m's destinations are offset by m times its
+group count and one flat stable group-by runs over all of them, which
+gives every position the ranks it would get alone.  The group-by, the
+dispatch scatters and the combine gathers are plain torch ops, as the
+reference's are plain ``jnp``.  The two gathers back from the expert
+slots are ``index_select``s, whose backward is an ``index_add_`` (atomic
+on the card): every index that repeats there (the overflow slot, the
+clamped slots of dropped copies) only ever receives a zero gradient, and
+every other index one value, so the sums are exact in any order.
+(Advanced indexing's sort-based backward took 284 of a granite-moe
+step's 1,039 device ms on an H100, ``tools/train_step_profile.py``.)
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from .common import ModelConfig, act_fn, linear
+
+
+def router_topk(logits: torch.Tensor, cfg: ModelConfig
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Mask padded experts, softmax in float32, top-k, renormalise.
+
+    ``logits`` [..., E_pad] float32 -> ``(probs [..., E_pad], wk [..., K],
+    ek [..., K])``.  The top-k is a stable descending sort, so equal
+    probabilities keep the lower expert first, as ``lax.top_k`` does."""
+    e_pad = logits.shape[-1]
+    real = torch.arange(e_pad, device=logits.device) < cfg.n_experts
+    logits = torch.where(real, logits, torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1)
+    order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    wk = order.values[..., :cfg.top_k]
+    ek = order.indices[..., :cfg.top_k]
+    wk = wk / torch.clamp(torch.sum(wk, dim=-1, keepdim=True), min=1e-9)
+    return probs, wk, ek
+
+
+def _group_by(dest: torch.Tensor, num_groups: int, cap: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Slot assignment of 1-D ``dest``: entry i -> (dest_i, rank of i
+    within dest_i), ``(slot, keep)`` with slot a flat index into
+    [num_groups * cap] and overflow parked at num_groups * cap.  Stable:
+    earlier entries win capacity.  A dest >= num_groups ranks from the
+    last group's start (the reference's clamped gather)."""
+    n = dest.shape[0]
+    order = torch.sort(dest, stable=True).indices
+    sorted_dest = dest[order]
+    first = torch.searchsorted(
+        sorted_dest, torch.arange(num_groups, device=dest.device,
+                                  dtype=sorted_dest.dtype))
+    pos_sorted = torch.arange(n, device=dest.device) \
+        - first[torch.clamp(sorted_dest, max=num_groups - 1)]
+    pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
+    keep = pos < cap
+    slot = torch.where(keep, dest * cap + pos,
+                       torch.full_like(pos, num_groups * cap))
+    return slot, keep
+
+
+def capacities(cfg: ModelConfig, n: int, tp: int,
+               capacity_factor: float) -> Tuple[int, int]:
+    """``(cap_dev, cap_e)`` for n tokens a position, as the reference
+    computes them (Python floats cast with ``int``)."""
+    el = cfg.experts_local(tp)
+    cap_dev = int(max(8, -(-n * cfg.top_k // tp) * capacity_factor))
+    cap_e = int(min(max(8, -(-tp * cap_dev // el) * 1.25), tp * cap_dev))
+    return cap_dev, cap_e
+
+
+def _fill(slot: torch.Tensor, keep: torch.Tensor, vals: torch.Tensor,
+          rows: int) -> torch.Tensor:
+    """``zeros([rows + 1, ...]).at[slot].set(where(keep, vals, 0))[:-1]``:
+    kept entries have distinct slots, every other one writes zeros to the
+    overflow row ``rows``."""
+    mask = keep.reshape(keep.shape + (1,) * (vals.ndim - 1))
+    buf = torch.zeros((rows + 1,) + tuple(vals.shape[1:]), dtype=vals.dtype,
+                      device=vals.device)
+    return buf.index_put((slot,), torch.where(mask, vals,
+                                              torch.zeros_like(vals)))[:-1]
+
+
+def moe_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig, tp: int = 1,
+            capacity_factor: float = 2.0
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x [B, T, d] -> ``(y [B, T, d], aux_loss, dropped_fraction)``.
+
+    Position-stacked (x [M, B, T, d], parameters [M, ...]): y [M, B, T,
+    d], aux and dropped [M], each position's own.  The aux loss is the
+    switch-style load balance ``sum(mean probs * top-1 share) * E``; the
+    dropped fraction counts the copies that found no dispatch slot."""
+    if tp != 1:
+        raise NotImplementedError(
+            "the expert all_to_all over the model axis (tp > 1) is not "
+            "ported yet (ROADMAP Queue 1 item 20)")
+    stacked = p["router"].ndim == 3
+    xs = x if stacked else x.unsqueeze(0)
+    m, d = xs.shape[0], xs.shape[-1]
+    n = math.prod(xs.shape[1:-1])
+    el, e_pad, k_top = cfg.experts_local(tp), cfg.n_experts_padded(tp), \
+        cfg.top_k
+    xf = xs.reshape(m, n, d)
+    router = p["router"] if stacked else p["router"].unsqueeze(0)
+    w1, w3, w2 = (p[k] if stacked else p[k].unsqueeze(0)
+                  for k in ("w1", "w3", "w2"))
+    dev = x.device
+
+    # ---- route (per position) ---------------------------------------------
+    probs, wk, ek = router_topk(linear(xf.to(torch.float32), router), cfg)
+    me = torch.mean(probs, dim=1)                               # [M, E]
+    top1 = torch.nn.functional.one_hot(ek[..., 0], e_pad).to(torch.float32)
+    ce = torch.mean(top1, dim=1)
+    aux = torch.sum(me * ce, dim=-1) * cfg.n_experts            # [M]
+
+    # ---- dispatch: bucket by owning device (one at tp = 1) ----------------
+    cap_dev, cap_e = capacities(cfg, n, tp, capacity_factor)
+    off = torch.arange(m, device=dev)[:, None]
+    flat_e = ek.reshape(m, n * k_top)
+    dest_dev = flat_e // el
+    slot, keep = _group_by((dest_dev + off * tp).reshape(-1), m * tp,
+                           cap_dev)
+    xk = torch.repeat_interleave(xf, k_top, dim=1).reshape(m * n * k_top, d)
+    rows_dev = m * tp * cap_dev
+    rx = _fill(slot, keep, xk, rows_dev)                        # [M*tp*cap, d]
+    re = torch.full((rows_dev + 1,), -1, dtype=torch.int64, device=dev)
+    re = re.index_put((slot,), torch.where(
+        keep, (flat_e % el).reshape(-1), torch.full_like(slot, -1)))[:-1]
+
+    # ---- local expert compute: group received copies by local expert ------
+    # each position's empty slots go to a group of their own (el), after
+    # its experts, so they never take an expert's capacity
+    g = el + 1
+    rpos = torch.arange(rows_dev, device=dev) // (tp * cap_dev)
+    edest = torch.where(re >= 0, re, el) + rpos * g
+    eslot, ekeep = _group_by(edest, m * g, cap_e)
+    live = ekeep & (re >= 0)
+    ex = _fill(eslot, live, rx, m * g * cap_e).reshape(m, g, cap_e, d)
+    ex = ex[:, :el]                                             # [M, el, cap, d]
+    h = act_fn(torch.matmul(ex, w1), cfg.act) * torch.matmul(ex, w3)
+    ey = torch.matmul(h, w2)                                    # [M, el, cap, d]
+    # back to received-slot order; dropped and empty slots read their
+    # position's last expert slot and are masked
+    local = eslot - rpos * (g * cap_e)
+    safe_es = torch.clamp(local, max=el * cap_e - 1) + rpos * (el * cap_e)
+    y_slots = torch.index_select(ey.reshape(m * el * cap_e, d), 0, safe_es) \
+        * live[:, None].to(ey.dtype)
+
+    # ---- combine (the return all_to_all is an identity at tp = 1) ---------
+    spos = torch.arange(m * n * k_top, device=dev) // (n * k_top)
+    safe_slot = torch.clamp(slot - spos * (tp * cap_dev),
+                            max=tp * cap_dev - 1) + spos * (tp * cap_dev)
+    per_assign = torch.index_select(y_slots, 0, safe_slot) \
+        * keep[:, None].to(y_slots.dtype)
+    y = torch.sum(per_assign.reshape(m, n, k_top, d)
+                  * wk[..., None].to(x.dtype), dim=2)
+    dropped = 1.0 - torch.mean(keep.reshape(m, -1).to(torch.float32), dim=1)
+    y = y.reshape(xs.shape)
+    if not stacked:
+        return y[0], aux[0], dropped[0]
+    return y, aux, dropped

@@ -1,12 +1,12 @@
-"""Spec trees of the dense attention family (reference: ``repro.models.sharding``).
+"""Spec trees of every block kind (reference: ``repro.models.sharding``).
 
 Each leaf's entry is a tuple over its dims: ``"model"`` (the tensor
 parallel axis), ``"fsdp"`` (sharded over the data axes when
 ``cfg.fsdp``) or ``None`` (replicated); ``full_model_spec_tuples``
 prepends the period-stack dim.  The port runs at tp = 1 without FSDP, so
 the trees only classify leaves: the gradient sync and the grad norm read
-them, as the reference's do.  Block kinds other than attention with a
-dense FFN raise (ROADMAP Queue 1 items 16-18).
+them, as the reference's do.  :func:`check_ported` raises for what the
+port's models do not cover yet (ROADMAP Queue 1 items 18-20).
 """
 from __future__ import annotations
 
@@ -16,29 +16,10 @@ from .common import ModelConfig
 
 Tree = Dict[str, Any]
 
-_MISSING = {"mamba": ("models/ssm.py", 17), "mlstm": ("models/ssm.py", 17),
-            "slstm": ("models/ssm.py", 17), "moe": ("models/moe.py", 16),
-            "moe+dense": ("models/moe.py", 16)}
 
-
-def unported(kind: str) -> NotImplementedError:
-    """The error for a block or FFN kind the port does not have yet."""
-    module, item = _MISSING.get(kind, ("its module", 16))
-    return NotImplementedError(
-        f"block kind {kind!r} needs {module}, not ported yet (ROADMAP "
-        f"Queue 1 item {item})")
-
-
-def check_dense_family(cfg: ModelConfig) -> None:
-    """Raise for what the port's models do not cover yet: blocks other
-    than attention, FFNs other than dense, an encoder, image tokens,
-    FSDP."""
-    for blk in cfg.pattern:
-        if blk != "attn":
-            raise unported(blk)
-    for ffn in cfg.ffn_pattern:
-        if ffn != "dense":
-            raise unported(ffn)
+def check_ported(cfg: ModelConfig, tp: int = 1) -> None:
+    """Raise for an encoder or image tokens (item 18), FSDP (item 19) or
+    a model axis (item 20); every block and FFN kind is ported."""
     if cfg.enc_layers or cfg.img_tokens:
         raise NotImplementedError(
             "encoder-decoder and VLM stubs (enc_layers, img_tokens) are not "
@@ -46,6 +27,10 @@ def check_dense_family(cfg: ModelConfig) -> None:
     if cfg.fsdp:
         raise NotImplementedError(
             "fsdp=True is not ported yet (ROADMAP Queue 1 item 19)")
+    if tp != 1:
+        raise NotImplementedError(
+            "the model axis (tp > 1) is not ported yet (ROADMAP Queue 1 "
+            "item 20)")
 
 
 def attn_spec(cfg: ModelConfig, tp: int) -> Tree:
@@ -68,12 +53,54 @@ def ffn_spec(cfg: ModelConfig, tp: int) -> Tree:
             "w2": ("model", "fsdp")}
 
 
+def moe_spec(cfg: ModelConfig, tp: int) -> Tree:
+    """Router (float32) and experts, sharded over the experts dim."""
+    return {"router": ("fsdp", None),
+            "w1": ("model", "fsdp", None),
+            "w3": ("model", "fsdp", None),
+            "w2": ("model", None, "fsdp")}
+
+
+def mamba_spec(cfg: ModelConfig, tp: int) -> Tree:
+    """Mamba leaves (inner channels over the model axis)."""
+    return {"in_x": ("fsdp", "model"), "in_z": ("fsdp", "model"),
+            "conv": (None, "model"), "w_dt": ("fsdp", "model"),
+            "w_B": ("fsdp", None), "w_C": ("fsdp", None),
+            "A_log": ("model", None), "D": ("model",),
+            "out": ("model", "fsdp")}
+
+
+def mlstm_spec(cfg: ModelConfig, tp: int) -> Tree:
+    """mLSTM leaves (value dim over the model axis)."""
+    return {"wq": ("fsdp", None), "wk": ("fsdp", None),
+            "wv": ("fsdp", "model"), "wi": ("fsdp", None),
+            "wf": ("fsdp", None), "out": ("model", "fsdp")}
+
+
+def slstm_spec(cfg: ModelConfig, tp: int) -> Tree:
+    """sLSTM leaves (replicated over the model axis: a sequential block)."""
+    return {"wx": ("fsdp", None), "wr": (None, None, None),
+            "out": ("fsdp", None), "bias": (None,)}
+
+
+BLOCK_SPECS = {"attn": attn_spec, "mamba": mamba_spec,
+               "mlstm": mlstm_spec, "slstm": slstm_spec}
+
+
 def period_spec(cfg: ModelConfig, tp: int) -> Tree:
-    """One period of blocks."""
-    check_dense_family(cfg)
-    return {f"b{j}": {"ln1": (None,), "attn": attn_spec(cfg, tp),
-                      "ln2": (None,), "ffn": ffn_spec(cfg, tp)}
-            for j in range(len(cfg.pattern))}
+    """One period of blocks: ``ln1`` and the mixer, then ``ln2`` and the
+    dense FFN and / or the MoE unless the FFN kind is ``none``."""
+    out: Tree = {}
+    for j, (blk, ffn) in enumerate(zip(cfg.pattern, cfg.ffn_pattern)):
+        e: Tree = {"ln1": (None,), blk: BLOCK_SPECS[blk](cfg, tp)}
+        if ffn != "none":
+            e["ln2"] = (None,)
+        if ffn in ("dense", "moe+dense"):
+            e["ffn"] = ffn_spec(cfg, tp)
+        if ffn in ("moe", "moe+dense"):
+            e["moe"] = moe_spec(cfg, tp)
+        out[f"b{j}"] = e
+    return out
 
 
 def model_spec(cfg: ModelConfig, tp: int) -> Tree:
@@ -85,18 +112,19 @@ def model_spec(cfg: ModelConfig, tp: int) -> Tree:
     return s
 
 
+def _stack_spec(t):
+    """A spec tree with the period dim prepended to every leaf."""
+    if isinstance(t, dict):
+        return {k: _stack_spec(v) for k, v in t.items()}
+    return (None,) + tuple(t)
+
+
 def full_model_spec_tuples(cfg: ModelConfig, tp: int) -> Tree:
     """Spec tuples mirroring ``init_params`` (blocks with the period dim
     prepended): what the gradient sync classifies leaves by."""
     spec = model_spec(cfg, tp)
-
-    def stack(t):
-        if isinstance(t, dict):
-            return {k: stack(v) for k, v in t.items()}
-        return (None,) + tuple(t)
-
     out = {"emb": tuple(spec["emb"]), "final_ln": tuple(spec["final_ln"]),
-           "blocks": stack(spec["blocks"])}
+           "blocks": _stack_spec(spec["blocks"])}
     if "head" in spec:
         out["head"] = tuple(spec["head"])
     return out

@@ -7,7 +7,12 @@ op for op in float32: gradients scaled by ``min(1, clip / max(gnorm,
 decay on leaves with ``ndim >= 2`` only (the period-stacked leaves count
 their period dim, as in the reference), and the new parameters cast back
 to their dtype.  Updates return new tensors; nothing is changed in
-place.
+place.  Each leaf is updated in slices of its leading dim (at most
+``SLICE_ELEMS`` elements), so the float32 temporaries of a
+multi-gigabyte leaf stay small; the update is elementwise, so the slices
+give the bits of one whole-leaf pass.  ``donate=True`` (the reference's
+buffer donation) drops each old parameter, gradient and moment from its
+tree as its replacement is made, so the update holds one set of moments.
 """
 from __future__ import annotations
 
@@ -15,6 +20,8 @@ import dataclasses
 from typing import Any, NamedTuple, Optional
 
 import torch
+
+SLICE_ELEMS = 1 << 26
 
 
 class AdamWState(NamedTuple):
@@ -37,6 +44,25 @@ def _leaves(tree):
     return [tree]
 
 
+def _paths(tree, prefix=()):
+    """Leaf paths of a dict tree in sorted order."""
+    if isinstance(tree, dict):
+        return [q for k in sorted(tree) for q in _paths(tree[k], prefix + (k,))]
+    return [prefix]
+
+
+def _parent(tree, path):
+    for k in path[:-1]:
+        tree = tree[k]
+    return tree
+
+
+def _put(tree, path, value):
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
 @dataclasses.dataclass(frozen=True)
 class AdamW:
     """The reference's hyperparameters and defaults."""
@@ -57,10 +83,12 @@ class AdamW:
             m=_map(zeros, params), v=_map(zeros, params))
 
     def update(self, grads, state: AdamWState, params,
-               gnorm: Optional[torch.Tensor] = None):
+               gnorm: Optional[torch.Tensor] = None, donate: bool = False):
         """``(new_params, new_state, gnorm)``; ``gnorm`` defaults to the
         global norm of ``grads`` summed leaf by leaf in sorted-path
-        order."""
+        order.  ``donate=True`` empties ``params``, ``grads``, ``state.m``
+        and ``state.v`` leaf by leaf (the caller must not read them
+        after)."""
         step = state.step + 1
         if gnorm is None:
             sq = torch.zeros((), dtype=torch.float32, device=step.device)
@@ -75,18 +103,34 @@ class AdamW:
         b2c = 1.0 - torch.tensor(self.b2, dtype=torch.float32,
                                  device=step.device) ** stepf
 
-        def upd(p, g, m, v):
+        def upd(p, g, m, v, decay):
             g = g.to(torch.float32) * scale
             m = self.b1 * m + (1 - self.b1) * g
             v = self.b2 * v + (1 - self.b2) * g * g
             mh = m / b1c
             vh = v / b2c
             delta = mh / (torch.sqrt(vh) + self.eps)
-            if p.ndim >= 2:
+            if decay:
                 delta = delta + self.weight_decay * p.to(torch.float32)
             return ((p.to(torch.float32) - self.lr * delta).to(p.dtype), m, v)
 
-        trip = _map(upd, params, grads, state.m, state.v)
-        new_p, new_m, new_v = (_map(lambda t, i=i: t[i], trip)
-                               for i in range(3))
+        new_p, new_m, new_v = {}, {}, {}
+        for path in _paths(params):
+            trees = (params, grads, state.m, state.v)
+            p, g, m, v = (_parent(t, path)[path[-1]] for t in trees)
+            if donate:
+                for t in trees:
+                    del _parent(t, path)[path[-1]]
+            outs = (torch.empty_like(p), torch.empty_like(m),
+                    torch.empty_like(v))
+            rows = p.shape[0] if p.ndim else 1
+            per = max(1, SLICE_ELEMS // max(1, p.numel() // max(rows, 1)))
+            for lo in range(0, rows, per):
+                sl = slice(lo, lo + per) if p.ndim else ...
+                for o, r in zip(outs, upd(p[sl], g[sl], m[sl], v[sl],
+                                          p.ndim >= 2)):
+                    o[sl] = r
+            del p, g, m, v
+            for tree, o in zip((new_p, new_m, new_v), outs):
+                _put(tree, path, o)
         return new_p, AdamWState(step=step, m=new_m, v=new_v), gnorm

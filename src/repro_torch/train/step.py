@@ -40,7 +40,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.allreduce import (MERGE_MODES, DevicePlan,
-                                        dense_allreduce_hierarchical,
                                         make_device_plan,
                                         sparse_allreduce_union)
 from repro_torch.core.sparse_vec import SENTINEL, HashPerm, SparseChunk
@@ -48,7 +47,7 @@ from repro_torch.core.topology import ButterflyPlan, check_wire
 from repro_torch.core.transport import StackedTransport, resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.sharding import (check_dense_family,
+from repro_torch.models.sharding import (check_ported,
                                          full_model_spec_tuples, is_fsdp_leaf)
 from repro_torch.optim.adamw import AdamW
 
@@ -147,21 +146,44 @@ def default_dp_plan(mc: MeshCtx, in_capacity: int, out_capacity: int,
 # Gradient sync on stacked [M, ...] gradients
 # ---------------------------------------------------------------------------
 
+# float32 elements of one block of a leaf's dense sync (all M rows)
+HIER_BLOCK = 1 << 27
+
+
 def _hier_allreduce_leaf(g: torch.Tensor, plan: DevicePlan,
                          transport: StackedTransport,
                          capture: Optional[dict] = None) -> torch.Tensor:
-    """One stacked leaf [M, ...] through the dense butterfly: float32,
-    flattened, padded to a multiple of M, reduced, cast back."""
+    """One stacked leaf [M, ...] through the dense butterfly, in column
+    blocks of at most ``HIER_BLOCK`` float32 elements: each block cast to
+    float32, padded to a multiple of M, reduced (a tiled reduce-scatter
+    down the layers, the all-gather back up, as
+    ``core.allreduce.dense_allreduce_hierarchical``) and cast back into
+    the output.  Every element is summed in the same butterfly order
+    whatever block holds it, so the blocks give the bits of one pass over
+    the leaf, and a multi-GB leaf needs no float32 copy of itself."""
     m = plan.num_nodes
-    flat = g.to(torch.float32).reshape(m, -1)
+    flat = g.reshape(m, -1)
     n = flat.shape[1]
-    pad = (-n) % m
-    if pad:
-        flat = F.pad(flat, (0, pad))
-    out = dense_allreduce_hierarchical(flat, plan, transport)[:, :n]
+    cols = max(m, HIER_BLOCK // m // m * m)
+    out = torch.empty_like(flat)
+    row0 = None if capture is None else torch.empty(
+        n, dtype=torch.float32, device=g.device)
+    for lo in range(0, n, cols):
+        x = flat[:, lo:lo + cols].to(torch.float32)
+        w = x.shape[1]
+        if w % m:
+            x = F.pad(x, (0, (-w) % m))
+        for layer in range(len(plan.stages)):
+            x = transport.reduce_scatter(layer, x)
+        for layer in range(len(plan.stages) - 1, -1, -1):
+            (x,) = transport.all_gather(layer, x)
+        if row0 is not None:
+            row0[lo:lo + w] = x[0, :w]
+        out[:, lo:lo + w] = x[:, :w]
+        del x
     if capture is not None:
-        capture["f32"] = out[0].reshape(g.shape[1:]).clone()
-    return out.reshape(g.shape).to(g.dtype)
+        capture["f32"] = row0.reshape(g.shape[1:])
+    return out.reshape(g.shape)
 
 
 def _as_int32(x: torch.Tensor) -> torch.Tensor:
@@ -417,7 +439,7 @@ def make_sync_fn(cfg: ModelConfig, mc: MeshCtx, *, sync: str = "hier",
     faults cannot cancel and replicas stay identical.  Error feedback is
     not threaded (``delta+int8ef`` syncs with no carry)."""
     _check_sync_settings(sync, sync_merge, sync_wire, sync_overlap)
-    check_dense_family(cfg)
+    check_ported(cfg)
     repl_w, dp_logical = _replication(mc, replication, dead)
     plans = _build_sync_plans(cfg, mc, sync, dp_degrees, sparse_tokens_hint,
                               retune)
@@ -457,7 +479,8 @@ def make_train_step(cfg: ModelConfig, mc: MeshCtx, *, sync: str = "ring",
                     sparse_tokens_hint: Optional[int] = None,
                     sync_merge: str = "sort", sync_wire: str = "raw",
                     replication: int = 1, dead: Optional[set] = None,
-                    retune: bool = False, sync_overlap: str = "off"):
+                    retune: bool = False, sync_overlap: str = "off",
+                    donate: bool = True):
     """``(step, specs)``: ``step(params, opt_state, batch) -> (params,
     opt_state, metrics)`` over the stacked data mesh ``mc``.
 
@@ -480,9 +503,13 @@ def make_train_step(cfg: ModelConfig, mc: MeshCtx, *, sync: str = "ring",
     ``fn("update")`` as each stage is enqueued (timing hooks);
     ``capture={}`` receives the embedding leaf's float32 sync
     (``capture["emb"]``) and row 0 of every synced leaf
-    (``capture["synced"]``).  Updates never write in place."""
+    (``capture["synced"]``).  Updates never write in place.  With
+    ``donate`` (the default, as the reference's buffer donation) AdamW
+    drops the caller's parameters and optimizer state leaf by leaf as it
+    replaces them, so a step holds one set of moments: the caller must
+    not read the ``params`` and ``opt_state`` it passed."""
     _check_sync_settings(sync, sync_merge, sync_wire, sync_overlap)
-    check_dense_family(cfg)
+    check_ported(cfg)
     if microbatch < 1:
         raise ValueError(f"microbatch must be >= 1, got {microbatch}")
     opt = opt or AdamW()
@@ -542,7 +569,7 @@ def make_train_step(cfg: ModelConfig, mc: MeshCtx, *, sync: str = "ring",
         mark("fwd_bwd")
         grads = T.tree_from_leaves(params, [(path, s) for (path, _), s
                                             in zip(leaves, stacked)])
-        del stacked
+        del stacked, leaves
         synced, overflow, new_ef = sync_grads(
             grads, cfg, mc, sync, plans,
             tokens.reshape(mc.dp, -1), merge=sync_merge, wire=sync_wire,
@@ -550,10 +577,11 @@ def make_train_step(cfg: ModelConfig, mc: MeshCtx, *, sync: str = "ring",
             consume=True, capture=capture)
         mark("sync")
         if capture is not None:
-            capture["synced"] = synced
+            capture["synced"] = T.tree_from_leaves(synced,
+                                                   T.tree_leaves(synced))
         gnorm = _sharded_grad_norm(synced)
         new_params, new_opt, _ = opt.update(synced, opt_state, params,
-                                            gnorm=gnorm)
+                                            gnorm=gnorm, donate=donate)
         if use_ef:
             new_opt = {"adamw": new_opt, "ef": new_ef}
         metrics = {"loss": losses.mean(), "aux": auxes.mean(), "gnorm": gnorm,

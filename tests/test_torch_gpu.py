@@ -20,8 +20,10 @@ against ``searchsorted``; the SpMVs within rtol 1e-5 (float32 sums in
 another order), the CSR kernel also bit-identical across two launches.
 The training stack: a reduced train step through the merge kernels
 repeated on the card gives the same bits (and the CPU run's losses
-within rtol 1e-4), and both scatters at the training width (w = 1,024)
-equal their plain versions on a CPU copy bit for bit.
+within rtol 1e-4), for the dense, MoE and SSM models alike; the MoE and
+SSM blocks on the card equal their CPU run within rtol 1e-4; and both
+scatters at the training width (w = 1,024) equal their plain versions
+on a CPU copy bit for bit.
 """
 import json
 import os
@@ -806,16 +808,17 @@ def test_soak_runs_on_cuda_by_default(cuda, tmp_path):
             np.testing.assert_allclose(a[k], c[k], rtol=1e-5, atol=1e-10)
 
 
-def _train_run(device, merge, wire="raw", steps=2):
-    """Two reduced untied qwen1.5-0.5b steps over 8 stacked positions."""
+def _train_run(device, merge, wire="raw", steps=2, arch="qwen1.5-0.5b",
+               **cfg_kw):
+    """Two reduced untied steps of ``arch`` over 8 stacked positions."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.launch.train import batch_stream
     from repro_torch.models import transformer as T
     from repro_torch.optim.adamw import AdamW
     from repro_torch.train.step import make_train_step, mesh_ctx
-    cfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(),
-                              tie_embeddings=False)
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              tie_embeddings=False, **cfg_kw)
     step, _ = make_train_step(cfg, mesh_ctx(8, device=device), sync="sparse",
                               dp_degrees={"data": (4, 2)}, sync_merge=merge,
                               sync_wire=wire, sparse_tokens_hint=32)
@@ -849,6 +852,78 @@ def test_train_step_repeats_bit_identical_on_gpu(cuda, merge, wire):
     assert all(torch.equal(a, b) for a, b in zip(pa, pb))
     lc, _ = _train_run("cpu", merge, wire)
     np.testing.assert_allclose(la, lc, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,capacity", [
+    ("granite-moe-3b-a800m", 2.0), ("granite-moe-3b-a800m", 0.5),
+    ("xlstm-1.3b", 2.0), ("jamba-1.5-large-398b", 2.0)])
+def test_moe_ssm_train_step_repeats_bit_identical_on_gpu(cuda, arch,
+                                                         capacity):
+    """Reduced MoE and SSM models through the sparse / fused sync: two runs
+    on the card give the same losses and parameters bit for bit (the MoE
+    dispatch's gathers, whose backward accumulates, repeat an index only
+    where the gradient is 0; at capacity 0.5 copies are dropped), within
+    rtol 1e-4 of the CPU run's losses."""
+    la, pa = _train_run(cuda, "fused", arch=arch, moe_capacity=capacity)
+    lb, pb = _train_run(cuda, "fused", arch=arch, moe_capacity=capacity)
+    assert la == lb
+    assert all(torch.equal(a, b) for a, b in zip(pa, pb))
+    lc, _ = _train_run("cpu", "fused", arch=arch, moe_capacity=capacity)
+    np.testing.assert_allclose(la, lc, rtol=1e-4)
+
+
+def _block_case(kind, device, t):
+    """A reduced block's float32 parameters (seed 5) and input [2, t, d]
+    on ``device``: (fn(x) -> y, params, x)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as MOE, ssm as SSM
+    from repro_torch.models import transformer as T
+    arch = {"moe": "granite-moe-3b-a800m", "mamba": "jamba-1.5-large-398b",
+            "mlstm": "xlstm-1.3b", "slstm": "xlstm-1.3b"}[kind]
+    cfg = get_config(arch).reduced()
+    params = T.init_params(cfg, 1, seed=5, device="cpu")
+    blk = next(b for b in params["blocks"].values() if kind in b)
+    p = {k: v[0].to(device) for k, v in blk[kind].items()}
+    x = torch.randn(2, t, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(6)).to(device)
+    if kind == "moe":
+        fn = lambda x: MOE.moe_ffn(p, x, cfg, capacity_factor=0.5)
+    else:
+        train = {"mamba": SSM.mamba_train, "mlstm": SSM.mlstm_train,
+                 "slstm": SSM.slstm_train}[kind]
+        fn = lambda x: (train(p, x, cfg),)
+    return fn, x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,t", [("moe", 64), ("mamba", 512),
+                                    ("mlstm", 256), ("slstm", 64)])
+def test_moe_and_ssm_blocks_on_gpu_equal_cpu(cuda, kind, t):
+    """``moe_ffn`` (capacity 0.5: copies dropped) and the three SSM blocks
+    on the card against their CPU run on the same float32 inputs: outputs
+    and input gradients within rtol 1e-4 + 1e-5 x max (float32 sums in
+    another order; ``allow_tf32`` is off), the MoE's aux within rtol 1e-5
+    and its dropped fraction exact; a second card run bit-identical."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    outs = {}
+    for dev in ("cpu", cuda, cuda):
+        fn, x = _block_case(kind, dev, t)
+        x.requires_grad_(True)
+        out = fn(x)
+        ct = torch.ones_like(out[0]).cumsum(-1) / out[0].shape[-1]
+        (gx,) = torch.autograd.grad(out[0], x, ct)
+        outs.setdefault(str(torch.device(dev).type), []).append(
+            [o.detach().cpu() for o in out] + [gx.cpu()])
+    (want,), (got, again) = outs["cpu"], outs["cuda"]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for a, b in ((got[0], want[0]), (got[-1], want[-1])):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-5 * float(b.abs().max()))
+    assert torch.isfinite(got[-1]).all()
+    if kind == "moe":
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+        assert float(got[2]) == float(want[2]) > 0
 
 
 def _wide_scatter_inputs(device, banded, scaled, rows=512, c=1024, w=1024):

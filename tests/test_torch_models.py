@@ -10,8 +10,9 @@ sliding-window pattern): ``forward_loss`` within rtol 1e-5 and every
 gradient leaf within rtol 1e-4, atol 1e-6.  On their own: ``rope``,
 ``rmsnorm``, the GQA attention with causal and window masks, the
 embedding and head loss; ``zipf_tokens`` and ``Batcher`` byte for byte;
-``AdamW.update`` within rtol 1e-6; the weight copy both ways; the
-unported model kinds raising with their ROADMAP items.
+``AdamW.update`` within rtol 1e-6; the weight copy both ways; what stays
+unported (an encoder, image tokens, FSDP, tp > 1) raising with its
+ROADMAP item.
 """
 import dataclasses
 
@@ -242,14 +243,21 @@ def test_configs_copied_as_data():
         get_config("qwen1.5-0.5b", "nope")
 
 
-@pytest.mark.parametrize("arch,item", [("granite-moe-3b-a800m", "item 16"),
-                                       ("xlstm-1.3b", "item 17"),
-                                       ("whisper-base", "item 18"),
-                                       ("internvl2-26b", "item 18")])
-def test_unported_kinds_raise_with_their_item(arch, item):
-    cfg = get_config(arch).reduced()
+@pytest.mark.parametrize("arch,reduced,item",
+                         [("arctic-480b", False, "item 19"),
+                          ("jamba-1.5-large-398b", False, "item 19"),
+                          ("whisper-base", True, "item 18"),
+                          ("internvl2-26b", True, "item 18")])
+def test_unported_kinds_raise_with_their_item(arch, reduced, item):
+    """What stays unported raises before anything is allocated: arctic
+    and jamba at their published configs need FSDP (398-480 B
+    parameters), whisper and internvl2 the encoder / image stubs."""
+    cfg = get_config(arch).reduced() if reduced else get_config(arch)
     with pytest.raises(NotImplementedError, match=item):
         T.init_params(cfg, 1, device="cpu")
+    with pytest.raises(NotImplementedError, match=item):
+        T.forward_loss({"emb": torch.zeros(8, 4)}, torch.zeros(1, 4).long(),
+                       torch.zeros(1, 4).long(), cfg)
     with pytest.raises(NotImplementedError, match="item 19"):
         T.init_params(dataclasses.replace(
             get_config("qwen1.5-0.5b").reduced(), fsdp=True), device="cpu")

@@ -292,6 +292,29 @@ def test_dense_butterflies_sum_every_row(degrees):
         tr.reduce_scatter(0, x[:, :23])
 
 
+@pytest.mark.parametrize("degrees", [(4, 2), (2, 2, 2), (8,)])
+def test_hier_leaf_blocks_give_one_pass_bits(degrees, monkeypatch):
+    """The dense sync of a leaf in column blocks (``HIER_BLOCK``) equals
+    one pass of the butterfly over the whole padded leaf bit for bit, on
+    bfloat16 values of a wide dynamic range, its float32 row 0 too."""
+    plan = make_device_plan([("data", M)], {"data": degrees}, 8, 8)
+    tr = StackedTransport(plan.logical, "cpu")
+    gen = torch.Generator().manual_seed(5)
+    g = (torch.randn(M, 301, 7, generator=gen)
+         * torch.exp(3 * torch.randn(M, 301, 7, generator=gen))
+         ).to(torch.bfloat16)
+    flat = g.to(torch.float32).reshape(M, -1)
+    want = dense_allreduce_hierarchical(
+        torch.nn.functional.pad(flat, (0, (-flat.shape[1]) % M)), plan,
+        tr)[:, :flat.shape[1]]
+    for block in (S.HIER_BLOCK, 8 * M * M, M * M):
+        monkeypatch.setattr(S, "HIER_BLOCK", block)
+        cap = {}
+        got = S._hier_allreduce_leaf(g, plan, tr, capture=cap)
+        assert torch.equal(got, want.reshape(g.shape).to(torch.bfloat16))
+        assert torch.equal(cap["f32"], want[0].reshape(301, 7))
+
+
 def test_launcher_runs_on_cpu_and_guards(tmp_path, monkeypatch):
     monkeypatch.setenv("REPRO_PLAN_CACHE", str(tmp_path / "plans"))
     loss = launch_train.main(
@@ -323,6 +346,7 @@ def test_launcher_runs_on_cpu_and_guards(tmp_path, monkeypatch):
 def test_new_modules_import_without_jax():
     code = ("import sys\n"
             "import repro_torch.configs, repro_torch.models.transformer\n"
+            "import repro_torch.models.moe, repro_torch.models.ssm\n"
             "import repro_torch.optim.adamw, repro_torch.train.step\n"
             "import repro_torch.launch.train, repro_torch.launch.soak\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"

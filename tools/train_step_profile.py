@@ -3,12 +3,16 @@
 
     PYTHONPATH=src python3 tools/train_step_profile.py [--sync sparse]
         [--merge fused] [--wire raw] [--steps 3] [--profile]
+        [--arch qwen1.5-0.5b] [--data-axis 8] [--degrees 4,2]
 
-Builds ``make_train_step`` on qwen1.5-0.5b untied (the smoke's train
-phase: M = 8 stacked data positions, degrees (4, 2), batch 8 x seq 256),
-runs ``--steps`` steps and prints, per step, the forward + backward,
-sync and update milliseconds by CUDA events and the host wall time of
-the step.  With ``--profile`` one more step runs under
+Builds ``make_train_step`` on ``--arch`` untied (default: the smoke's
+train phase, qwen1.5-0.5b on M = 8 stacked data positions, degrees (4,
+2); granite-moe-3b-a800m with ``--data-axis 2 --degrees 2`` is the
+smoke's train_moe, xlstm-1.3b its train_ssm), batch 8 x seq 256, the
+parameters and optimizer state donated, runs ``--steps`` steps
+and prints, per step, the forward + backward, sync and update
+milliseconds by CUDA events and the host wall time of the step.  With
+``--profile`` one more step runs under
 ``torch.profiler`` and the script prints the largest device and host
 operators of that step (``key_averages``), so a slow stage can be named.
 Prints one JSON line per step and, last, a summary line.
@@ -41,16 +45,21 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--rows", type=int, default=25,
                     help="operators printed per profiler table")
+    ap.add_argument("--arch", default="qwen1.5-0.5b")
+    ap.add_argument("--data-axis", type=int, default=8)
+    ap.add_argument("--degrees", default="4,2")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("train_step_profile: no CUDA device", file=sys.stderr)
         return 2
 
-    cfg = get_config("qwen1.5-0.5b", "untied")
-    mc = mesh_ctx(8)
+    cfg = get_config(args.arch, "untied")
+    mc = mesh_ctx(args.data_axis)
+    degrees = tuple(int(x) for x in args.degrees.split(","))
     step, _ = make_train_step(
-        cfg, mc, sync=args.sync, dp_degrees={"data": (4, 2)},
-        sparse_tokens_hint=256, sync_merge=args.merge, sync_wire=args.wire)
+        cfg, mc, sync=args.sync, dp_degrees={"data": degrees},
+        sparse_tokens_hint=8 * 256 // mc.dp, sync_merge=args.merge,
+        sync_wire=args.wire)
     params = T.init_params(cfg, 1, seed=0)
     st = AdamW().init(params)
     stream = batch_stream(cfg, 8, 256, seed=0)
@@ -81,7 +90,12 @@ def main() -> int:
         avg = prof.key_averages()
         print(avg.table(sort_by="cuda_time_total", row_limit=args.rows))
         print(avg.table(sort_by="cpu_time_total", row_limit=args.rows))
-    print(json.dumps({"summary": True, "sync": args.sync,
+        dev = [(getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0), e.count)
+               for e in avg if e.device_type != torch.autograd.DeviceType.CPU]
+        print(json.dumps({"device_ms": sum(us for us, _ in dev) / 1e3,
+                          "device_launches": sum(n for us, n in dev if us)}))
+    print(json.dumps({"summary": True, "arch": cfg.name, "sync": args.sync,
                       "merge": args.merge, "wire": args.wire,
                       "device": torch.cuda.get_device_name(0),
                       "steps": rows}))
