@@ -137,8 +137,24 @@ line each, after the ``nvidia-smi`` name/power-limit line):
    after each step (parameters, both moments) within rtol 1e-6 + 1e-6 x
    max of AdamW on the CPU from the card's state, synced gradients and
    norm;
-21. kernels -- each kernel on the inputs it got on the main path (phases
-   2-20, layer 0 / first round; the two merge-rank kernels at every shape
+21. train_encdec -- whisper-base untied, nothing cut (6 encoder + 6
+   decoder layers, d 512, 8 heads, d_ff 2,048, vocab 51,865 padded to
+   51,872, bf16) over M = 8, degrees (4, 2), the launcher's batch 8 x seq
+   256 with 1,500 stub frames a row: the train phase's configurations and
+   asserts (w = 512 on the sparse sync);
+22. train_vlm -- internvl2-26b untied at full width with ``fsdp=True`` as
+   published (d 6,144, 48 heads, kv 8, d_ff 16,384, vocab 92,553 padded
+   to 92,560, bf16; VLM_LAYERS of its 48 layers) over M = 4, degrees (2,
+   2), batch 8 x seq 256 text after 1,024 stub image tokens a row (T =
+   1,280): ``hier``, sparse fused / banded (raw), fused ``delta``, then
+   fused / raw again (no ``delta+int8ef``: its carry would be 4 x 92,560
+   x 6,144 float32, 9.1 GB), the train phase's asserts (w = 6,144); then
+   the FSDP pair at VLM_PAIR_LAYERS from the same weights, ``hier``:
+   ``fsdp=True`` against ``False``, step-1 losses bit-equal, step 1's
+   synced FSDP leaves within FSDP_PAIR_LIMITS, every other synced leaf
+   bit-equal, both peaks;
+23. kernels -- each kernel on the inputs it got on the main path (phases
+   2-22, layer 0 / first round; the two merge-rank kernels at every shape
    the main path handed them, the replica stage's [64, 2, C] and the
    survivors' flat [62, 31, C] included, the dense scatter also at the
    replica stage and the survivor layer, the CSR SpMV at each graph
@@ -159,9 +175,10 @@ line each, after the ``nvidia-smi`` name/power-limit line):
    PageRank's first graph, and on the other graphs within 1e-5 x (|A|
    |x|) of the float64 product and 1e-4 x (|A| |x|) of the plain version,
    and repeatable; rows 1-6 also at every shape of the train phases --
-   the rank rows in ``shapes`` with phase ``train``, ``train_moe`` or
-   ``train_ssm``, the scatter rows in ``train``, w = 1,024, 1,536 or
-   2,048 values a row of general floats, bit for bit
+   the rank rows in ``shapes`` with phase ``train``, ``train_moe``,
+   ``train_ssm``, ``train_encdec`` or ``train_vlm``, the scatter rows in
+   ``train``, w = 512, 1,024, 1,536, 2,048 or 6,144 values a row of
+   general floats, bit for bit
    against the plain version on a CPU copy, with their launches a step,
    byte bound and ``index_add_`` time), with
    CUDA-event times of kernel, plain version and the nearest single
@@ -223,12 +240,12 @@ POOL, RACK, FAULT_AT, CKPT_EVERY = 80, 5, 3, 2
 # the phases whose recorded kernel inputs make up the shapes of a row, in
 # the order the rows list them
 ROW_PHASES = ("union_wire", "replicated_union", "resilient_union", "union",
-              "train", "train_moe", "train_ssm")
+              "train", "train_moe", "train_ssm", "train_encdec", "train_vlm")
 GRAPH_PHASES = ("pagerank", "spectral", "pagerank_large",
                 "supervised_pagerank")
 # phases whose scatter calls are told apart by shape (one per layer)
 SHAPED_SCATTER_PHASES = ("resilient_union", "train", "train_moe",
-                         "train_ssm")
+                         "train_ssm", "train_encdec", "train_vlm")
 WIRES = ("raw", "delta", "delta+bf16", "delta+int8ef")
 # the train phase: qwen1.5-0.5b untied at full width on M = 8 stacked
 # data positions, degrees (4, 2), the launcher's batch 8 x seq 256
@@ -257,13 +274,31 @@ SSM_CONFIGS = (("hier", "sort", "raw"), ("sparse", "fused", "raw"),
                ("sparse", "fused", "delta+int8ef"),
                ("sparse", "banded", "delta+int8ef"))
 HYBRID_ARCH, HYBRID_M, HYBRID_DEGREES = "jamba-1.5-large-398b", 4, (2, 2)
+# train_encdec: whisper-base untied, nothing cut, on M = 8, degrees (4, 2)
+ENCDEC_ARCH, ENCDEC_M, ENCDEC_DEGREES = "whisper-base", 8, (4, 2)
+# train_vlm: internvl2-26b untied at full width, fsdp=True as published,
+# VLM_LAYERS of its 48 layers on M = 4, degrees (2, 2); the FSDP pair at
+# VLM_PAIR_LAYERS
+VLM_ARCH, VLM_M, VLM_DEGREES = "internvl2-26b", 4, (2, 2)
+VLM_LAYERS, VLM_PAIR_LAYERS = 4, 2
+VLM_CONFIGS = (("hier", "sort", "raw"), ("sparse", "fused", "raw"),
+               ("sparse", "banded", "raw"), ("sparse", "fused", "delta"))
+# the FSDP pair's synced FSDP leaves (the positions summed in bfloat16 by
+# the gather's backward against the float32 butterfly): max |a - b| over
+# max |b|, and ||a - b|| / ||b||; 4 and 2 bfloat16 unit roundoffs (2^-8),
+# set on the CPU test (tests/test_torch_fsdp.py: at most 0.0071 and
+# 0.0031 there)
+FSDP_PAIR_LIMITS = {"max_rel": 2.0 ** -6, "l2_rel": 2.0 ** -7}
 # the configurations each train phase runs, its repeat included, and the
 # steps of each
 TRAIN_RUNS = {"train": TRAIN_CONFIGS + (REPEAT,),
               "train_moe": MOE_CONFIGS + (REPEAT,),
-              "train_ssm": SSM_CONFIGS + (REPEAT,)}
+              "train_ssm": SSM_CONFIGS + (REPEAT,),
+              "train_encdec": TRAIN_CONFIGS + (REPEAT,),
+              "train_vlm": VLM_CONFIGS + (REPEAT,)}
 TRAIN_PHASE_STEPS = {"train": TRAIN_STEPS, "train_moe": TRAIN_STEPS,
-                     "train_ssm": SSM_STEPS}
+                     "train_ssm": SSM_STEPS, "train_encdec": TRAIN_STEPS,
+                     "train_vlm": TRAIN_STEPS}
 
 
 def emit(obj) -> None:
@@ -1441,6 +1476,9 @@ def train_configs(torch, cfg, m, degrees, configs, steps=TRAIN_STEPS):
         step, _ = make_train_step(
             cfg, mc, sync=sync, opt=opt, dp_degrees={"data": degrees},
             sparse_tokens_hint=hint, sync_merge=merge, sync_wire=wire)
+        # each configuration starts from an empty allocator cache: the
+        # larger models' steps fail on blocks their predecessors split
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         params = T.init_params(cfg, 1, seed=0, device=DEVICE)
         torch.cuda.synchronize()
@@ -1892,6 +1930,145 @@ def phase_train_ssm(torch):
                                          "(rtol, atol x max|CPU|) of "
                                          "limits; excess <= 1 holds"}))
     assert ok, replay
+    return total
+
+
+def phase_train_encdec(torch):
+    """whisper-base untied, nothing cut (6 encoder + 6 decoder layers, d
+    512, 8 heads, d_ff 2,048, vocab 51,865 padded to 51,872, bf16) over M =
+    8 stacked data positions, degrees (4, 2), the launcher's batch 8 x seq
+    256 with 1,500 stub frames a row (sparse capacities in 256, out
+    2,048): the train phase's configurations and asserts
+    (:func:`train_configs`)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(ENCDEC_ARCH, "untied")
+    torch.cuda.empty_cache()
+    rows, total, info = train_configs(torch, cfg, ENCDEC_M, ENCDEC_DEGREES,
+                                      TRAIN_CONFIGS)
+    emit(train_line("train_encdec", cfg, ENCDEC_M, ENCDEC_DEGREES, rows,
+                    info, total, enc_layers=cfg.enc_layers,
+                    enc_frames=cfg.enc_seq, heads=cfg.n_heads,
+                    d_ff=cfg.d_ff, reduced=[]))
+    return total
+
+
+def pair_error(a, b) -> dict:
+    """``max |a - b| / max |b|`` and ``||a - b|| / ||b||`` in float32."""
+    a, b = a.float(), b.float()
+    d = a - b
+    return {"max_rel": float(d.abs().max() / b.abs().max()),
+            "l2_rel": float(d.norm() / b.norm())}
+
+
+def fsdp_pair(torch, cfg):
+    """``cfg`` at VLM_PAIR_LAYERS from the same seed-0 weights, ``hier``,
+    TRAIN_STEPS steps with ``fsdp=True`` and then ``False``: losses, step
+    and forward + backward ms, peaks; step 1's synced gradients compared
+    (the FSDP leaves by :func:`pair_error` against FSDP_PAIR_LIMITS, every
+    other leaf bit for bit).  Asserts the step-1 losses bit-equal and the
+    limits."""
+    from repro_torch.launch.train import batch_stream
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.models.sharding import fsdp_block_paths
+    from repro_torch.train.step import make_train_step, mesh_ctx
+    mc = mesh_ctx(VLM_M, device=DEVICE)
+    stream = batch_stream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    batches = [next(stream) for _ in range(TRAIN_STEPS)]
+    base = dataclasses.replace(cfg, n_layers=VLM_PAIR_LAYERS)
+    fsdp_paths = fsdp_block_paths(dataclasses.replace(base, fsdp=True))
+    runs, first = {}, None
+    errors, fsdp_leaves = {}, 0
+    for fsdp in (True, False):
+        c = dataclasses.replace(base, fsdp=fsdp)
+        step, _ = make_train_step(c, mc, sync="hier", opt=AdamW(),
+                                  dp_degrees={"data": VLM_DEGREES})
+        params = T.init_params(c, 1, seed=0, device=DEVICE)
+        st = AdamW().init(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = {"losses": [], "step_ms": [], "fwd_bwd_ms": []}
+        for i, batch in enumerate(batches):
+            ev = {k: torch.cuda.Event(enable_timing=True)
+                  for k in ("start", "fwd_bwd", "sync", "update")}
+            capture = {} if i == 0 else None
+            ev["start"].record()
+            params, st, mets = step(params, st, batch,
+                                    mark=lambda k: ev[k].record(),
+                                    capture=capture)
+            torch.cuda.synchronize()
+            out["losses"].append(float(mets["loss"]))
+            out["step_ms"].append(ev["start"].elapsed_time(ev["update"]))
+            out["fwd_bwd_ms"].append(ev["start"].elapsed_time(ev["fwd_bwd"]))
+            if capture is None:
+                continue
+            synced = T.tree_leaves(capture["synced"])
+            del capture
+            if first is None:
+                first = [(p, t.cpu()) for p, t in synced]
+                continue
+            for (path, a), (_, b) in zip(first, synced):
+                if path[0] == "blocks" and path[1:] in fsdp_paths:
+                    fsdp_leaves += 1
+                    errors["/".join(path)] = pair_error(a.to(b.device), b)
+                else:
+                    assert torch.equal(a, b.cpu()), ("fsdp pair", path)
+            del synced
+        out["peak"] = torch.cuda.max_memory_allocated()
+        runs["fsdp" if fsdp else "plain"] = out
+        del params, st, step
+        torch.cuda.empty_cache()
+    del first
+    a, b = runs["fsdp"], runs["plain"]
+    assert a["losses"][0] == b["losses"][0], (a["losses"], b["losses"])
+    worst = {k: max(e[k] for e in errors.values()) for k in FSDP_PAIR_LIMITS}
+    assert fsdp_leaves == 7, fsdp_leaves     # wq, wk, wv, wo, w1, w2, w3
+    assert all(worst[k] <= FSDP_PAIR_LIMITS[k] for k in worst), worst
+    med = lambda xs: float(np.median(xs[1:]))
+    return {"layers": VLM_PAIR_LAYERS, "sync": "hier",
+            "losses": {k: r["losses"] for k, r in runs.items()},
+            "step_ms": {k: med(r["step_ms"]) for k, r in runs.items()},
+            "fwd_bwd_ms": {k: med(r["fwd_bwd_ms"]) for k, r in runs.items()},
+            "max_memory_allocated": {k: int(r["peak"])
+                                     for k, r in runs.items()},
+            "peak_saved": int(b["peak"] - a["peak"]),
+            "fsdp_leaves": fsdp_leaves, "grad_error_worst": worst,
+            "grad_error": errors, "limits": FSDP_PAIR_LIMITS,
+            "tolerance": "step-1 losses bit-equal; step 1's synced FSDP "
+                         "leaves within limits (max |a - b| / max |b|, "
+                         "||a - b|| / ||b||), every other synced leaf "
+                         "bit-equal"}
+
+
+def phase_train_vlm(torch):
+    """internvl2-26b untied at full width with ``fsdp=True`` as published
+    (d 6,144, 48 heads, kv 8, head_dim 128, d_ff 16,384, vocab 92,553
+    padded to 92,560, bf16), VLM_LAYERS of its 48 layers, over M = 4
+    stacked data positions, degrees (2, 2), batch 8 x seq 256 text after
+    1,024 stub image tokens a row (T = 1,280; sparse capacities in 512,
+    out 2,048): ``hier``, sparse fused / banded (raw), fused ``delta``,
+    then fused / raw again, with :func:`train_configs`' asserts (no
+    ``delta+int8ef``: its carry alone would be 4 x 92,560 x 6,144 float32,
+    9.1 GB); then the FSDP pair (:func:`fsdp_pair`)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(VLM_ARCH, "untied")
+    assert cfg.fsdp
+    torch.cuda.empty_cache()
+    reduced = []
+    if VLM_LAYERS != cfg.n_layers:
+        reduced.append(f"layers {cfg.n_layers} -> {VLM_LAYERS}")
+        cfg = dataclasses.replace(cfg, n_layers=VLM_LAYERS)
+    rows, total, info = train_configs(torch, cfg, VLM_M, VLM_DEGREES,
+                                      VLM_CONFIGS)
+    pair, launches = main_path(lambda: fsdp_pair(torch, cfg))
+    assert not any(launches.values()), launches
+    emit(train_line("train_vlm", cfg, VLM_M, VLM_DEGREES, rows, info, total,
+                    fsdp=cfg.fsdp, img_tokens=cfg.img_tokens,
+                    heads=cfg.n_heads, kv_heads=cfg.n_kv, d_ff=cfg.d_ff,
+                    reduced=reduced,
+                    no_int8ef="delta+int8ef left out: its error-feedback "
+                              "carry alone would be 4 x 92,560 x 6,144 "
+                              "float32, 9.1 GB", fsdp_pair=pair))
     return total
 
 
@@ -2758,6 +2935,8 @@ def smoke(torch) -> int:
     per_phase["soak_train"] = run("soak_train", phase_soak_train)
     per_phase["train_moe"] = run("train_moe", phase_train_moe)
     per_phase["train_ssm"] = run("train_ssm", phase_train_ssm)
+    per_phase["train_encdec"] = run("train_encdec", phase_train_encdec)
+    per_phase["train_vlm"] = run("train_vlm", phase_train_vlm)
     torch.cuda.synchronize()
     launches = {k: sum(p.get(k, 0) for p in per_phase.values())
                 for k in _build.LAUNCHES}

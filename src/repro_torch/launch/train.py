@@ -13,8 +13,11 @@ throughput, and checkpoints through ``repro_torch.checkpoint.store``.
 ``--device`` defaults to the current CUDA device and raises without
 one; ``--device cpu`` runs the kernels' plain versions.  ``--dp-degrees
 auto`` resolves through the port's calibrated, cached autotuner
-(``$REPRO_PLAN_CACHE``).  ``--model-axis`` > 1 and ``--sync-overlap
-bucketed`` raise, naming their ROADMAP items.
+(``$REPRO_PLAN_CACHE``).  A VLM's stub image embeddings and an
+encoder-decoder's stub frames come with each batch.  ``--model-axis`` >
+1 and ``--sync-overlap bucketed`` raise, naming their ROADMAP items;
+``--replication`` > 1 with an FSDP config raises ``ValueError``, as in
+the reference.
 """
 from __future__ import annotations
 

@@ -5,10 +5,13 @@ tensor-parallel shard: project q/k/v (with the optional QKV bias), rotate
 q and k, score every query against every key in the activation dtype,
 mask (causal, and a sliding window when ``window > 0``) with ``NEG``,
 softmax in float32 and cast the weights back to the activation dtype,
-then the weighted values and the output projection.  Plain torch ops in
-the reference's order; there is no TPU kernel here.  The query-chunked
-``attn_train_blocked`` (sequences of 8,192 tokens and more), decode and
-cross-attention are not ported yet (ROADMAP Queue 1 item 22 and item 14).
+then the weighted values and the output projection.  ``cross_attn`` is
+the decoder's cross attention (whisper): unrotated queries against the
+encoder's keys and values (``encode_kv``, computed once per period),
+every key visible.  Plain torch ops in the reference's order; there is
+no TPU kernel here.  The query-chunked ``attn_train_blocked`` (sequences
+of 8,192 tokens and more) and decode are not ported yet (ROADMAP Queue 1
+items 22 and 14).
 """
 from __future__ import annotations
 
@@ -21,6 +24,25 @@ from .common import ModelConfig, linear, rope, vec
 
 NEG = -1e30
 BLOCKED_ATTN_THRESHOLD = 8192
+
+
+def attn_params(cfg: ModelConfig, tp: int, draw, zeros):
+    """One attention block's leaves: ``wq`` [d, Hp * hd], ``wk`` / ``wv``
+    [d, KV * hd], ``wo`` [Hp * hd, d], drawn with ``draw(shape)``, and the
+    zero QKV biases (``zeros(n, dtype=)``) when ``cfg.qkv_bias``."""
+    d, hd = cfg.d_model, cfg.hd
+    hq, kvw = cfg.n_heads_padded(tp) * hd, cfg.n_kv * hd
+    p = {"wq": draw((d, hq)), "wk": draw((d, kvw)),
+         "wv": draw((d, kvw)), "wo": draw((hq, d))}
+    if cfg.qkv_bias:
+        p.update(bq=zeros(hq, dtype=cfg.dtype), bk=zeros(kvw, dtype=cfg.dtype),
+                 bv=zeros(kvw, dtype=cfg.dtype))
+    return p
+
+
+def cross_attn_params(cfg: ModelConfig, tp: int, draw, zeros):
+    """A cross-attention block's leaves: an attention block's."""
+    return attn_params(cfg, tp, draw, zeros)
 
 
 def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig, tp: int):
@@ -98,3 +120,32 @@ def attn_train(p, x: torch.Tensor, cfg: ModelConfig, tp: int, window: int,
     out = _group_scores_to_out(q.reshape(seq), k.reshape((-1,) + k.shape[-3:]),
                                v.reshape((-1,) + v.shape[-3:]), mask, cfg, tp)
     return linear(out.reshape(x.shape[:-1] + (out.shape[-1],)), p["wo"])
+
+
+def cross_attn(p, x: torch.Tensor, enc_k: torch.Tensor, enc_v: torch.Tensor,
+               cfg: ModelConfig, tp: int = 1) -> torch.Tensor:
+    """Decoder cross attention of x [B, T, d] against the encoder's keys
+    and values [B, S, KVl, hd] (``encode_kv``): no bias, no rotation,
+    every key visible.  Position-stacked: x [M, B, T, d], k/v [M, B, S,
+    KVl, hd], stacked weights."""
+    t, hl, hd = x.shape[-2], cfg.heads_local(tp), cfg.hd
+    q = linear(x, p["wq"])
+    q = q.reshape(q.shape[:-1] + (hl, hd))
+    s = enc_k.shape[-3]
+    mask = torch.ones((t, s), dtype=torch.bool, device=x.device)
+    out = _group_scores_to_out(
+        q.reshape((-1,) + tuple(q.shape[-3:])),
+        enc_k.to(q.dtype).reshape((-1,) + tuple(enc_k.shape[-3:])),
+        enc_v.to(q.dtype).reshape((-1,) + tuple(enc_v.shape[-3:])),
+        mask, cfg, tp)
+    return linear(out.reshape(x.shape[:-1] + (out.shape[-1],)), p["wo"])
+
+
+def encode_kv(p, enc_out: torch.Tensor, cfg: ModelConfig, tp: int = 1):
+    """Cross attention's keys and values [..., S, KVl, hd] from the
+    encoder output [..., S, d] (no bias)."""
+    kvl, hd = cfg.kv_local(tp), cfg.hd
+    k = linear(enc_out, p["wk"])
+    v = linear(enc_out, p["wv"])
+    return (k.reshape(k.shape[:-1] + (kvl, hd)),
+            v.reshape(v.shape[:-1] + (kvl, hd)))

@@ -236,14 +236,53 @@ def embed(emb_local: torch.Tensor, ids: torch.Tensor, shard: int = 0) -> torch.T
     return out * ok[..., None].to(emb_local.dtype)
 
 
+class _StackedHeadLogits(torch.autograd.Function):
+    """float32 logits of position-stacked x32 [M, N, d] against a head
+    [M, d, V] in its own dtype, each position's product taken with its
+    head cast to float32 one position at a time: the function of
+    ``bmm(x32, head.to(float32))``, whose cast of a broadcast head would
+    materialize M float32 copies and keep them for the backward.  The
+    backward returns the head's gradient in the head's dtype (the cast's
+    own backward), again position by position."""
+
+    @staticmethod
+    def forward(ctx, x32, head):
+        ctx.save_for_backward(x32, head)
+        out = x32.new_empty(x32.shape[:-1] + (head.shape[-1],))
+        for i in range(head.shape[0]):
+            torch.matmul(x32[i], head[i].to(torch.float32), out=out[i])
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x32, head = ctx.saved_tensors
+        gx = torch.empty_like(x32)
+        gh = head.new_empty(head.shape)
+        for i in range(head.shape[0]):
+            h32 = head[i].to(torch.float32)
+            torch.matmul(g[i], h32.transpose(0, 1), out=gx[i])
+            del h32
+            gh[i] = torch.matmul(x32[i].transpose(0, 1), g[i])
+        return gx, gh
+
+
 def lm_head_loss(x: torch.Tensor, head_local: torch.Tensor,
                  labels: torch.Tensor, mask: Optional[torch.Tensor] = None,
                  shard: int = 0) -> torch.Tensor:
     """Mean cross-entropy with float32 logits; x [B, T, d], head_local
-    [d, V_local], labels [B, T] global ids.  The max stabilizer carries no
-    gradient (the reference's ``stop_gradient``).  Position-stacked (x
-    [M, B, T, d], head [M, d, V_local]): the M positions' means, [M]."""
-    logits = linear(x.to(torch.float32), head_local.to(torch.float32))
+    [d, V_local] in any dtype (cast to float32 for the product), labels
+    [B, T] global ids.  The max stabilizer carries no gradient (the
+    reference's ``stop_gradient``).  Position-stacked (x [M, B, T, d],
+    head [M, d, V_local]): the M positions' means, [M]; the head is cast
+    one position at a time (:class:`_StackedHeadLogits`)."""
+    if head_local.ndim == 3:
+        m = head_local.shape[0]
+        x32 = x.to(torch.float32)
+        logits = _StackedHeadLogits.apply(
+            x32.reshape(m, -1, x32.shape[-1]), head_local).reshape(
+                x32.shape[:-1] + (head_local.shape[-1],))
+    else:
+        logits = linear(x.to(torch.float32), head_local.to(torch.float32))
     v_local = head_local.shape[-1]
     gmax = torch.amax(logits.detach(), dim=-1)                    # [B, T]
     z = torch.exp(logits - gmax[..., None])

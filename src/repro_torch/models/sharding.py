@@ -1,16 +1,27 @@
-"""Spec trees of every block kind (reference: ``repro.models.sharding``).
+"""Spec trees of every block kind, and FSDP's gather (reference: ``repro.models.sharding``).
 
 Each leaf's entry is a tuple over its dims: ``"model"`` (the tensor
 parallel axis), ``"fsdp"`` (sharded over the data axes when
 ``cfg.fsdp``) or ``None`` (replicated); ``full_model_spec_tuples``
-prepends the period-stack dim.  The port runs at tp = 1 without FSDP, so
-the trees only classify leaves: the gradient sync and the grad norm read
-them, as the reference's do.  :func:`check_ported` raises for what the
-port's models do not cover yet (ROADMAP Queue 1 items 18-20).
+prepends the period-stack dim.  The port runs at tp = 1, so the trees
+classify leaves: the gradient sync and the grad norm read them, as the
+reference's do, and so does FSDP's gather.
+
+FSDP on the stacked data mesh (:class:`FsdpGather`): the reference
+shards each ``"fsdp"`` dim over the data axes and all_gathers it per
+period inside the scan, so the gather's transpose -- a reduce-scatter
+over the data axes -- is the leaf's gradient sync.  The port holds such
+a leaf once; its gather is the M-position broadcast view (no copy) and
+its backward is that reduce-scatter on the stacked ``[M, ...]``
+gradient, one stage of degree M, which returns the held-once leaf's
+summed gradient.  :func:`check_ported` raises for a model axis (ROADMAP
+Queue 1 item 20).
 """
 from __future__ import annotations
 
 from typing import Any, Dict
+
+import torch
 
 from .common import ModelConfig
 
@@ -18,15 +29,14 @@ Tree = Dict[str, Any]
 
 
 def check_ported(cfg: ModelConfig, tp: int = 1) -> None:
-    """Raise for an encoder or image tokens (item 18), FSDP (item 19) or
-    a model axis (item 20); every block and FFN kind is ported."""
-    if cfg.enc_layers or cfg.img_tokens:
-        raise NotImplementedError(
-            "encoder-decoder and VLM stubs (enc_layers, img_tokens) are not "
-            "ported yet (ROADMAP Queue 1 item 18)")
-    if cfg.fsdp:
-        raise NotImplementedError(
-            "fsdp=True is not ported yet (ROADMAP Queue 1 item 19)")
+    """Raise for a model axis (item 20); every block, FFN and frontend
+    kind is ported, and FSDP too.  An encoder-decoder with FSDP raises
+    ``ValueError``: no config has both, and the reference gathers on the
+    decoder path only."""
+    if cfg.enc_layers and cfg.fsdp:
+        raise ValueError(
+            "enc_layers with fsdp=True: no config has both, and the "
+            "reference's encoder-decoder forward never gathers FSDP leaves")
     if tp != 1:
         raise NotImplementedError(
             "the model axis (tp > 1) is not ported yet (ROADMAP Queue 1 "
@@ -109,6 +119,12 @@ def model_spec(cfg: ModelConfig, tp: int) -> Tree:
                "blocks": period_spec(cfg, tp)}
     if not cfg.tie_embeddings:
         s["head"] = (None, "model")
+    if cfg.enc_layers:
+        s["enc_blocks"] = {"b0": {"ln1": (None,), "attn": attn_spec(cfg, tp),
+                                  "ln2": (None,), "ffn": ffn_spec(cfg, tp)}}
+        s["enc_ln"] = (None,)
+        s["cross"] = attn_spec(cfg, tp)       # per-period cross attention
+        s["ln_cross"] = (None,)
     return s
 
 
@@ -127,9 +143,76 @@ def full_model_spec_tuples(cfg: ModelConfig, tp: int) -> Tree:
            "blocks": _stack_spec(spec["blocks"])}
     if "head" in spec:
         out["head"] = tuple(spec["head"])
+    if cfg.enc_layers:
+        out["enc_blocks"] = _stack_spec(spec["enc_blocks"])
+        out["enc_ln"] = tuple(spec["enc_ln"])
+        out["cross"] = _stack_spec(spec["cross"])
+        out["ln_cross"] = tuple(spec["ln_cross"])
     return out
 
 
 def is_fsdp_leaf(spec_leaf) -> bool:
     """Whether a leaf's spec names the fsdp dim."""
     return any(d == "fsdp" for d in spec_leaf)
+
+
+def fsdp_block_paths(cfg: ModelConfig, tp: int = 1) -> frozenset:
+    """The paths within a period (``("b0", "attn", "wq")``, ...) of the
+    leaves FSDP gathers: none unless ``cfg.fsdp``."""
+    if not cfg.fsdp:
+        return frozenset()
+    return frozenset(path for path, s in _flat(period_spec(cfg, tp))
+                     if is_fsdp_leaf(s))
+
+
+def _flat(tree, prefix=()):
+    """``[(path, spec tuple)]`` of a spec tree."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flat(tree[k], prefix + (k,))]
+    return [(prefix, tree)]
+
+
+def fsdp_dim(spec_leaf) -> int:
+    """The dim a leaf's spec shards over the data axes."""
+    return list(spec_leaf).index("fsdp")
+
+
+class FsdpGather(torch.autograd.Function):
+    """The reference's per-period ``lax.all_gather(tiled=True)`` of one
+    FSDP leaf over the whole data axis, on the stacked mesh.
+
+    Forward: the held-once leaf ``x`` as M positions' copies, ``[M,
+    ...]``, a broadcast view.  Backward: the transpose, a tiled
+    reduce-scatter of the stacked gradient ``[M, ...]`` along ``dim``
+    over one stage of degree M (``transport``, built on
+    ``ButterflyPlan(M, (M,))``): position j receives chunk j of the sum,
+    the members added in member order, and the M chunks laid end to end
+    along ``dim`` are the held-once leaf's gradient.  One exchange."""
+
+    @staticmethod
+    def forward(ctx, x, dim, transport):
+        ctx.dim, ctx.transport = dim, transport
+        return x.unsqueeze(0).expand((transport.num_nodes,) + tuple(x.shape))
+
+    @staticmethod
+    def backward(ctx, g):
+        m, dim = ctx.transport.num_nodes, ctx.dim
+        if m == 1:
+            return g[0], None, None
+        if g.shape[1 + dim] % m:
+            raise ValueError(f"fsdp dim {dim} of {tuple(g.shape[1:])} does "
+                             f"not split over {m} data positions")
+        shards = ctx.transport.reduce_scatter(
+            0, g.movedim(1 + dim, 1).contiguous())       # [M, n / M, ...]
+        full = shards.reshape((-1,) + tuple(shards.shape[2:]))
+        return full.movedim(0, dim), None, None
+
+
+def fsdp_gather(params: Tree, spec: Tree, transport) -> Tree:
+    """A period's leaves with every ``"fsdp"`` leaf gathered
+    (:class:`FsdpGather`) and the rest as given."""
+    if isinstance(spec, dict):
+        return {k: fsdp_gather(params[k], spec[k], transport) for k in spec}
+    if is_fsdp_leaf(spec):
+        return FsdpGather.apply(params, fsdp_dim(spec), transport)
+    return params

@@ -10,10 +10,20 @@ mixers) and ``ffn_pattern`` (dense, MoE, both, or none); the MoE aux
 losses are summed over the blocks.  Each block is recomputed in the
 backward under ``remat_policy="full"`` (``torch.utils.checkpoint``, the
 reference's per-block ``jax.checkpoint``); ``"dots"`` keeps the
-activations, which gives the same values.  An encoder, image tokens,
-FSDP and tp > 1 raise, naming their ROADMAP items.
-:func:`params_from_jax` and :func:`params_to_numpy` copy weights between
-the two packages exactly.
+activations, which gives the same values.
+
+The frontend stubs: an encoder-decoder (whisper) adds ``enc_blocks``
+(stacked over ``enc_layers``), ``enc_ln``, ``cross`` (stacked over the
+periods) and ``ln_cross``; :func:`encoder_fwd` runs the frame embeddings
+through the encoder stack unmasked, and each decoder attention block is
+followed by a cross-attention block against that period's encoder keys
+and values.  A VLM (internvl2) prepends its patch embeddings to the
+token embeddings, and the loss skips them.  FSDP (``cfg.fsdp`` on a mesh
+whose axis context carries the gather's transport): each period's FSDP
+leaves, held once, are gathered into the M positions' views
+(``sharding.FsdpGather``), whose backward is their gradient sync.  tp >
+1 raises, naming its ROADMAP item.  :func:`params_from_jax` and
+:func:`params_to_numpy` copy weights between the two packages exactly.
 """
 from __future__ import annotations
 
@@ -29,7 +39,8 @@ from . import moe as MOE
 from . import ssm as SSM
 from .common import (ModelConfig, act_fn, dense_init, embed, linear,
                      lm_head_loss, rmsnorm)
-from .sharding import check_ported
+from .sharding import (check_ported, fsdp_block_paths, fsdp_gather,
+                       period_spec)
 
 Params = Dict[str, Any]
 
@@ -41,11 +52,14 @@ def padded_vocab(cfg: ModelConfig, tp: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class AxisCtx:
-    """The reference's axis context; the port runs tp = 1 only."""
+    """The reference's axis context; the port runs tp = 1 only.  With
+    ``fsdp_axes``, ``fsdp_transport`` is the stacked transport of one
+    stage over the data positions that FSDP's gather reduces over."""
     tp_axis: str = "model"
     tp: int = 1
     dp_axes: Tuple[str, ...] = ("data",)
     fsdp_axes: Optional[Tuple[str, ...]] = None
+    fsdp_transport: Any = None
 
 
 # ---------------------------------------------------------------------------
@@ -56,17 +70,11 @@ def _block_builders(cfg: ModelConfig, tp: int, draw, zeros):
     """The reference's per-kind leaf builders, each drawing its weights
     with ``draw(shape, scale_axis, dtype)`` and its zero / one leaves
     with ``zeros(*shape, dtype)``: ``(mixers, ffn, moe)``."""
-    d, ff, hd, h = cfg.d_model, cfg.d_ff, cfg.hd, cfg.n_heads
-    dt, f32 = cfg.dtype, torch.float32
+    d, ff, h = cfg.d_model, cfg.d_ff, cfg.n_heads
+    f32 = torch.float32
 
     def attn():
-        hq, kvw = cfg.n_heads_padded(tp) * hd, cfg.n_kv * hd
-        p = {"wq": draw((d, hq)), "wk": draw((d, kvw)),
-             "wv": draw((d, kvw)), "wo": draw((hq, d))}
-        if cfg.qkv_bias:
-            p.update(bq=zeros(hq, dtype=dt), bk=zeros(kvw, dtype=dt),
-                     bv=zeros(kvw, dtype=dt))
-        return p
+        return A.attn_params(cfg, tp, draw, zeros)
 
     def mamba():
         di, n = 2 * d, cfg.ssm_state
@@ -107,24 +115,29 @@ def init_params(cfg: ModelConfig, tp: int = 1, seed: int = 0,
                 device=None) -> Params:
     """Global-shape parameter tree drawn from a ``torch.Generator`` seeded
     with ``seed`` on ``device`` (default: the current CUDA device), block
-    by block in pattern order; norms, biases and ``A_log`` start at 0 and
-    mamba's ``D`` at 1, as in the reference.  The router and the mLSTM
-    gates are float32."""
+    by block in pattern order, then the embedding, the head, and an
+    encoder-decoder's encoder blocks and cross attention; norms, biases
+    and ``A_log`` start at 0 and mamba's ``D`` at 1, as in the
+    reference.  The router and the mLSTM gates are float32."""
     from repro_torch.core.transport import resolve_device
     check_ported(cfg, tp)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(int(seed))
-    d, n = cfg.d_model, cfg.n_periods
+    d = cfg.d_model
     dt = cfg.dtype
     vp = padded_vocab(cfg, tp)
 
-    def zeros(*shape, dtype=torch.float32):
-        return torch.zeros((n,) + shape, dtype=dtype, device=device)
+    def stacked(n):
+        """``(draw, zeros)`` of leaves stacked over ``n``."""
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros((n,) + shape, dtype=dtype, device=device)
 
-    def draw(shape, scale_axis=0, dtype=dt):
-        return dense_init(gen, (n,) + tuple(shape),
-                          scale_axis=1 + scale_axis, dtype=dtype)
+        def draw(shape, scale_axis=0, dtype=dt):
+            return dense_init(gen, (n,) + tuple(shape),
+                              scale_axis=1 + scale_axis, dtype=dtype)
+        return draw, zeros
 
+    draw, zeros = stacked(cfg.n_periods)
     mixers, ffn_params, moe_params = _block_builders(cfg, tp, draw, zeros)
     blocks = {}
     for j, (blk, ffn) in enumerate(zip(cfg.pattern, cfg.ffn_pattern)):
@@ -142,6 +155,15 @@ def init_params(cfg: ModelConfig, tp: int = 1, seed: int = 0,
                  "blocks": blocks}
     if not cfg.tie_embeddings:
         p["head"] = dense_init(gen, (d, vp), dtype=dt)
+    if cfg.enc_layers:
+        edraw, ezeros = stacked(cfg.enc_layers)
+        _, enc_ffn, _ = _block_builders(cfg, tp, edraw, ezeros)
+        p["enc_blocks"] = {"b0": {
+            "ln1": ezeros(d), "attn": A.attn_params(cfg, tp, edraw, ezeros),
+            "ln2": ezeros(d), "ffn": enc_ffn()}}
+        p["enc_ln"] = torch.zeros(d, dtype=torch.float32, device=device)
+        p["cross"] = A.cross_attn_params(cfg, tp, draw, zeros)
+        p["ln_cross"] = torch.zeros(d, dtype=torch.float32, device=device)
     return p
 
 
@@ -221,9 +243,14 @@ def _remat(cfg: ModelConfig):
 
 
 def _period_fwd(pp: Params, x: torch.Tensor, cfg: ModelConfig, ax: AxisCtx,
-                positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                positions: torch.Tensor, cross_kv=None, cross_p=None,
+                ln_cross=None, causal: bool = True
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One period of blocks, full sequence: ``(x, aux_loss)``, the MoE
-    blocks' aux losses summed ([M] for position-stacked x)."""
+    blocks' aux losses summed ([M] for position-stacked x).  With
+    ``cross_kv`` (the encoder's keys and values), each attention block is
+    followed by a cross-attention block (``cross_p``, ``ln_cross``);
+    ``causal=False`` is the encoder's unmasked attention."""
     ckpt = _remat(cfg)
     aux = torch.zeros(x.shape[:1] if pp["b0"]["ln1"].ndim == 2 else (),
                       dtype=torch.float32, device=x.device)
@@ -235,7 +262,7 @@ def _period_fwd(pp: Params, x: torch.Tensor, cfg: ModelConfig, ax: AxisCtx,
             h = rmsnorm(x, ln1, cfg.norm_eps)
             if blk == "attn":
                 return x + A.attn_train(pm, h, cfg, ax.tp, w,
-                                        positions=positions)
+                                        positions=positions, causal=causal)
             if blk == "mamba":
                 return x + SSM.mamba_train(pm, h, cfg, ax.tp)
             if blk == "mlstm":
@@ -254,6 +281,9 @@ def _period_fwd(pp: Params, x: torch.Tensor, cfg: ModelConfig, ax: AxisCtx,
             return x + (ym if y2 is None else y2 + ym), a
 
         x = ckpt(mixer, e[blk], e["ln1"], x)
+        if cross_kv is not None and blk == "attn":
+            x = ckpt(_cross_block, cross_p, ln_cross, cross_kv[0],
+                     cross_kv[1], x, cfg, ax.tp)
         if ffn == "none":
             continue
         x, a = ckpt(ffnblk, e.get("ffn"), e.get("moe"), e["ln2"], x)
@@ -262,14 +292,35 @@ def _period_fwd(pp: Params, x: torch.Tensor, cfg: ModelConfig, ax: AxisCtx,
     return x, aux
 
 
-def _period_views(blocks: Params, n: int, dim: int = 0):
-    """The period-stacked block tree (period axis ``dim``) as ``n``
-    per-period trees of views."""
+def _cross_block(cp, ln_cross, ck, cv, x, cfg, tp):
+    """x plus the cross attention of its norm against the encoder."""
+    hc = rmsnorm(x, ln_cross, cfg.norm_eps)
+    return x + A.cross_attn(cp, hc, ck, cv, cfg, tp)
+
+
+def _period_views(blocks: Params, n: int, dim=0):
+    """The period-stacked block tree as ``n`` per-period trees of views:
+    the period axis is ``dim``, or ``dim(path)`` per leaf."""
     paths = tree_leaves(blocks)
-    per = [t.unbind(dim) for _, t in paths]
+    per = [t.unbind(dim(p) if callable(dim) else dim) for p, t in paths]
     return [tree_from_leaves(blocks, [(p, u[i]) for (p, _), u
                                       in zip(paths, per)])
             for i in range(n)]
+
+
+def encoder_fwd(params: Params, frames: torch.Tensor, cfg: ModelConfig,
+                ax: Optional[AxisCtx] = None) -> torch.Tensor:
+    """The encoder over stub frame embeddings [B, S, d] (position-stacked:
+    [M, B, S, d]): the period stack over ``enc_blocks``, unmasked, then
+    ``enc_ln``."""
+    ax = ax or AxisCtx()
+    stacked = params["emb"].ndim == 3
+    x = frames
+    positions = torch.arange(x.shape[-2], dtype=torch.int64, device=x.device)
+    for pp in _period_views(params["enc_blocks"], cfg.enc_layers,
+                            dim=1 if stacked else 0):
+        x, _ = _period_fwd(pp, x, cfg, ax, positions, causal=False)
+    return rmsnorm(x, params["enc_ln"], cfg.norm_eps)
 
 
 def forward_loss(params: Params, tokens: torch.Tensor, labels: torch.Tensor,
@@ -282,24 +333,54 @@ def forward_loss(params: Params, tokens: torch.Tensor, labels: torch.Tensor,
     Position-stacked parameters (every leaf with a leading [M] axis, e.g.
     ``emb`` [M, V, d]) take tokens / labels [M, B, T] and give the M
     positions' losses and aux, each [M]: one batched program, whose
-    gradient of ``loss.sum()`` is each position's own gradient."""
+    gradient of ``loss.sum()`` is each position's own gradient.  Under
+    FSDP (``ax.fsdp_axes``) the FSDP block leaves are held once and
+    gathered per period.
+
+    ``extra_embeds`` [B, Ti, d] (VLM): cast to the model dtype and put
+    before the token embeddings; their labels are 0 and their loss mask
+    0, and positions run over the whole Ti + T.  ``enc_frames`` [B, S, d]
+    (encoder-decoder): run through :func:`encoder_fwd`, and each decoder
+    period's cross attention reads keys and values projected from its
+    output by that period's ``cross`` leaves."""
     ax = ax or AxisCtx()
     check_ported(cfg, ax.tp)
-    if extra_embeds is not None or enc_frames is not None:
-        raise NotImplementedError(
-            "encoder-decoder and VLM stubs are not ported yet (ROADMAP "
-            "Queue 1 item 18)")
     stacked = params["emb"].ndim == 3
     x = embed(params["emb"], tokens).to(cfg.dtype)
+    mask = loss_mask
+    if extra_embeds is not None:
+        lead, ti = x.shape[:-2], extra_embeds.shape[-2]
+        x = torch.cat([extra_embeds.to(cfg.dtype), x], dim=-2)
+        labels = torch.cat([torch.zeros(lead + (ti,), dtype=labels.dtype,
+                                        device=labels.device), labels], -1)
+        m0 = torch.ones(tokens.shape, dtype=torch.float32,
+                        device=x.device) if mask is None else mask
+        mask = torch.cat([torch.zeros(lead + (ti,), dtype=torch.float32,
+                                      device=x.device),
+                          m0.to(torch.float32)], -1)
     positions = torch.arange(x.shape[-2], dtype=torch.int64, device=x.device)
     aux = torch.zeros(x.shape[:1] if stacked else (), dtype=torch.float32,
                       device=x.device)
-    for pp in _period_views(params["blocks"], cfg.n_periods,
-                            dim=1 if stacked else 0):
-        x, a = _period_fwd(pp, x, cfg, ax, positions)
+    held = fsdp_block_paths(cfg, ax.tp) if ax.fsdp_axes else frozenset()
+    period_dim = (lambda path: 0 if path in held else 1) if stacked else 0
+    views = _period_views(params["blocks"], cfg.n_periods, dim=period_dim)
+    cross = [None] * cfg.n_periods
+    if cfg.enc_layers:
+        enc_out = encoder_fwd(params, enc_frames.to(cfg.dtype), cfg, ax)
+        cross = _period_views(params["cross"], cfg.n_periods,
+                              dim=1 if stacked else 0)
+    for pp, cp in zip(views, cross):
+        if ax.fsdp_axes:
+            pp = fsdp_gather(pp, period_spec(cfg, ax.tp), ax.fsdp_transport)
+        if cp is None:
+            x, a = _period_fwd(pp, x, cfg, ax, positions)
+        else:
+            x, a = _period_fwd(pp, x, cfg, ax, positions,
+                               cross_kv=A.encode_kv(cp, enc_out, cfg, ax.tp),
+                               cross_p=cp, ln_cross=params["ln_cross"])
         aux = aux + a
     x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
     head = params["emb"].transpose(-1, -2) if cfg.tie_embeddings \
         else params["head"]
-    loss = lm_head_loss(x, head.to(torch.float32), labels, loss_mask)
+    loss = lm_head_loss(x, head, labels, mask)
     return loss, aux

@@ -24,9 +24,20 @@ gradient of the summed block losses with respect to those views is each
 block's own gradient.  The sync runs over the stacked transport
 (``core.transport.StackedTransport``) through the port's union Sparse
 Allreduce and its CUDA merge kernels.  Every synced gradient's M rows
-are equal by construction; AdamW applies once, to row 0.  The bucketed
-overlap schedule (ROADMAP Queue 1 item 12), FSDP (item 19), a model axis
-(item 20) and a ``pod`` axis (item 21) are not ported yet and raise.
+are equal by construction; AdamW applies once, to row 0.
+
+FSDP (``cfg.fsdp``): the FSDP block leaves are differentiated with
+respect to the held-once leaf through each period's gather
+(``models.sharding.FsdpGather``), whose backward reduce-scatters the M
+positions' gradients of that period over the data axis while the
+backward runs, as the reference's all_gather transpose does; the sync
+then only divides such a leaf by dp, and the M stacked copies of a
+period's block gradients never outlive its backward.  The other leaves
+keep the stacked path.  Batches of a VLM (``img_embeds``) and of an
+encoder-decoder (``enc_frames``) are split over the positions and the
+microbatches as the tokens are.  The bucketed overlap schedule (ROADMAP
+Queue 1 item 12), a model axis (item 20) and a ``pod`` axis (item 21)
+are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -47,7 +58,7 @@ from repro_torch.core.topology import ButterflyPlan, check_wire
 from repro_torch.core.transport import StackedTransport, resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.sharding import (check_ported,
+from repro_torch.models.sharding import (check_ported, fsdp_block_paths,
                                          full_model_spec_tuples, is_fsdp_leaf)
 from repro_torch.optim.adamw import AdamW
 
@@ -86,8 +97,15 @@ class MeshCtx:
         return {"data": self.data, "model": 1}
 
     def axis_ctx(self, cfg: ModelConfig) -> T.AxisCtx:
-        """The models' axis context."""
-        return T.AxisCtx(tp_axis=self.tp_axis, tp=1, dp_axes=self.dp_axes)
+        """The models' axis context; with ``cfg.fsdp``, the FSDP axes and
+        the gather's transport, one stage of degree M over the
+        positions."""
+        if not cfg.fsdp:
+            return T.AxisCtx(tp_axis=self.tp_axis, tp=1, dp_axes=self.dp_axes)
+        return T.AxisCtx(
+            tp_axis=self.tp_axis, tp=1, dp_axes=self.dp_axes,
+            fsdp_axes=self.dp_axes, fsdp_transport=StackedTransport(
+                ButterflyPlan(self.dp, (self.dp,)), self.device))
 
 
 def mesh_ctx(data: int, model: int = 1, pod: int = 1,
@@ -197,7 +215,8 @@ def sparse_sync_rows(grad: torch.Tensor, ids: torch.Tensor, mc: MeshCtx,
                      transport: StackedTransport,
                      merge: str = "sort", wire: str = "raw",
                      ef: Optional[torch.Tensor] = None,
-                     capture: Optional[dict] = None
+                     capture: Optional[dict] = None,
+                     row: Optional[int] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor,
                                 Optional[torch.Tensor]]:
     """Sparse Allreduce of a row-sparse gradient table over the data axis.
@@ -207,7 +226,9 @@ def sparse_sync_rows(grad: torch.Tensor, ids: torch.Tensor, mc: MeshCtx,
     (``SYNC_PERM``), sorts them into ``in_capacity`` slots, gathers those
     rows and runs the union butterfly; the union's rows are written back
     into a ``[V + 1, d]`` buffer whose last row takes the padding.
-    Returns (synced [M, V, d] in grad's dtype, overflow [M], new carry).
+    Returns (synced [M, V, d] in grad's dtype, overflow [M], new carry);
+    with ``row`` only that position's rows are written back (the union
+    is the same at every position), synced [V, d].
 
     ``ef`` [M, V, d] float32: the ``wire="delta+int8ef"`` error-feedback
     carry, added to the rows sent; the residual of one per-row int8
@@ -251,13 +272,22 @@ def sparse_sync_rows(grad: torch.Tensor, ids: torch.Tensor, mc: MeshCtx,
     chunk, ovf = sparse_allreduce_union(
         SparseChunk(idx=uniq, val=vals), dplan, edges, transport,
         merge=merge, wire=wire)
-    ok = chunk.idx != SENTINEL
-    dest = torch.where(ok, _as_int32(SYNC_PERM.inv(chunk.idx)), v_l)
-    synced = torch.zeros((m, v_l + 1, d), dtype=torch.float32, device=dev)
-    synced[node, dest] = chunk.val * ok[..., None].to(chunk.val.dtype)
-    synced = synced[:, :v_l]
+    idx, val = (chunk.idx, chunk.val) if row is None else \
+        (chunk.idx[row], chunk.val[row])
+    ok = idx != SENTINEL
+    dest = torch.where(ok, _as_int32(SYNC_PERM.inv(idx)), v_l)
+    vals = val * ok[..., None].to(val.dtype)
+    del chunk
+    if row is None:
+        synced = torch.zeros((m, v_l + 1, d), dtype=torch.float32, device=dev)
+        synced[node, dest] = vals
+        synced = synced[:, :v_l]
+    else:
+        synced = torch.zeros((v_l + 1, d), dtype=torch.float32, device=dev)
+        synced[dest] = vals
+        synced = synced[:v_l]
     if capture is not None:
-        capture["f32"] = synced[0].clone()
+        capture["f32"] = (synced if row is not None else synced[0]).clone()
     return synced.to(grad.dtype), ovf, new_ef
 
 
@@ -292,7 +322,10 @@ def sync_grads(grads, cfg: ModelConfig, mc: MeshCtx, mode: str,
     leaf (the rows are equal); ``consume=True`` drops each input leaf from
     ``grads`` once synced, so the stacked gradients are freed leaf by
     leaf.  ``capture`` receives the float32 sync of the embedding leaf
-    (``capture["emb"]``, a test hook)."""
+    (``capture["emb"]``, a test hook).  An FSDP leaf arrives held once,
+    already summed over the positions by its gather's backward, and its
+    synced gradient is ``g / dp`` with no exchange (the replication
+    weights never apply: FSDP with replication > 1 raises)."""
     spec = dict(T.tree_leaves(full_model_spec_tuples(cfg, mc.tp)))
     dp = float(dp_logical if dp_logical is not None else mc.dp)
     overflow = torch.zeros(mc.dp, dtype=torch.int64, device=mc.device)
@@ -306,18 +339,22 @@ def sync_grads(grads, cfg: ModelConfig, mc: MeshCtx, mode: str,
         if consume:
             del parent[path[-1]]
         if cfg.fsdp and is_fsdp_leaf(spec[path]):
-            raise NotImplementedError(
-                "fsdp=True is not ported yet (ROADMAP Queue 1 item 19)")
+            out.append((path, g / dp))
+            del g
+            continue
         if repl_weight is not None:
             g = g * repl_weight.to(g.dtype).reshape((-1,) + (1,) * (g.ndim - 1))
         cap = {} if capture is not None and path == ("emb",) else None
+        picked = False                  # r is row ``rows`` already
         if mode == "sparse" and path == ("emb",) and not cfg.tie_embeddings:
             r, ovf, nef = sparse_sync_rows(
                 g, token_ids, mc, plans.sparse_plan, plans.sparse_edges,
-                plans.sparse, merge=merge, wire=wire, ef=ef, capture=cap)
+                plans.sparse, merge=merge, wire=wire, ef=ef, capture=cap,
+                row=rows)
             overflow = overflow + ovf
             if nef is not None:
                 new_ef = nef
+            picked = rows is not None
         elif mode in ("hier", "sparse") and plans.hier_plan is not None \
                 and g[0].numel() >= mc.dp:
             r = _hier_allreduce_leaf(g, plans.hier_plan, plans.hier,
@@ -325,10 +362,12 @@ def sync_grads(grads, cfg: ModelConfig, mc: MeshCtx, mode: str,
         else:
             r = plans.psum.psum(g)
         del g
+        if rows is not None and not picked:
+            r = r[rows]
         r = r / dp
         if cap is not None:
             capture["emb"] = cap
-        out.append((path, r if rows is None else r[rows].clone()))
+        out.append((path, r))
         del r
     return T.tree_from_leaves(
         full_model_spec_tuples(cfg, mc.tp), out), overflow, new_ef
@@ -398,11 +437,17 @@ def _check_sync_settings(sync: str, sync_merge: str, sync_wire: str,
             "item 12)")
 
 
-def _replication(mc: MeshCtx, replication: int, dead):
+def _replication(cfg: ModelConfig, mc: MeshCtx, replication: int, dead):
     """``(weights tensor or None, dp_logical)``; raises
-    ``DeadLogicalNode`` when a whole replica group is dead."""
+    ``DeadLogicalNode`` when a whole replica group is dead, and
+    ``ValueError`` for FSDP with replication > 1, as the reference."""
     if replication > 1 or dead:
         from repro_torch.core.replication import contribution_weights
+        if cfg.fsdp and replication > 1:
+            raise ValueError(
+                "replication>1 is unsupported with fsdp: the per-period "
+                "all_gather transpose sums FSDP leaf grads over data before "
+                "contribution weights could mask replicas")
         if mc.dp % replication:
             raise ValueError(f"dp={mc.dp} not divisible by r={replication}")
         w = contribution_weights(mc.dp, replication, dead)
@@ -411,11 +456,12 @@ def _replication(mc: MeshCtx, replication: int, dead):
     return None, mc.dp
 
 
-def _stack_tokens(x, mc: MeshCtx) -> torch.Tensor:
-    """A [B, S] batch as [M, B / M, S] int64 on the mesh's device."""
+def _stack_tokens(x, mc: MeshCtx, dtype=torch.int64) -> torch.Tensor:
+    """A [B, S, ...] batch as [M, B / M, S, ...] on the mesh's device, in
+    ``dtype`` (``None``: its own)."""
     t = torch.as_tensor(np.asarray(x)) if not isinstance(x, torch.Tensor) \
         else x
-    t = t.to(device=mc.device, dtype=torch.int64)
+    t = t.to(device=mc.device, dtype=dtype or t.dtype)
     if t.shape[0] % mc.dp:
         raise ValueError(f"batch of {t.shape[0]} rows does not split over "
                          f"{mc.dp} data positions")
@@ -436,11 +482,13 @@ def make_sync_fn(cfg: ModelConfig, mc: MeshCtx, *, sync: str = "hier",
     ``synced`` holds each leaf stacked [M, ...] (all rows equal) and
     ``overflow`` is [M].  With ``salt_shards`` each *logical* shard's
     copy is scaled by 2^-((n mod dp_logical) mod 4) first, so routing
-    faults cannot cancel and replicas stay identical.  Error feedback is
-    not threaded (``delta+int8ef`` syncs with no carry)."""
+    faults cannot cancel and replicas stay identical.  An FSDP leaf is
+    only divided by dp, each position's salted copy on its own, as in the
+    reference's harness (there its gather's transpose sums it).  Error
+    feedback is not threaded (``delta+int8ef`` syncs with no carry)."""
     _check_sync_settings(sync, sync_merge, sync_wire, sync_overlap)
     check_ported(cfg)
-    repl_w, dp_logical = _replication(mc, replication, dead)
+    repl_w, dp_logical = _replication(cfg, mc, replication, dead)
     plans = _build_sync_plans(cfg, mc, sync, dp_degrees, sparse_tokens_hint,
                               retune)
     node = torch.arange(mc.dp, device=mc.device)
@@ -461,6 +509,9 @@ def make_sync_fn(cfg: ModelConfig, mc: MeshCtx, *, sync: str = "hier",
         return synced, overflow
 
     return fn, full_model_spec_tuples(cfg, mc.tp)
+
+
+EXTRA_KEYS = ("img_embeds", "enc_frames")
 
 
 def train_fingerprint(cfg: ModelConfig, **settings) -> str:
@@ -485,7 +536,8 @@ def make_train_step(cfg: ModelConfig, mc: MeshCtx, *, sync: str = "ring",
     opt_state, metrics)`` over the stacked data mesh ``mc``.
 
     batch: ``tokens`` / ``labels`` [B, S] (numpy or tensors), B divisible
-    by M.  Each position differentiates ``loss + aux_weight * aux`` of its
+    by M, and a VLM's ``img_embeds`` [B, Ti, d] / an encoder-decoder's
+    ``enc_frames`` [B, S_enc, d].  Each position differentiates ``loss + aux_weight * aux`` of its
     B / M rows (``microbatch`` > 1 accumulates float32 gradients over that
     many row slices and divides, as the reference's scan does); the
     stacked gradients are synced (``sync``, ``dp_degrees``,
@@ -507,23 +559,30 @@ def make_train_step(cfg: ModelConfig, mc: MeshCtx, *, sync: str = "ring",
     ``donate`` (the default, as the reference's buffer donation) AdamW
     drops the caller's parameters and optimizer state leaf by leaf as it
     replaces them, so a step holds one set of moments: the caller must
-    not read the ``params`` and ``opt_state`` it passed."""
+    not read the ``params`` and ``opt_state`` it passed.  FSDP leaves
+    (``cfg.fsdp``) are differentiated held once, through each period's
+    gather; FSDP with ``replication`` > 1 raises ``ValueError``."""
     _check_sync_settings(sync, sync_merge, sync_wire, sync_overlap)
     check_ported(cfg)
     if microbatch < 1:
         raise ValueError(f"microbatch must be >= 1, got {microbatch}")
     opt = opt or AdamW()
     ax = mc.axis_ctx(cfg)
-    repl_w, dp_logical = _replication(mc, replication, dead)
+    repl_w, dp_logical = _replication(cfg, mc, replication, dead)
     plans = _build_sync_plans(cfg, mc, sync, dp_degrees, sparse_tokens_hint,
                               retune)
     use_ef = sync == "sparse" and sync_wire == "delta+int8ef"
     ef_shape = (mc.dp, T.padded_vocab(cfg, mc.tp), cfg.d_model)
+    fsdp_paths = fsdp_block_paths(cfg)
 
-    def grads_of(ps, tree, tokens, labels):
-        """Each position's gradients of its rows' loss, stacked [M, ...],
-        and the M losses and aux."""
-        loss, aux = T.forward_loss(tree, tokens, labels, cfg, ax)
+    def grads_of(ps, tree, tokens, labels, extras):
+        """Each position's gradients of its rows' loss, stacked [M, ...]
+        (an FSDP leaf's summed over the positions), and the M losses and
+        aux."""
+        loss, aux = T.forward_loss(
+            tree, tokens, labels, cfg, ax,
+            extra_embeds=extras.get("img_embeds"),
+            enc_frames=extras.get("enc_frames"))
         gs = torch.autograd.grad((loss + aux_weight * aux).sum(), ps)
         return gs, loss.detach(), aux.detach()
 
@@ -538,14 +597,20 @@ def make_train_step(cfg: ModelConfig, mc: MeshCtx, *, sync: str = "ring",
             ef, opt_state = opt_state["ef"], opt_state["adamw"]
         tokens = _stack_tokens(batch["tokens"], mc)
         labels = _stack_tokens(batch["labels"], mc)
+        extras = {k: _stack_tokens(batch[k], mc, dtype=None)
+                  for k in EXTRA_KEYS if batch.get(k) is not None}
         leaves = T.tree_leaves(params)
-        # position i differentiates through its own (broadcast) copy
-        ps = [p.detach().unsqueeze(0).expand((mc.dp,) + tuple(p.shape))
-              .requires_grad_(True) for _, p in leaves]
+        # position i differentiates through its own (broadcast) copy; an
+        # FSDP leaf is held once and gathered per period
+        ps = [p.detach().requires_grad_(True)
+              if path[0] == "blocks" and path[1:] in fsdp_paths else
+              p.detach().unsqueeze(0).expand((mc.dp,) + tuple(p.shape))
+              .requires_grad_(True) for path, p in leaves]
         tree = T.tree_from_leaves(params, [(path, p) for (path, _), p
                                            in zip(leaves, ps)])
         if microbatch == 1:
-            stacked, losses, auxes = grads_of(ps, tree, tokens, labels)
+            stacked, losses, auxes = grads_of(ps, tree, tokens, labels,
+                                              extras)
         else:
             rows = tokens.shape[1]
             if rows % microbatch:
@@ -555,7 +620,8 @@ def make_train_step(cfg: ModelConfig, mc: MeshCtx, *, sync: str = "ring",
             stacked = losses = auxes = None
             for j in range(microbatch):
                 sl = slice(j * per, (j + 1) * per)
-                gs, l, a = grads_of(ps, tree, tokens[:, sl], labels[:, sl])
+                gs, l, a = grads_of(ps, tree, tokens[:, sl], labels[:, sl],
+                                    {k: v[:, sl] for k, v in extras.items()})
                 gs = [g.to(torch.float32) for g in gs]
                 if stacked is None:
                     stacked, losses, auxes = gs, l, a
@@ -565,7 +631,7 @@ def make_train_step(cfg: ModelConfig, mc: MeshCtx, *, sync: str = "ring",
                 del gs
             stacked = [s / microbatch for s in stacked]
             losses, auxes = losses / microbatch, auxes / microbatch
-        del tree, ps
+        del tree, ps, extras
         mark("fwd_bwd")
         grads = T.tree_from_leaves(params, [(path, s) for (path, _), s
                                             in zip(leaves, stacked)])

@@ -20,7 +20,8 @@ against ``searchsorted``; the SpMVs within rtol 1e-5 (float32 sums in
 another order), the CSR kernel also bit-identical across two launches.
 The training stack: a reduced train step through the merge kernels
 repeated on the card gives the same bits (and the CPU run's losses
-within rtol 1e-4), for the dense, MoE and SSM models alike; the MoE and
+within rtol 1e-4), for the dense, MoE, SSM, encoder-decoder and FSDP
+VLM models alike; the MoE and
 SSM blocks on the card equal their CPU run within rtol 1e-4; and both
 scatters at the training width (w = 1,024) equal their plain versions
 on a CPU copy bit for bit.
@@ -870,6 +871,24 @@ def test_moe_ssm_train_step_repeats_bit_identical_on_gpu(cuda, arch,
     assert la == lb
     assert all(torch.equal(a, b) for a, b in zip(pa, pb))
     lc, _ = _train_run("cpu", "fused", arch=arch, moe_capacity=capacity)
+    np.testing.assert_allclose(la, lc, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,fsdp", [("whisper-base", False),
+                                       ("internvl2-26b", True)])
+def test_frontend_train_steps_on_gpu_equal_cpu(cuda, arch, fsdp):
+    """Reduced untied whisper-base (encoder, cross attention) and
+    internvl2 with ``fsdp=True`` (image tokens; the FSDP gather's
+    reduce-scatter in the backward) through the sparse / fused sync from
+    the same weights and batches: two runs on the card give the same
+    losses and parameters bit for bit, within rtol 1e-4 of the CPU run's
+    losses."""
+    la, pa = _train_run(cuda, "fused", arch=arch, fsdp=fsdp)
+    lb, pb = _train_run(cuda, "fused", arch=arch, fsdp=fsdp)
+    assert la == lb
+    assert all(torch.equal(a, b) for a, b in zip(pa, pb))
+    lc, _ = _train_run("cpu", "fused", arch=arch, fsdp=fsdp)
     np.testing.assert_allclose(la, lc, rtol=1e-4)
 
 

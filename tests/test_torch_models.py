@@ -11,8 +11,8 @@ gradient leaf within rtol 1e-4, atol 1e-6.  On their own: ``rope``,
 ``rmsnorm``, the GQA attention with causal and window masks, the
 embedding and head loss; ``zipf_tokens`` and ``Batcher`` byte for byte;
 ``AdamW.update`` within rtol 1e-6; the weight copy both ways; what stays
-unported (an encoder, image tokens, FSDP, tp > 1) raising with its
-ROADMAP item.
+unported (tp > 1, a ``pod`` axis, sequences of 8,192 tokens, the
+bucketed overlap) raising with its ROADMAP item.
 """
 import dataclasses
 
@@ -243,26 +243,41 @@ def test_configs_copied_as_data():
         get_config("qwen1.5-0.5b", "nope")
 
 
-@pytest.mark.parametrize("arch,reduced,item",
-                         [("arctic-480b", False, "item 19"),
-                          ("jamba-1.5-large-398b", False, "item 19"),
-                          ("whisper-base", True, "item 18"),
-                          ("internvl2-26b", True, "item 18")])
-def test_unported_kinds_raise_with_their_item(arch, reduced, item):
-    """What stays unported raises before anything is allocated: arctic
-    and jamba at their published configs need FSDP (398-480 B
-    parameters), whisper and internvl2 the encoder / image stubs."""
-    cfg = get_config(arch).reduced() if reduced else get_config(arch)
+def _raises_tp2():
+    T.init_params(get_config("qwen1.5-0.5b").reduced(), 2, device="cpu")
+
+
+def _raises_pod():
+    from repro_torch.train.step import mesh_ctx
+    mesh_ctx(4, pod=2, device="cpu")
+
+
+def _raises_long_sequence():
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    p = T.init_params(cfg, 1, seed=0, device="cpu")["blocks"]["b0"]["attn"]
+    A.attn_train({k: v[0] for k, v in p.items()},
+                 torch.zeros(1, A.BLOCKED_ATTN_THRESHOLD, cfg.d_model), cfg,
+                 1, 0)
+
+
+def _raises_bucketed_overlap():
+    from repro_torch.train.step import make_train_step, mesh_ctx
+    make_train_step(get_config("qwen1.5-0.5b").reduced(),
+                    mesh_ctx(2, device="cpu"), sync="hier",
+                    sync_overlap="bucketed")
+
+
+@pytest.mark.parametrize("call,item", [(_raises_tp2, "item 20"),
+                                       (_raises_pod, "item 21"),
+                                       (_raises_long_sequence, "item 22"),
+                                       (_raises_bucketed_overlap, "item 12")])
+def test_unported_kinds_raise_with_their_item(call, item):
+    """What stays unported raises before anything large is allocated,
+    naming its ROADMAP item: a model axis (tp = 2), a ``pod`` axis, a
+    sequence of 8,192 tokens (``attn_train_blocked``) and the bucketed
+    overlap schedule."""
     with pytest.raises(NotImplementedError, match=item):
-        T.init_params(cfg, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        T.forward_loss({"emb": torch.zeros(8, 4)}, torch.zeros(1, 4).long(),
-                       torch.zeros(1, 4).long(), cfg)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        T.init_params(dataclasses.replace(
-            get_config("qwen1.5-0.5b").reduced(), fsdp=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 20"):
-        T.init_params(get_config("qwen1.5-0.5b").reduced(), 2, device="cpu")
+        call()
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "gemma3-12b"])
@@ -293,3 +308,30 @@ def test_position_stacked_forward_is_each_positions_own(arch):
         for (path, _), g, g1 in zip(leaves, gs, torch.autograd.grad(l1, one)):
             torch.testing.assert_close(g[i], g1, rtol=1e-5, atol=1e-7,
                                        msg=str(path))
+
+
+def test_stacked_head_loss_casts_one_position_at_a_time(monkeypatch):
+    """``lm_head_loss`` with a position-stacked bfloat16 head broadcast
+    over M = 3 (stride 0) equals the plain ``bmm`` of the float32 cast
+    head (which materializes M float32 copies): losses, and the gradients
+    of x and of the head (in bfloat16, the cast's backward), within rtol
+    1e-6."""
+    gen = torch.Generator().manual_seed(11)
+    head = (torch.randn(16, 40, generator=gen) / 4).to(torch.bfloat16)
+    x = torch.randn(3, 2, 5, 16, generator=gen)
+    labels = torch.randint(0, 40, (3, 2, 5), generator=gen)
+    mask = (torch.rand(3, 2, 5, generator=gen) > 0.3).float()
+    outs = []
+    for stacked in (True, False):
+        h = head.unsqueeze(0).expand(3, 16, 40).requires_grad_(True)
+        xx = x.clone().requires_grad_(True)
+        if not stacked:
+            monkeypatch.setattr(C._StackedHeadLogits, "apply",
+                                lambda x32, hd: torch.bmm(
+                                    x32, hd.to(torch.float32)))
+        loss = C.lm_head_loss(xx, h, labels, mask)
+        gx, gh = torch.autograd.grad(loss.sum(), (xx, h))
+        assert loss.shape == (3,) and gh.dtype == torch.bfloat16
+        outs.append((loss.detach(), gx, gh.float()))
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)

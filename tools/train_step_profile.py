@@ -4,11 +4,15 @@
     PYTHONPATH=src python3 tools/train_step_profile.py [--sync sparse]
         [--merge fused] [--wire raw] [--steps 3] [--profile]
         [--arch qwen1.5-0.5b] [--data-axis 8] [--degrees 4,2]
+        [--layers N]
 
 Builds ``make_train_step`` on ``--arch`` untied (default: the smoke's
 train phase, qwen1.5-0.5b on M = 8 stacked data positions, degrees (4,
 2); granite-moe-3b-a800m with ``--data-axis 2 --degrees 2`` is the
-smoke's train_moe, xlstm-1.3b its train_ssm), batch 8 x seq 256, the
+smoke's train_moe, xlstm-1.3b its train_ssm, whisper-base its
+train_encdec, internvl2-26b with ``--data-axis 4 --degrees 2,2 --layers
+4`` its train_vlm; ``--layers`` cuts the depth), batch 8 x seq 256 (and
+the config's stub frames or image tokens), the
 parameters and optimizer state donated, runs ``--steps`` steps
 and prints, per step, the forward + backward, sync and update
 milliseconds by CUDA events and the host wall time of the step.  With
@@ -18,6 +22,7 @@ operators of that step (``key_averages``), so a slow stage can be named.
 Prints one JSON line per step and, last, a summary line.
 """
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -48,12 +53,16 @@ def main() -> int:
     ap.add_argument("--arch", default="qwen1.5-0.5b")
     ap.add_argument("--data-axis", type=int, default=8)
     ap.add_argument("--degrees", default="4,2")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: as published)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("train_step_profile: no CUDA device", file=sys.stderr)
         return 2
 
     cfg = get_config(args.arch, "untied")
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     mc = mesh_ctx(args.data_axis)
     degrees = tuple(int(x) for x in args.degrees.split(","))
     step, _ = make_train_step(
@@ -67,10 +76,11 @@ def main() -> int:
     for i in range(args.steps):
         ev = {s: torch.cuda.Event(enable_timing=True)
               for s in ("start", "fwd_bwd", "sync", "update")}
-        torch.cuda.synchronize()
+        batch = next(stream)       # drawn before the clock: img_embeds
+        torch.cuda.synchronize()   # alone are 8 x 1,024 x 6,144 normals
         t0 = time.perf_counter()
         ev["start"].record()
-        params, st, m = step(params, st, next(stream),
+        params, st, m = step(params, st, batch,
                              mark=lambda s: ev[s].record())
         torch.cuda.synchronize()
         row = {"step": i, "wall_ms": (time.perf_counter() - t0) * 1e3,
@@ -83,9 +93,10 @@ def main() -> int:
         print(json.dumps(row), flush=True)
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
+        batch = next(stream)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            params, st, m = step(params, st, next(stream))
+            params, st, m = step(params, st, batch)
             torch.cuda.synchronize()
         avg = prof.key_averages()
         print(avg.table(sort_by="cuda_time_total", row_limit=args.rows))
@@ -96,6 +107,7 @@ def main() -> int:
         print(json.dumps({"device_ms": sum(us for us, _ in dev) / 1e3,
                           "device_launches": sum(n for us, n in dev if us)}))
     print(json.dumps({"summary": True, "arch": cfg.name, "sync": args.sync,
+                      "layers": cfg.n_layers, "fsdp": cfg.fsdp,
                       "merge": args.merge, "wire": args.wire,
                       "device": torch.cuda.get_device_name(0),
                       "steps": rows}))
