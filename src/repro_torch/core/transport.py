@@ -32,6 +32,16 @@ pairwise tree over the node axis in one fixed order, broadcast back to
 every node, so repeats give the same bits on any device.  It is counted
 in ``sums``, apart from ``calls``, so a reduce still costs exactly ``2 *
 depth`` exchanges.
+
+The model axis is a second stacked axis.  On a (data, model) mesh of dp x
+tp positions, position n = d * tp + m (the device order of
+``jax.make_mesh((dp, tp), ("data", "model"))``).  A data-axis plan
+exchanges within each model column: ``StackedTransport(plan, device,
+columns=tp)`` stacks dp * tp positions, and each stage group of data
+node d becomes tp groups, one per column m, so one exchange (and one
+merge launch) serves every column.  :class:`ModelAxis` is the model
+axis within each data row: ``all_to_all`` and the tiled ``all_gather``
+(index permutations, counted in ``calls``), what the MoE exchanges.
 """
 from __future__ import annotations
 
@@ -64,20 +74,28 @@ class StackedTransport:
     Built once per (plan, device): for every layer l of ``plan`` it holds
     the all_to_all row permutation (``[M*k]``), the all_gather row table
     (``[M*k]``) and each node's group position (``[M]``) on ``device``.
+    ``columns=tp`` stacks ``plan.num_nodes * tp`` positions, position
+    ``d * tp + m`` being data node d of model column m: the plan's groups
+    apply within each column (M counts every position).
     """
 
-    def __init__(self, plan: ButterflyPlan, device=None):
+    def __init__(self, plan: ButterflyPlan, device=None, columns: int = 1):
         self.plan = plan
+        self.columns = int(columns)
         self.device = resolve_device(device)
         self.calls = 0
         self.sums = 0
-        m = plan.num_nodes
+        tp = self.columns
+        m = plan.num_nodes * tp
+        col = np.arange(m, dtype=np.int64) % tp
         self._a2a, self._gather, self._position = [], [], []
         for l in range(plan.depth):
             k = plan.degrees[l]
-            members = np.array([plan.group_members(n, l) for n in range(m)],
-                               np.int64)                       # [M, k]
-            digit = np.array([plan.digits(n)[l] for n in range(m)], np.int64)
+            members = np.array([plan.group_members(n // tp, l)
+                                for n in range(m)], np.int64) * tp \
+                + col[:, None]                                 # [M, k]
+            digit = np.array([plan.digits(n // tp)[l] for n in range(m)],
+                             np.int64)
             self._a2a.append(torch.as_tensor(
                 (members * k + digit[:, None]).reshape(-1), device=self.device))
             self._gather.append(torch.as_tensor(members.reshape(-1),
@@ -86,8 +104,8 @@ class StackedTransport:
 
     @property
     def num_nodes(self) -> int:
-        """Stacked node count M."""
-        return self.plan.num_nodes
+        """Stacked position count M (data nodes times columns)."""
+        return self.plan.num_nodes * self.columns
 
     def position(self, layer: int) -> torch.Tensor:
         """int64 [M]: each node's position j in its layer-``layer`` group
@@ -137,10 +155,11 @@ class StackedTransport:
         """Whole-mesh sum of a per-node ``[M, ...]`` tensor, broadcast
         back to ``[M, ...]``: the nodes are added pairwise in a tree of
         ceil(log2 M) levels (at each level node 2i + 1 into node 2i, an
-        odd last node carried up unchanged), the same order every call."""
-        if x.shape[0] != self.num_nodes:
-            raise ValueError(f"psum: expected {self.num_nodes} nodes, got "
-                             f"{x.shape[0]}")
+        odd last node carried up unchanged), the same order every call.
+        (A whole-mesh sum: a transport with ``columns`` > 1 has none.)"""
+        if self.columns != 1 or x.shape[0] != self.num_nodes:
+            raise ValueError(f"psum: expected {self.num_nodes} nodes of one "
+                             f"column, got {x.shape[0]} of {self.columns}")
         self.sums += 1
         s = x
         while s.shape[0] > 1:
@@ -148,6 +167,45 @@ class StackedTransport:
             pair = s[0:n - 1:2] + s[1:n:2]
             s = torch.cat([pair, s[n - 1:]]) if n % 2 else pair
         return s.expand(x.shape).contiguous()
+
+
+class ModelAxis:
+    """The model axis of a stacked (data, model) mesh, within each data
+    row: ``tp`` positions, position m of data row d being mesh position d
+    * tp + m.
+
+    Tensors over the axis are ``[dp, tp, ...]``.  ``all_to_all`` and the
+    tiled ``all_gather`` are the reference's collectives over ``model``
+    as index permutations, counted in ``calls``, apart from the data
+    axis's transports.  The reference's ``psum`` / ``pmax`` over
+    ``model`` have no counterpart: the models hold every leaf whole and
+    take the summed product once (``repro_torch.models.common``)."""
+
+    def __init__(self, tp: int):
+        self.tp = int(tp)
+        self.calls = 0
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``lax.all_to_all(split_axis=0, concat_axis=0)`` over the model
+        axis of per-position buffers ``[dp, tp, tp, ...]`` (position m's
+        buffer t goes to position t): ``out[d, t, s] = x[d, s, t]``, so
+        position t receives the buffers for it in source order."""
+        self.calls += 1
+        if x.shape[1] != self.tp or x.shape[2] != self.tp:
+            raise ValueError(f"all_to_all: [dp, {self.tp}, {self.tp}, ...] "
+                             f"expected, got {tuple(x.shape)}")
+        return x.transpose(1, 2)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Tiled ``lax.all_gather`` over the model axis of ``[dp, tp, C,
+        ...]``: the positions' rows laid end to end, ``[dp, tp * C, ...]``
+        (what every position of the row receives)."""
+        self.calls += 1
+        if x.shape[1] != self.tp:
+            raise ValueError(f"all_gather: [dp, {self.tp}, ...] expected, "
+                             f"got {tuple(x.shape)}")
+        return x.reshape((x.shape[0], self.tp * x.shape[2])
+                         + tuple(x.shape[3:]))
 
 
 def as_index_tensor(idx, device: Optional[torch.device] = None) -> torch.Tensor:

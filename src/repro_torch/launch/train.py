@@ -3,9 +3,13 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
         --untied --sync sparse --merge fused --data-axis 8 --dp-degrees 4,2
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
+        --untied --sync sparse --merge fused --data-axis 2 --model-axis 2
 
-Stacks ``--data-axis`` data positions on one device (the port's mesh,
-``repro_torch.train.step.mesh_ctx``), streams the reference's synthetic
+Stacks ``--data-axis`` data positions, each with ``--model-axis``
+model positions, on one device (the port's mesh,
+``repro_torch.train.step.mesh_ctx``; the weights are the global leaves
+at that tp), streams the reference's synthetic
 Zipf batches (:func:`batch_stream`, byte for byte), runs the train step
 with the chosen gradient sync (ring | hier | sparse, the paper's
 primitive through the port's CUDA merge kernels), logs loss and
@@ -14,8 +18,8 @@ throughput, and checkpoints through ``repro_torch.checkpoint.store``.
 one; ``--device cpu`` runs the kernels' plain versions.  ``--dp-degrees
 auto`` resolves through the port's calibrated, cached autotuner
 (``$REPRO_PLAN_CACHE``).  A VLM's stub image embeddings and an
-encoder-decoder's stub frames come with each batch.  ``--model-axis`` >
-1 and ``--sync-overlap bucketed`` raise, naming their ROADMAP items;
+encoder-decoder's stub frames come with each batch.  ``--sync-overlap
+bucketed`` raises, naming its ROADMAP item;
 ``--replication`` > 1 with an FSDP config raises ``ValueError``, as in
 the reference.
 """
@@ -103,7 +107,9 @@ def main(argv=None):
                     help="comma-separated dead data positions")
     ap.add_argument("--data-axis", type=int, default=8,
                     help="stacked data-parallel positions M")
-    ap.add_argument("--model-axis", type=int, default=1)
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="tensor-parallel positions within each data "
+                         "position (vocab, heads and experts sharded)")
     ap.add_argument("--untied", action="store_true",
                     help="untie embeddings (sparse sync acts on input emb)")
     ap.add_argument("--ckpt", default="")
@@ -112,10 +118,6 @@ def main(argv=None):
                     help="torch device (default: the current CUDA device)")
     args = ap.parse_args(argv)
 
-    if args.model_axis != 1:
-        raise NotImplementedError(
-            "--model-axis > 1 (tensor parallelism) is not ported yet "
-            "(ROADMAP Queue 1 item 20)")
     if args.sync_overlap == "bucketed":
         raise NotImplementedError(
             "--sync-overlap bucketed is not ported yet (ROADMAP Queue 1 "
@@ -132,7 +134,7 @@ def main(argv=None):
     if args.replication > 1 or dead:
         repl = (f" replication={args.replication}"
                 f" dead={sorted(dead) if dead else []}")
-    print(f"mesh data={mc.dp} model=1 on {mc.device}; arch={cfg.name} "
+    print(f"mesh data={mc.dp} model={mc.tp} on {mc.device}; arch={cfg.name} "
           f"({cfg.param_count() / 1e6:.1f}M params) sync={args.sync}{repl}")
     step, _ = make_train_step(
         cfg, mc, sync=args.sync, opt=AdamW(lr=args.lr),
@@ -140,7 +142,7 @@ def main(argv=None):
         sparse_tokens_hint=max(8, args.batch * args.seq // mc.dp),
         sync_merge=args.merge, sync_wire=args.wire,
         replication=args.replication, dead=dead, retune=args.retune)
-    params = T.init_params(cfg, 1, seed=args.seed, device=mc.device)
+    params = T.init_params(cfg, mc.tp, seed=args.seed, device=mc.device)
     opt_state = AdamW().init(params)
     stream = batch_stream(cfg, args.batch, args.seq, seed=args.seed)
 

@@ -9,9 +9,20 @@ then the weighted values and the output projection.  ``cross_attn`` is
 the decoder's cross attention (whisper): unrotated queries against the
 encoder's keys and values (``encode_kv``, computed once per period),
 every key visible.  Plain torch ops in the reference's order; there is
-no TPU kernel here.  The query-chunked ``attn_train_blocked`` (sequences
-of 8,192 tokens and more) and decode are not ported yet (ROADMAP Queue 1
-items 22 and 14).
+no TPU kernel here.
+
+At tp > 1 (position-stacked) the reference's local heads are
+reproduced: query heads padded to ``n_heads_padded(tp)`` and split into
+tp groups of ``heads_local``; kv heads split the same way when ``n_kv >=
+tp``, else replicated and sliced, position m taking kv head ``(m *
+n_kv) // tp`` (``_localize_attn``).  q, k and v come from one product
+each with the held leaves; the scores run over the [M, tp] positions as
+one batch; the output projection, the positions' partial products
+summed over the model axis in the reference (its ``psum``), is one
+product of their heads side by side with the held ``wo``.
+
+The query-chunked ``attn_train_blocked`` (sequences of 8,192 tokens and
+more) and decode are not ported yet (ROADMAP Queue 1 items 22 and 14).
 """
 from __future__ import annotations
 
@@ -45,17 +56,39 @@ def cross_attn_params(cfg: ModelConfig, tp: int, draw, zeros):
     return attn_params(cfg, tp, draw, zeros)
 
 
-def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig, tp: int):
-    """q [..., T, Hl, hd], k and v [..., T, KVl, hd] in x's dtype."""
-    lead = x.shape[:-1]
-    hl, kvl, hd = cfg.heads_local(tp), cfg.kv_local(tp), cfg.hd
+def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig):
+    """q [..., T, H, hd], k and v [..., T, KV, hd] in x's dtype, with as
+    many heads as the leaves hold (at tp > 1 every position's)."""
+    lead, hd = x.shape[:-1], cfg.hd
     q = linear(x, p["wq"])
     k = linear(x, p["wk"])
     v = linear(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + vec(p["bq"], q), k + vec(p["bk"], k), v + vec(p["bv"], v)
-    return (q.reshape(lead + (hl, hd)), k.reshape(lead + (kvl, hd)),
-            v.reshape(lead + (kvl, hd)))
+    return (q.reshape(lead + (-1, hd)), k.reshape(lead + (-1, hd)),
+            v.reshape(lead + (-1, hd)))
+
+
+def _heads_tp(q: torch.Tensor, tp: int) -> torch.Tensor:
+    """Heads [M, ..., T, H, hd] split over the model axis: [M, tp, ...,
+    T, H / tp, hd], position m's heads being the m-th block."""
+    return q.unflatten(-2, (tp, q.shape[-2] // tp)).movedim(-3, 1)
+
+
+def _kv_tp(k: torch.Tensor, cfg: ModelConfig, tp: int) -> torch.Tensor:
+    """kv heads [M, ..., S, KV, hd] as each position's [M, tp, ..., S,
+    kv_local, hd]: split when ``n_kv >= tp``, else head ``(m * n_kv) //
+    tp`` for position m (the reference's ``_localize_attn``)."""
+    if cfg.n_kv >= tp:
+        return _heads_tp(k, tp)
+    idx = torch.tensor([(m * cfg.n_kv) // tp for m in range(tp)],
+                       device=k.device)
+    return k.index_select(-2, idx).unsqueeze(-2).movedim(-3, 1)
+
+
+def _merge_pos(t: torch.Tensor) -> torch.Tensor:
+    """[M, tp, B, T, h, hd] as one batch [M * tp * B, T, h, hd]."""
+    return t.reshape((-1,) + tuple(t.shape[-3:]))
 
 
 def _group_scores_to_out(q, k, v, mask, cfg: ModelConfig, tp: int):
@@ -99,23 +132,40 @@ def attn_mask(t: int, window: int, causal: bool = True,
     return (rel >= 0) & (rel < w_eff)
 
 
+def _attend_tp(q, k, v, mask, wo, cfg: ModelConfig, tp: int):
+    """The model-axis tail of an attention block: q [M, ..., T, Hp, hd],
+    k / v [M, ..., S, KV, hd] (or already per position, [M, tp, ..., S,
+    kv_local, hd]) -> each position's heads attended, laid side by side
+    and projected by ``wo``: [M, ..., T, d]."""
+    qt = _heads_tp(q, tp)
+    if k.ndim == q.ndim:
+        k, v = _kv_tp(k, cfg, tp), _kv_tp(v, cfg, tp)
+    out = _group_scores_to_out(_merge_pos(qt), _merge_pos(k), _merge_pos(v),
+                               mask, cfg, tp)
+    out = out.reshape(qt.shape[:-2] + (out.shape[-1],))   # [M, tp, ..., hl*hd]
+    return linear(out.movedim(1, -2).flatten(-2), wo)
+
+
 def attn_train(p, x: torch.Tensor, cfg: ModelConfig, tp: int, window: int,
                positions: Optional[torch.Tensor] = None,
                causal: bool = True) -> torch.Tensor:
     """Full-sequence attention of x [B, T, d] (position-stacked: [M, B, T,
     d] with stacked weights); ``window`` 0 = full; ``positions`` [T] or
-    broadcastable to the leading dims + [T]."""
+    broadcastable to the leading dims + [T].  At tp > 1 (position-stacked)
+    each model position's heads."""
     t = x.shape[-2]
     if t >= BLOCKED_ATTN_THRESHOLD:
         raise NotImplementedError(
             f"sequences of {BLOCKED_ATTN_THRESHOLD} tokens and more need "
             "attn_train_blocked, not ported yet (ROADMAP Queue 1 item 22)")
-    q, k, v = _project_qkv(p, x, cfg, tp)
+    q, k, v = _project_qkv(p, x, cfg)
     if positions is None:
         positions = torch.arange(t, dtype=torch.int64, device=x.device)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     mask = attn_mask(t, int(window), causal, device=x.device)
+    if tp > 1:
+        return _attend_tp(q, k, v, mask, p["wo"], cfg, tp)
     seq = (-1,) + tuple(q.shape[-3:])
     out = _group_scores_to_out(q.reshape(seq), k.reshape((-1,) + k.shape[-3:]),
                                v.reshape((-1,) + v.shape[-3:]), mask, cfg, tp)
@@ -127,12 +177,16 @@ def cross_attn(p, x: torch.Tensor, enc_k: torch.Tensor, enc_v: torch.Tensor,
     """Decoder cross attention of x [B, T, d] against the encoder's keys
     and values [B, S, KVl, hd] (``encode_kv``): no bias, no rotation,
     every key visible.  Position-stacked: x [M, B, T, d], k/v [M, B, S,
-    KVl, hd], stacked weights."""
-    t, hl, hd = x.shape[-2], cfg.heads_local(tp), cfg.hd
+    KVl, hd], stacked weights; at tp > 1 the keys and values are each
+    position's, [M, tp, B, S, kv_local, hd]."""
+    t, hd = x.shape[-2], cfg.hd
     q = linear(x, p["wq"])
-    q = q.reshape(q.shape[:-1] + (hl, hd))
+    q = q.reshape(q.shape[:-1] + (-1, hd))
     s = enc_k.shape[-3]
     mask = torch.ones((t, s), dtype=torch.bool, device=x.device)
+    if tp > 1:
+        return _attend_tp(q, enc_k.to(q.dtype), enc_v.to(q.dtype), mask,
+                          p["wo"], cfg, tp)
     out = _group_scores_to_out(
         q.reshape((-1,) + tuple(q.shape[-3:])),
         enc_k.to(q.dtype).reshape((-1,) + tuple(enc_k.shape[-3:])),
@@ -143,9 +197,13 @@ def cross_attn(p, x: torch.Tensor, enc_k: torch.Tensor, enc_v: torch.Tensor,
 
 def encode_kv(p, enc_out: torch.Tensor, cfg: ModelConfig, tp: int = 1):
     """Cross attention's keys and values [..., S, KVl, hd] from the
-    encoder output [..., S, d] (no bias)."""
-    kvl, hd = cfg.kv_local(tp), cfg.hd
+    encoder output [..., S, d] (no bias); at tp > 1 (position-stacked)
+    each position's, [M, tp, ..., S, kv_local, hd]."""
+    hd = cfg.hd
     k = linear(enc_out, p["wk"])
     v = linear(enc_out, p["wv"])
-    return (k.reshape(k.shape[:-1] + (kvl, hd)),
-            v.reshape(v.shape[:-1] + (kvl, hd)))
+    k = k.reshape(k.shape[:-1] + (-1, hd))
+    v = v.reshape(v.shape[:-1] + (-1, hd))
+    if tp > 1:
+        return _kv_tp(k, cfg, tp), _kv_tp(v, cfg, tp)
+    return k, v

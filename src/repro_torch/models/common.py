@@ -1,11 +1,9 @@
 """Model substrate: configs, init, norms, rope, embedding and head (reference: ``repro.models.common``).
 
 The reference runs every model inside ``shard_map`` with the vocabulary
-sharded over a ``model`` mesh axis.  The port runs one tensor-parallel
-shard (tp = 1) on one device, so the vocab-sharded collectives are
-identities; the masks around them are kept, so the arithmetic is the
-reference's step for step.  Casts follow the reference: matmuls in the
-activation dtype, norms and the loss in float32.
+sharded over a ``model`` mesh axis.  The port runs on one device, with
+the casts of the reference: matmuls in the activation dtype, norms and
+the loss in float32.
 
 Every function also takes *position-stacked* parameters: each leaf with
 a leading axis of M data positions (vectors [M, h], matrices [M, d, h],
@@ -13,10 +11,28 @@ the tables [M, V, d]) and activations [M, ...] -- M model copies run as
 one batched program (:func:`linear` is one batched matmul), so the
 gradient of the summed per-position losses with respect to stacked
 copies of one parameter set is each position's own gradient, stacked
-(``repro_torch.train.step`` relies on it).  Initialisation draws
-from an explicit ``torch.Generator`` (the reference's ``KeyGen`` is a
-JAX key chain, so equal seeds do not give equal weights across the two
-packages; tests copy weights over with
+(``repro_torch.train.step`` relies on it).
+
+At tp > 1 the port holds every leaf whole, in the reference's global
+shape at that tp, and what the reference replicates over the model axis
+-- the residual stream, norms, routers, the loss -- runs once per data
+row.  A column-sharded product followed by a row-sharded one (``w1`` /
+``w3`` then ``w2``, mamba's ``in_x`` then ``out``) is the reference's
+per-position partial products summed by its ``psum``; with the leaves
+held whole it is the same two products as at tp = 1, taken once.  The
+embedding (each vocab shard's masked lookup, summed) is the lookup in
+the whole table, and the head's loss (each shard's float32 logits, the
+``pmax`` stabilizer, ``denom`` and the picked logit summed over the
+shards) is the loss over the whole padded vocabulary, up to the order of
+``denom``'s float32 sum.  So :func:`embed`, :func:`lm_head_loss` and
+:func:`linear` serve every tp; only the blocks whose function differs
+at tp > 1 view their model positions (attention's padded heads and kv
+slice, the MoE's token slices and exchanges), and the sparse gradient
+sync runs per vocab shard (``repro_torch.train.step``).
+
+Initialisation draws from an explicit ``torch.Generator`` (the
+reference's ``KeyGen`` is a JAX key chain, so equal seeds do not give
+equal weights across the two packages; tests copy weights over with
 ``repro_torch.models.transformer.params_from_jax``).
 """
 from __future__ import annotations
@@ -209,7 +225,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 
 # ---------------------------------------------------------------------------
-# Embedding + LM head (one vocab shard: tp = 1)
+# Embedding + LM head
 # ---------------------------------------------------------------------------
 
 def embed(emb_local: torch.Tensor, ids: torch.Tensor, shard: int = 0) -> torch.Tensor:
@@ -267,8 +283,8 @@ class _StackedHeadLogits(torch.autograd.Function):
 
 
 def lm_head_loss(x: torch.Tensor, head_local: torch.Tensor,
-                 labels: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                 shard: int = 0) -> torch.Tensor:
+                 labels: torch.Tensor, mask: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
     """Mean cross-entropy with float32 logits; x [B, T, d], head_local
     [d, V_local] in any dtype (cast to float32 for the product), labels
     [B, T] global ids.  The max stabilizer carries no gradient (the
@@ -283,13 +299,12 @@ def lm_head_loss(x: torch.Tensor, head_local: torch.Tensor,
                 x32.shape[:-1] + (head_local.shape[-1],))
     else:
         logits = linear(x.to(torch.float32), head_local.to(torch.float32))
-    v_local = head_local.shape[-1]
     gmax = torch.amax(logits.detach(), dim=-1)                    # [B, T]
     z = torch.exp(logits - gmax[..., None])
     denom = torch.sum(z, dim=-1)                                  # [B, T]
-    loc = labels - shard * v_local
-    ok = (loc >= 0) & (loc < v_local)
-    safe = torch.clamp(loc, 0, v_local - 1)
+    v_local = head_local.shape[-1]
+    ok = (labels >= 0) & (labels < v_local)
+    safe = torch.clamp(labels, 0, v_local - 1)
     picked = torch.gather(logits, -1, safe[..., None].long())[..., 0]
     picked = torch.where(ok, picked - gmax, torch.zeros_like(picked))
     nll = torch.log(denom) - picked

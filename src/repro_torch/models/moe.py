@@ -5,16 +5,26 @@ tokens to the expert-owning device with two ``all_to_all``s: bucket the
 token copies by destination, exchange fixed-capacity buckets, group the
 received copies by local expert, run the gated expert FFN, and return
 along the same route -- one layer of the paper's butterfly, with the
-same static capacities and counted drops.  The port runs tp = 1, where
-both ``all_to_all``s are over one device and are identities; it keeps the
-reference's buffer layout without them.  tp > 1 raises (ROADMAP Queue 1
-item 20).
+same static capacities and counted drops.
 
 Position-stacked inputs (x [M, B, T, d] with parameters [M, ...], as
 ``models.common`` describes) route, group, fill capacities and count
 drops per position: position m's destinations are offset by m times its
 group count and one flat stable group-by runs over all of them, which
-gives every position the ranks it would get alone.  The group-by, the
+gives every position the ranks it would get alone.  At tp > 1 every
+(data row, model position) pair is such a position, P = M * tp of them:
+model position m takes its ``ceil(n / tp)`` token slice of its data row
+(the reference's ``token_shard``, zero-padded), routes it, buckets its
+copies by owning model position into ``cap_dev`` slots, and the
+dispatch is the model axis's ``all_to_all`` of ``[M, tp_src, tp_dst,
+cap_dev, d]`` buffers (``core.transport.ModelAxis``); each position runs
+its ``experts_local`` experts on what it received (its shard of the
+expert leaves is a view), the results return by the same
+``all_to_all``, and the tiled ``all_gather`` lays the slices end to end
+again.  At tp = 1 the same code runs with the exchanges left out
+(identities).  The aux loss and the dropped fraction are each
+position's own, [M, tp]; the train objective takes the mean of the aux
+over the model positions (``models.transformer``).  The group-by, the
 dispatch scatters and the combine gathers are plain torch ops, as the
 reference's are plain ``jnp``.  The two gathers back from the expert
 slots are ``index_select``s, whose backward is an ``index_add_`` (atomic
@@ -30,6 +40,7 @@ import math
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .common import ModelConfig, act_fn, linear
 
@@ -97,50 +108,64 @@ def _fill(slot: torch.Tensor, keep: torch.Tensor, vals: torch.Tensor,
 
 
 def moe_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig, tp: int = 1,
-            capacity_factor: float = 2.0
+            capacity_factor: float = 2.0, model=None
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x [B, T, d] -> ``(y [B, T, d], aux_loss, dropped_fraction)``.
 
     Position-stacked (x [M, B, T, d], parameters [M, ...]): y [M, B, T,
-    d], aux and dropped [M], each position's own.  The aux loss is the
-    switch-style load balance ``sum(mean probs * top-1 share) * E``; the
-    dropped fraction counts the copies that found no dispatch slot."""
-    if tp != 1:
-        raise NotImplementedError(
-            "the expert all_to_all over the model axis (tp > 1) is not "
-            "ported yet (ROADMAP Queue 1 item 20)")
+    d], aux and dropped [M], each position's own; at tp > 1 (``model``
+    the model axis, :class:`repro_torch.core.transport.ModelAxis`) aux
+    and dropped are [M, tp], each model position's on its token slice.
+    The aux loss is the switch-style load balance ``sum(mean probs *
+    top-1 share) * E``; the dropped fraction counts the copies that found
+    no dispatch slot."""
     stacked = p["router"].ndim == 3
     xs = x if stacked else x.unsqueeze(0)
     m, d = xs.shape[0], xs.shape[-1]
-    n = math.prod(xs.shape[1:-1])
+    n_full = math.prod(xs.shape[1:-1])
     el, e_pad, k_top = cfg.experts_local(tp), cfg.n_experts_padded(tp), \
         cfg.top_k
-    xf = xs.reshape(m, n, d)
     router = p["router"] if stacked else p["router"].unsqueeze(0)
     w1, w3, w2 = (p[k] if stacked else p[k].unsqueeze(0)
                   for k in ("w1", "w3", "w2"))
     dev = x.device
+    if tp > 1 and model is None:
+        raise ValueError("moe_ffn at tp > 1 exchanges over the mesh's model "
+                         "axis: pass model= (train.step.mesh_ctx gives it)")
+    # model position j of data row i is position i * tp + j, P in all,
+    # holding its ceil(n / tp) token slice (the whole row at tp = 1)
+    n = -(-n_full // tp)
+    npos = m * tp
+    xp = xs.reshape(m, n_full, d)
+    if n * tp != n_full:
+        xp = F.pad(xp, (0, 0, 0, n * tp - n_full))
+    xf = xp.reshape(npos, n, d)
 
-    # ---- route (per position) ---------------------------------------------
-    probs, wk, ek = router_topk(linear(xf.to(torch.float32), router), cfg)
-    me = torch.mean(probs, dim=1)                               # [M, E]
-    top1 = torch.nn.functional.one_hot(ek[..., 0], e_pad).to(torch.float32)
+    # ---- route (per token, each position's aux on its slice) --------------
+    probs, wk, ek = router_topk(
+        linear(xp.to(torch.float32), router).reshape(npos, n, -1), cfg)
+    me = torch.mean(probs, dim=1)                               # [P, E]
+    top1 = F.one_hot(ek[..., 0], e_pad).to(torch.float32)
     ce = torch.mean(top1, dim=1)
-    aux = torch.sum(me * ce, dim=-1) * cfg.n_experts            # [M]
+    aux = torch.sum(me * ce, dim=-1) * cfg.n_experts            # [P]
 
-    # ---- dispatch: bucket by owning device (one at tp = 1) ----------------
+    # ---- dispatch: bucket by owning model position ------------------------
     cap_dev, cap_e = capacities(cfg, n, tp, capacity_factor)
-    off = torch.arange(m, device=dev)[:, None]
-    flat_e = ek.reshape(m, n * k_top)
+    off = torch.arange(npos, device=dev)[:, None]
+    flat_e = ek.reshape(npos, n * k_top)
     dest_dev = flat_e // el
-    slot, keep = _group_by((dest_dev + off * tp).reshape(-1), m * tp,
+    slot, keep = _group_by((dest_dev + off * tp).reshape(-1), npos * tp,
                            cap_dev)
-    xk = torch.repeat_interleave(xf, k_top, dim=1).reshape(m * n * k_top, d)
-    rows_dev = m * tp * cap_dev
-    rx = _fill(slot, keep, xk, rows_dev)                        # [M*tp*cap, d]
+    xk = torch.repeat_interleave(xf, k_top, dim=1).reshape(npos * n * k_top, d)
+    rows_dev = npos * tp * cap_dev
+    rx = _fill(slot, keep, xk, rows_dev)              # [P * tp * cap, d]
     re = torch.full((rows_dev + 1,), -1, dtype=torch.int64, device=dev)
     re = re.index_put((slot,), torch.where(
         keep, (flat_e % el).reshape(-1), torch.full_like(slot, -1)))[:-1]
+    if tp > 1:      # [M, tp_src, tp_dst, cap] -> received [M, tp_dst, tp_src]
+        rx = model.all_to_all(rx.reshape(m, tp, tp, cap_dev, d)).reshape(
+            rows_dev, d)
+        re = model.all_to_all(re.reshape(m, tp, tp, cap_dev)).reshape(-1)
 
     # ---- local expert compute: group received copies by local expert ------
     # each position's empty slots go to a group of their own (el), after
@@ -148,28 +173,36 @@ def moe_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig, tp: int = 1,
     g = el + 1
     rpos = torch.arange(rows_dev, device=dev) // (tp * cap_dev)
     edest = torch.where(re >= 0, re, el) + rpos * g
-    eslot, ekeep = _group_by(edest, m * g, cap_e)
+    eslot, ekeep = _group_by(edest, npos * g, cap_e)
     live = ekeep & (re >= 0)
-    ex = _fill(eslot, live, rx, m * g * cap_e).reshape(m, g, cap_e, d)
-    ex = ex[:, :el]                                             # [M, el, cap, d]
+    ex = _fill(eslot, live, rx, npos * g * cap_e).reshape(npos, g, cap_e, d)
+    # position j's experts are its shard of the held [M, E_pad, ...] leaves
+    ex = ex[:, :el].reshape(m, e_pad, cap_e, d)
     h = act_fn(torch.matmul(ex, w1), cfg.act) * torch.matmul(ex, w3)
-    ey = torch.matmul(h, w2)                                    # [M, el, cap, d]
+    ey = torch.matmul(h, w2)                                   # [M, E, cap, d]
     # back to received-slot order; dropped and empty slots read their
     # position's last expert slot and are masked
     local = eslot - rpos * (g * cap_e)
     safe_es = torch.clamp(local, max=el * cap_e - 1) + rpos * (el * cap_e)
-    y_slots = torch.index_select(ey.reshape(m * el * cap_e, d), 0, safe_es) \
-        * live[:, None].to(ey.dtype)
+    y_slots = torch.index_select(ey.reshape(npos * el * cap_e, d), 0,
+                                 safe_es) * live[:, None].to(ey.dtype)
+    if tp > 1:      # the return route: the same all_to_all
+        y_slots = model.all_to_all(y_slots.reshape(m, tp, tp, cap_dev, d)) \
+            .reshape(rows_dev, d)
 
-    # ---- combine (the return all_to_all is an identity at tp = 1) ---------
-    spos = torch.arange(m * n * k_top, device=dev) // (n * k_top)
+    # ---- combine ----------------------------------------------------------
+    spos = torch.arange(npos * n * k_top, device=dev) // (n * k_top)
     safe_slot = torch.clamp(slot - spos * (tp * cap_dev),
                             max=tp * cap_dev - 1) + spos * (tp * cap_dev)
     per_assign = torch.index_select(y_slots, 0, safe_slot) \
         * keep[:, None].to(y_slots.dtype)
-    y = torch.sum(per_assign.reshape(m, n, k_top, d)
-                  * wk[..., None].to(x.dtype), dim=2)
-    dropped = 1.0 - torch.mean(keep.reshape(m, -1).to(torch.float32), dim=1)
+    y = torch.sum(per_assign.reshape(npos, n, k_top, d)
+                  * wk[..., None].to(x.dtype), dim=2)           # [P, n, d]
+    dropped = 1.0 - torch.mean(keep.reshape(npos, -1).to(torch.float32),
+                               dim=1)
+    if tp > 1:      # the slices end to end again: [M, tp * n, d]
+        y = model.all_gather(y.reshape(m, tp, n, d))[:, :n_full]
+        aux, dropped = aux.reshape(m, tp), dropped.reshape(m, tp)
     y = y.reshape(xs.shape)
     if not stacked:
         return y[0], aux[0], dropped[0]

@@ -3,9 +3,15 @@
 Each leaf's entry is a tuple over its dims: ``"model"`` (the tensor
 parallel axis), ``"fsdp"`` (sharded over the data axes when
 ``cfg.fsdp``) or ``None`` (replicated); ``full_model_spec_tuples``
-prepends the period-stack dim.  The port runs at tp = 1, so the trees
-classify leaves: the gradient sync and the grad norm read them, as the
-reference's do, and so does FSDP's gather.
+prepends the period-stack dim.  The gradient sync and the grad norm
+read the trees, as the reference's do, and so does FSDP's gather.
+
+The model axis (tp > 1): parameters are held once, in the reference's
+global shape at that tp.  A leaf's ``"model"`` dim splits into tp
+contiguous shards, position m's being shard m (the reference's
+``NamedSharding``); the blocks take a position's shard as a view where
+its function needs one, and otherwise the whole leaf
+(``models.common`` says why).
 
 FSDP on the stacked data mesh (:class:`FsdpGather`): the reference
 shards each ``"fsdp"`` dim over the data axes and all_gathers it per
@@ -14,8 +20,8 @@ over the data axes -- is the leaf's gradient sync.  The port holds such
 a leaf once; its gather is the M-position broadcast view (no copy) and
 its backward is that reduce-scatter on the stacked ``[M, ...]``
 gradient, one stage of degree M, which returns the held-once leaf's
-summed gradient.  :func:`check_ported` raises for a model axis (ROADMAP
-Queue 1 item 20).
+summed gradient.  At tp > 1 the model shards are views of the gathered
+leaf, so the gather and its reduce-scatter are those of tp = 1.
 """
 from __future__ import annotations
 
@@ -29,18 +35,34 @@ Tree = Dict[str, Any]
 
 
 def check_ported(cfg: ModelConfig, tp: int = 1) -> None:
-    """Raise for a model axis (item 20); every block, FFN and frontend
-    kind is ported, and FSDP too.  An encoder-decoder with FSDP raises
-    ``ValueError``: no config has both, and the reference gathers on the
-    decoder path only."""
+    """Every block, FFN and frontend kind is ported, with FSDP and a
+    model axis.  ``ValueError`` for what no config has: an
+    encoder-decoder with FSDP (the reference gathers on the decoder path
+    only), and at tp > 1 a sharded dim that does not split over tp, or
+    ``moe_token_shard=False`` (the reference's model positions would then
+    carry different residual streams after an MoE block)."""
     if cfg.enc_layers and cfg.fsdp:
         raise ValueError(
             "enc_layers with fsdp=True: no config has both, and the "
             "reference's encoder-decoder forward never gathers FSDP leaves")
-    if tp != 1:
-        raise NotImplementedError(
-            "the model axis (tp > 1) is not ported yet (ROADMAP Queue 1 "
-            "item 20)")
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    if tp == 1:
+        return
+    kinds = set(cfg.pattern)
+    dims = {"d_ff": cfg.d_ff if any(f in ("dense", "moe+dense")
+                                    for f in cfg.ffn_pattern) else 0,
+            "kv heads": cfg.n_kv if cfg.n_kv >= tp and "attn" in kinds else 0,
+            "mamba inner width": 2 * cfg.d_model if "mamba" in kinds else 0,
+            "mLSTM head dim": (cfg.d_model // cfg.n_heads)
+            if "mlstm" in kinds else 0}
+    bad = [f"{k} {v}" for k, v in dims.items() if v % tp]
+    if bad:
+        raise ValueError(f"tp={tp} does not split {', '.join(bad)}")
+    if cfg.n_experts and not cfg.moe_token_shard:
+        raise ValueError("moe_token_shard=False at tp > 1: every model "
+                         "position would route every token and keep its "
+                         "own output; no config runs it")
 
 
 def attn_spec(cfg: ModelConfig, tp: int) -> Tree:

@@ -16,10 +16,15 @@
   the loop.
 
 Every block takes position-stacked parameters ([M, ...], activations
-[M, B, T, d]) as ``models.common`` describes.  The port runs tp = 1, so
-the reference's ``psum`` over the model axis is an identity.  The decode
-halves (``*_decode``, ``*_init_state``) and ``return_state`` are for
-serving (ROADMAP Queue 1 item 14).
+[M, B, T, d]) as ``models.common`` describes.  At tp > 1 the parameters
+are the global leaves, held whole, so each block computes the tp = 1
+function in one program: mamba's channels and the reference's ``psum``
+after ``out`` are one product over every channel, and sLSTM is
+replicated.  mLSTM computes the tp = 1 function too; the reference's
+does not (it splits ``wv``'s columns contiguously while its heads take
+``dk / tp`` each; ROADMAP Queue 3 lists it).  The decode halves
+(``*_decode``, ``*_init_state``) and ``return_state`` are for serving
+(ROADMAP Queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -145,9 +150,10 @@ def mlstm_dims(cfg: ModelConfig, tp: int) -> Tuple[int, int, int]:
 
 def mlstm_train(p: Dict, x: torch.Tensor, cfg: ModelConfig,
                 tp: int = 1) -> torch.Tensor:
-    """mLSTM block of x [B, T, d] (position-stacked [M, B, T, d])."""
+    """mLSTM block of x [B, T, d] (position-stacked [M, B, T, d]): the tp
+    = 1 function at any ``tp``."""
     lead, t = x.shape[:-2], x.shape[-2]
-    h, dk, dvl = mlstm_dims(cfg, tp)
+    h, dk, dvl = mlstm_dims(cfg, 1)
     c = min(CHUNK, t)
     nc = t // c
     assert t % c == 0, f"seq {t} not divisible by chunk {c}"

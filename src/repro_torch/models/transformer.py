@@ -1,8 +1,10 @@
 """Model assembly, the training forward (reference: ``repro.models.transformer``).
 
-Parameters are the reference's global-shape tree at tp = 1: ``emb``
-[V_pad, d], ``final_ln``, ``head`` [d, V_pad] when untied, and
-``blocks`` whose leaves carry a leading period dim (the reference scans
+Parameters are the reference's global-shape tree at the mesh's tp:
+``emb`` [V_pad, d] (V padded to a multiple of 16 * tp), ``final_ln``,
+``head`` [d, V_pad] when untied, and ``blocks`` (query heads padded to
+``n_heads_padded(tp)``, experts to ``n_experts_padded(tp)``) whose
+leaves carry a leading period dim (the reference scans
 over it; the port loops, viewing each period through one ``unbind`` per
 leaf, whose backward stacks the periods' gradients once).  A period's
 blocks follow the config's ``pattern`` (attention, mamba, mLSTM, sLSTM
@@ -21,9 +23,20 @@ and values.  A VLM (internvl2) prepends its patch embeddings to the
 token embeddings, and the loss skips them.  FSDP (``cfg.fsdp`` on a mesh
 whose axis context carries the gather's transport): each period's FSDP
 leaves, held once, are gathered into the M positions' views
-(``sharding.FsdpGather``), whose backward is their gradient sync.  tp >
-1 raises, naming its ROADMAP item.  :func:`params_from_jax` and
-:func:`params_to_numpy` copy weights between the two packages exactly.
+(``sharding.FsdpGather``), whose backward is their gradient sync.
+
+The model axis (tp > 1, position-stacked, ``AxisCtx.model`` the
+:class:`repro_torch.core.transport.ModelAxis`): the leaves are held
+whole and every product whose function tp does not change runs once per
+data row, as at tp = 1 (``models.common`` says why); attention takes
+each model position's heads, and the MoE dispatches over the model axis
+(each block's module describes how).  The MoE aux losses are each model
+position's own, on its token slice (as the reference's), so at tp > 1
+the aux is [M, tp]; the train objective of a data row is its loss plus
+the aux weight times their mean over the model positions
+(``train.step``).  :func:`params_from_jax` and
+:func:`params_to_numpy` copy weights between the two packages exactly,
+at any tp.
 """
 from __future__ import annotations
 
@@ -52,14 +65,17 @@ def padded_vocab(cfg: ModelConfig, tp: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class AxisCtx:
-    """The reference's axis context; the port runs tp = 1 only.  With
-    ``fsdp_axes``, ``fsdp_transport`` is the stacked transport of one
-    stage over the data positions that FSDP's gather reduces over."""
+    """The reference's axis context.  With ``fsdp_axes``,
+    ``fsdp_transport`` is the stacked transport of one stage over the
+    data positions that FSDP's gather reduces over; at tp > 1 ``model``
+    is the mesh's model axis (``train.step.MeshCtx.axis_ctx`` gives it),
+    which the MoE's exchanges go through."""
     tp_axis: str = "model"
     tp: int = 1
     dp_axes: Tuple[str, ...] = ("data",)
     fsdp_axes: Optional[Tuple[str, ...]] = None
     fsdp_transport: Any = None
+    model: Any = None
 
 
 # ---------------------------------------------------------------------------
@@ -198,7 +214,6 @@ def params_from_jax(tree, cfg: ModelConfig, device=None) -> Params:
     the current CUDA device), value for value and dtype for dtype
     (bfloat16 arrays are reinterpreted bit for bit)."""
     from repro_torch.core.transport import resolve_device
-    check_ported(cfg)
     device = resolve_device(device)
 
     def conv(a):
@@ -247,13 +262,16 @@ def _period_fwd(pp: Params, x: torch.Tensor, cfg: ModelConfig, ax: AxisCtx,
                 ln_cross=None, causal: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One period of blocks, full sequence: ``(x, aux_loss)``, the MoE
-    blocks' aux losses summed ([M] for position-stacked x).  With
+    blocks' aux losses summed ([M] for position-stacked x, [M, tp] at tp >
+    1: each model position's).  With
     ``cross_kv`` (the encoder's keys and values), each attention block is
     followed by a cross-attention block (``cross_p``, ``ln_cross``);
     ``causal=False`` is the encoder's unmasked attention."""
     ckpt = _remat(cfg)
-    aux = torch.zeros(x.shape[:1] if pp["b0"]["ln1"].ndim == 2 else (),
-                      dtype=torch.float32, device=x.device)
+    tp, model = ax.tp, ax.model
+    lead = x.shape[:1] if pp["b0"]["ln1"].ndim == 2 else ()
+    aux = torch.zeros(lead + ((tp,) if tp > 1 else ()), dtype=torch.float32,
+                      device=x.device)
     for j, (blk, ffn) in enumerate(zip(cfg.pattern, cfg.ffn_pattern)):
         e = pp[f"b{j}"]
         w = cfg.window_pattern[j] if cfg.window_pattern else cfg.window
@@ -261,14 +279,14 @@ def _period_fwd(pp: Params, x: torch.Tensor, cfg: ModelConfig, ax: AxisCtx,
         def mixer(pm, ln1, x, blk=blk, w=w):
             h = rmsnorm(x, ln1, cfg.norm_eps)
             if blk == "attn":
-                return x + A.attn_train(pm, h, cfg, ax.tp, w,
+                return x + A.attn_train(pm, h, cfg, tp, w,
                                         positions=positions, causal=causal)
             if blk == "mamba":
-                return x + SSM.mamba_train(pm, h, cfg, ax.tp)
+                return x + SSM.mamba_train(pm, h, cfg, tp)
             if blk == "mlstm":
-                return x + SSM.mlstm_train(pm, h, cfg, ax.tp)
+                return x + SSM.mlstm_train(pm, h, cfg, tp)
             if blk == "slstm":
-                return x + SSM.slstm_train(pm, h, cfg, ax.tp)
+                return x + SSM.slstm_train(pm, h, cfg, tp)
             raise ValueError(f"unknown block kind {blk!r}")
 
         def ffnblk(pf, pmoe, ln2, x, ffn=ffn):
@@ -276,14 +294,15 @@ def _period_fwd(pp: Params, x: torch.Tensor, cfg: ModelConfig, ax: AxisCtx,
             y2 = ffn_fwd(pf, h2, cfg) if pf is not None else None
             if pmoe is None:
                 return x + y2, None
-            ym, a, _ = MOE.moe_ffn(pmoe, h2, cfg, ax.tp,
-                                   capacity_factor=cfg.moe_capacity)
+            ym, a, _ = MOE.moe_ffn(pmoe, h2, cfg, tp,
+                                   capacity_factor=cfg.moe_capacity,
+                                   model=model)
             return x + (ym if y2 is None else y2 + ym), a
 
         x = ckpt(mixer, e[blk], e["ln1"], x)
         if cross_kv is not None and blk == "attn":
             x = ckpt(_cross_block, cross_p, ln_cross, cross_kv[0],
-                     cross_kv[1], x, cfg, ax.tp)
+                     cross_kv[1], x, cfg, tp)
         if ffn == "none":
             continue
         x, a = ckpt(ffnblk, e.get("ffn"), e.get("moe"), e["ln2"], x)
@@ -342,10 +361,19 @@ def forward_loss(params: Params, tokens: torch.Tensor, labels: torch.Tensor,
     0, and positions run over the whole Ti + T.  ``enc_frames`` [B, S, d]
     (encoder-decoder): run through :func:`encoder_fwd`, and each decoder
     period's cross attention reads keys and values projected from its
-    output by that period's ``cross`` leaves."""
+    output by that period's ``cross`` leaves.
+
+    At tp = ``ax.tp`` > 1 the parameters are the global leaves at that tp
+    (``init_params(cfg, tp)``) and each data row runs the model axis as
+    the module describes (the parameters position-stacked); aux is each
+    model position's, [M, tp]."""
     ax = ax or AxisCtx()
     check_ported(cfg, ax.tp)
     stacked = params["emb"].ndim == 3
+    if ax.tp > 1 and (ax.model is None or not stacked):
+        raise ValueError("tp > 1 takes position-stacked parameters ([M, "
+                         "*global] leaves) and the mesh's model axis "
+                         "(AxisCtx.model, from train.step.mesh_ctx)")
     x = embed(params["emb"], tokens).to(cfg.dtype)
     mask = loss_mask
     if extra_embeds is not None:
@@ -359,7 +387,8 @@ def forward_loss(params: Params, tokens: torch.Tensor, labels: torch.Tensor,
                                       device=x.device),
                           m0.to(torch.float32)], -1)
     positions = torch.arange(x.shape[-2], dtype=torch.int64, device=x.device)
-    aux = torch.zeros(x.shape[:1] if stacked else (), dtype=torch.float32,
+    aux = torch.zeros((x.shape[:1] if stacked else ())
+                      + ((ax.tp,) if ax.tp > 1 else ()), dtype=torch.float32,
                       device=x.device)
     held = fsdp_block_paths(cfg, ax.tp) if ax.fsdp_axes else frozenset()
     period_dim = (lambda path: 0 if path in held else 1) if stacked else 0

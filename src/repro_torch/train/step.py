@@ -26,6 +26,19 @@ block's own gradient.  The sync runs over the stacked transport
 Allreduce and its CUDA merge kernels.  Every synced gradient's M rows
 are equal by construction; AdamW applies once, to row 0.
 
+A model axis (``mesh_ctx(data, model=tp)``, tp > 1): the parameters
+are the global leaves at that tp, and each data row's forward runs its
+tp model positions as ``models.transformer`` describes -- replicated
+work once, sharded products over the positions -- so each data row's
+loss is counted once and every held leaf gets the true gradient of its
+rows, ``[M, *global]``, the shape the tp = 1 sync takes.  ``ring`` and
+``hier`` sum those elementwise over the data axis, which gives the bits
+of a per-shard sync.  The sparse sync runs one union Sparse Allreduce
+per vocab shard of V / tp rows (the reference's ``v_start``), all tp of
+them as one stacked reduce over the dp * tp positions with column-wise
+groups (``StackedTransport(columns=tp)``), so each merge kernel
+launches once a layer for every column.
+
 FSDP (``cfg.fsdp``): the FSDP block leaves are differentiated with
 respect to the held-once leaf through each period's gather
 (``models.sharding.FsdpGather``), whose backward reduce-scatters the M
@@ -36,8 +49,8 @@ period's block gradients never outlive its backward.  The other leaves
 keep the stacked path.  Batches of a VLM (``img_embeds``) and of an
 encoder-decoder (``enc_frames``) are split over the positions and the
 microbatches as the tokens are.  The bucketed overlap schedule (ROADMAP
-Queue 1 item 12), a model axis (item 20) and a ``pod`` axis (item 21)
-are not ported yet and raise.
+Queue 1 item 12) and a ``pod`` axis (item 21) are not ported yet and
+raise.
 """
 from __future__ import annotations
 
@@ -55,7 +68,8 @@ from repro_torch.core.allreduce import (MERGE_MODES, DevicePlan,
                                         sparse_allreduce_union)
 from repro_torch.core.sparse_vec import SENTINEL, HashPerm, SparseChunk
 from repro_torch.core.topology import ButterflyPlan, check_wire
-from repro_torch.core.transport import StackedTransport, resolve_device
+from repro_torch.core.transport import (ModelAxis, StackedTransport,
+                                        resolve_device)
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.sharding import (check_ported, fsdp_block_paths,
@@ -74,17 +88,23 @@ SYNC_MODES = ("ring", "hier", "sparse")
 
 @dataclasses.dataclass(frozen=True)
 class MeshCtx:
-    """One ``data`` axis of ``data`` stacked positions on ``device``,
-    model = 1."""
+    """A ``data`` axis of ``data`` stacked positions and a ``model`` axis
+    of ``model`` positions within each data row, on ``device``; mesh
+    position d * model + m is data row d's model position m.
+    ``model_axis`` is the model axis's transport (its counts read what
+    the forwards exchanged)."""
     data: int
     device: torch.device
     tp_axis: str = "model"
     dp_axes: Tuple[str, ...] = ("data",)
+    model: int = 1
+    model_axis: Optional[ModelAxis] = dataclasses.field(default=None,
+                                                        compare=False)
 
     @property
     def tp(self) -> int:
-        """Tensor-parallel size (1)."""
-        return 1
+        """Tensor-parallel size."""
+        return self.model
 
     @property
     def dp(self) -> int:
@@ -94,34 +114,35 @@ class MeshCtx:
     @property
     def shape(self) -> Dict[str, int]:
         """Axis sizes, as a mesh's ``shape``."""
-        return {"data": self.data, "model": 1}
+        return {"data": self.data, "model": self.model}
 
     def axis_ctx(self, cfg: ModelConfig) -> T.AxisCtx:
-        """The models' axis context; with ``cfg.fsdp``, the FSDP axes and
-        the gather's transport, one stage of degree M over the
-        positions."""
+        """The models' axis context: tp and the model axis; with
+        ``cfg.fsdp``, the FSDP axes and the gather's transport, one stage
+        of degree M over the data positions."""
+        ax = T.AxisCtx(tp_axis=self.tp_axis, tp=self.tp,
+                       dp_axes=self.dp_axes, model=self.model_axis)
         if not cfg.fsdp:
-            return T.AxisCtx(tp_axis=self.tp_axis, tp=1, dp_axes=self.dp_axes)
-        return T.AxisCtx(
-            tp_axis=self.tp_axis, tp=1, dp_axes=self.dp_axes,
-            fsdp_axes=self.dp_axes, fsdp_transport=StackedTransport(
+            return ax
+        return dataclasses.replace(
+            ax, fsdp_axes=self.dp_axes, fsdp_transport=StackedTransport(
                 ButterflyPlan(self.dp, (self.dp,)), self.device))
 
 
 def mesh_ctx(data: int, model: int = 1, pod: int = 1,
              device=None) -> MeshCtx:
-    """The port's mesh: ``data`` stacked positions on ``device`` (default:
-    the current CUDA device).  A model axis or a pod axis raises."""
-    if model != 1:
-        raise NotImplementedError(
-            "the model axis (tp > 1) is not ported yet (ROADMAP Queue 1 "
-            "item 20)")
+    """The port's mesh: ``data`` stacked data positions, each with
+    ``model`` model positions, on ``device`` (default: the current CUDA
+    device).  A pod axis raises."""
     if pod != 1:
         raise NotImplementedError(
             "a pod axis is not ported yet (ROADMAP Queue 1 item 21)")
-    if data < 1:
-        raise ValueError(f"data axis must be >= 1, got {data}")
-    return MeshCtx(data=int(data), device=resolve_device(device))
+    if data < 1 or model < 1:
+        raise ValueError(f"data and model axes must be >= 1, got {data}, "
+                         f"{model}")
+    return MeshCtx(data=int(data), device=resolve_device(device),
+                   model=int(model),
+                   model_axis=ModelAxis(model) if model > 1 else None)
 
 
 def tuned_dp_degrees(mc: MeshCtx, in_capacity: int, out_capacity: int,
@@ -219,29 +240,43 @@ def sparse_sync_rows(grad: torch.Tensor, ids: torch.Tensor, mc: MeshCtx,
                      row: Optional[int] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor,
                                 Optional[torch.Tensor]]:
-    """Sparse Allreduce of a row-sparse gradient table over the data axis.
+    """Sparse Allreduce of a row-sparse gradient table over the data axis,
+    one union reduce per vocab shard.
 
-    grad: [M, V, d] each position's gradient; ids: [M, N] the token ids of
-    each position's rows.  Each position hashes its unique ids
-    (``SYNC_PERM``), sorts them into ``in_capacity`` slots, gathers those
-    rows and runs the union butterfly; the union's rows are written back
-    into a ``[V + 1, d]`` buffer whose last row takes the padding.
-    Returns (synced [M, V, d] in grad's dtype, overflow [M], new carry);
-    with ``row`` only that position's rows are written back (the union
-    is the same at every position), synced [V, d].
+    grad: [M, V, d] each data position's gradient; ids: [M, N] the token
+    ids of each data position's rows.  The table splits into tp =
+    ``mc.tp`` vocab shards of V / tp rows, mesh position n = i * tp + j
+    holding data row i's shard j (at tp = 1, the whole table).  Each
+    position hashes the ids of its shard (``SYNC_PERM`` of the global id,
+    ``v_start = j * V / tp``), sorts them into ``in_capacity`` slots,
+    gathers those rows and runs the union butterfly over the data axis
+    within its column (``transport`` stacks the dp * tp positions,
+    ``edges`` [dp * tp, k + 1] per stage); the union's rows are written
+    back into a ``[V / tp + 1, d]`` buffer whose last row takes the
+    padding.  Returns (synced [M, V, d] in grad's dtype, overflow [M *
+    tp] per mesh position, new carry); with ``row`` only that data row's
+    shards are written back (the union is the same at every data row),
+    synced [V, d].
 
     ``ef`` [M, V, d] float32: the ``wire="delta+int8ef"`` error-feedback
     carry, added to the rows sent; the residual of one per-row int8
     quantization of the sent rows is stored back into the carry (the
     reference's bounded proxy for the per-stage re-quantization).
-    ``capture``, when given, receives the float32 synced row 0 under
-    ``"f32"`` (a test hook).
+    ``capture``, when given, receives the float32 synced data row 0 under
+    ``"f32"`` and the union's hashed indices [M * tp, out] under
+    ``"idx"`` (test hooks).
     """
     from repro_torch.kernels.wirecodec import dequant8_rows, quant8_rows
-    m, v_l, d = grad.shape
+    dp, vp, d = grad.shape
+    tp = mc.tp
+    v_l = vp // tp
+    m = dp * tp
+    grad = grad.reshape(m, v_l, d)
     dev = grad.device
-    ids = ids.reshape(m, -1).to(torch.int64)
-    mine = (ids >= 0) & (ids < v_l)
+    ids = ids.reshape(dp, -1).to(torch.int64).repeat_interleave(tp, 0)
+    v_start = (torch.arange(m, device=dev) % tp)[:, None] * v_l
+    loc = ids - v_start
+    mine = (loc >= 0) & (loc < v_l)
     hashed = torch.where(mine, SYNC_PERM.fwd(ids),
                          torch.full_like(ids, SENTINEL))
     hsorted = torch.sort(hashed, dim=-1).values
@@ -254,12 +289,14 @@ def sparse_sync_rows(grad: torch.Tensor, ids: torch.Tensor, mc: MeshCtx,
     uniq = torch.full((m, cap_in + 1), SENTINEL, dtype=torch.int64,
                       device=dev).scatter_(1, slot, hsorted)[:, :cap_in]
     okr = uniq != SENTINEL
-    safe_rows = torch.clamp(_as_int32(SYNC_PERM.inv(uniq)), 0, v_l - 1)
+    safe_rows = torch.clamp(_as_int32(SYNC_PERM.inv(uniq)) - v_start, 0,
+                            v_l - 1)
     node = torch.arange(m, device=dev)[:, None]
     keep = okr[..., None].to(torch.float32)
     vals = grad[node, safe_rows].to(torch.float32) * keep
     new_ef = None
     if ef is not None:
+        ef = ef.reshape(m, v_l, d)
         vals = vals + ef[node, safe_rows].to(torch.float32) * keep
         q, s = quant8_rows(vals.reshape(m * cap_in, d))
         resid = (vals - dequant8_rows(q, s).reshape(m, cap_in, d)) * keep
@@ -268,24 +305,25 @@ def sparse_sync_rows(grad: torch.Tensor, ids: torch.Tensor, mc: MeshCtx,
                             torch.zeros((m, 1, d), dtype=torch.float32,
                                         device=dev)], 1)
         new_ef[node, ef_dest] = resid
-        new_ef = new_ef[:, :v_l]
+        new_ef = new_ef[:, :v_l].reshape(dp, vp, d)
     chunk, ovf = sparse_allreduce_union(
         SparseChunk(idx=uniq, val=vals), dplan, edges, transport,
         merge=merge, wire=wire)
-    idx, val = (chunk.idx, chunk.val) if row is None else \
-        (chunk.idx[row], chunk.val[row])
-    ok = idx != SENTINEL
-    dest = torch.where(ok, _as_int32(SYNC_PERM.inv(idx)), v_l)
-    vals = val * ok[..., None].to(val.dtype)
+    if capture is not None:
+        capture["idx"] = chunk.idx.clone()
+    pick = slice(None) if row is None else slice(row * tp, (row + 1) * tp)
+    idx, val = chunk.idx[pick], chunk.val[pick]
     del chunk
-    if row is None:
-        synced = torch.zeros((m, v_l + 1, d), dtype=torch.float32, device=dev)
-        synced[node, dest] = vals
-        synced = synced[:, :v_l]
-    else:
-        synced = torch.zeros((v_l + 1, d), dtype=torch.float32, device=dev)
-        synced[dest] = vals
-        synced = synced[:v_l]
+    ok = idx != SENTINEL
+    dest = torch.where(ok, _as_int32(SYNC_PERM.inv(idx)) - v_start[pick], v_l)
+    vals = val * ok[..., None].to(val.dtype)
+    rows_n = idx.shape[0]
+    synced = torch.zeros((rows_n, v_l + 1, d), dtype=torch.float32,
+                         device=dev)
+    synced[torch.arange(rows_n, device=dev)[:, None], dest] = vals
+    synced = synced[:, :v_l].reshape(-1, vp, d)
+    if row is not None:
+        synced = synced[0]
     if capture is not None:
         capture["f32"] = (synced if row is not None else synced[0]).clone()
     return synced.to(grad.dtype), ovf, new_ef
@@ -312,7 +350,8 @@ def sync_grads(grads, cfg: ModelConfig, mc: MeshCtx, mode: str,
                rows: Optional[int] = None, consume: bool = False,
                capture: Optional[dict] = None):
     """Combine stacked per-position gradients [M, ...] into the gradient
-    of the global mean loss: ``(synced, overflow [M], new carry)``.
+    of the global mean loss: ``(synced, overflow [M * tp], new carry)``
+    (at tp > 1 each leaf is the data row's global-shape gradient).
 
     Leaves go in sorted-path order.  ``repl_weight`` [M] (r-way replicated
     data parallelism, paper §V): each position's ``contribution_weights``
@@ -328,7 +367,8 @@ def sync_grads(grads, cfg: ModelConfig, mc: MeshCtx, mode: str,
     weights never apply: FSDP with replication > 1 raises)."""
     spec = dict(T.tree_leaves(full_model_spec_tuples(cfg, mc.tp)))
     dp = float(dp_logical if dp_logical is not None else mc.dp)
-    overflow = torch.zeros(mc.dp, dtype=torch.int64, device=mc.device)
+    overflow = torch.zeros(mc.dp * mc.tp, dtype=torch.int64,
+                           device=mc.device)
     new_ef = ef
     out = []
     for path in [p for p, _ in T.tree_leaves(grads)]:
@@ -375,7 +415,9 @@ def sync_grads(grads, cfg: ModelConfig, mc: MeshCtx, mode: str,
 
 def _sharded_grad_norm(grads) -> torch.Tensor:
     """Global grad norm of one copy of the synced gradients, leaf by leaf
-    in sorted-path order (at tp = 1 every element is counted once)."""
+    in sorted-path order.  The leaves are held whole, at any tp, so every
+    element is counted once: the reference's ``psum`` of a model-sharded
+    leaf's squares over the model axis is implicit."""
     total = None
     for _, g in T.tree_leaves(grads):
         sq = torch.sum(torch.square(g.to(torch.float32)))
@@ -388,9 +430,10 @@ def _build_sync_plans(cfg: ModelConfig, mc: MeshCtx, sync: str, dp_degrees,
                       retune: bool) -> SyncPlans:
     """The plan set of one (cfg, mesh, sync) combination, shared by
     :func:`make_train_step` and :func:`make_sync_fn`: the hier plan
-    (capacities unused), and for ``sparse`` a union plan sized to the
-    batch's sparsity -- in = min(tokens a position, V) and out = min(V,
-    in * M), each rounded up to 8."""
+    (capacities unused), and for ``sparse`` a union plan over the data
+    axis sized to the batch's sparsity -- in = min(tokens a position, V /
+    tp) and out = min(V / tp, in * M), each rounded up to 8 -- whose
+    transport and edges repeat it in every model column."""
     sparse_plan = sparse_edges = hier_plan = None
     hier_t = sparse_t = None
     if sync in ("hier", "sparse"):
@@ -407,8 +450,10 @@ def _build_sync_plans(cfg: ModelConfig, mc: MeshCtx, sync: str, dp_degrees,
         sparse_plan = make_device_plan(
             [("data", mc.dp)], sp_degrees or {"data": (mc.dp,)},
             in_capacity=cin, out_capacity=cout)
-        sparse_edges = sparse_plan.edges_tensors(mc.device)
-        sparse_t = StackedTransport(sparse_plan.logical, mc.device)
+        sparse_edges = [e.repeat_interleave(mc.tp, 0) for e
+                        in sparse_plan.edges_tensors(mc.device)]
+        sparse_t = StackedTransport(sparse_plan.logical, mc.device,
+                                    columns=mc.tp)
     psum_t = hier_t if hier_t is not None else StackedTransport(
         ButterflyPlan(mc.dp, (mc.dp,) if mc.dp > 1 else ()), mc.device)
     return SyncPlans(hier_plan, sparse_plan, sparse_edges, hier_t, sparse_t,
@@ -475,26 +520,29 @@ def make_sync_fn(cfg: ModelConfig, mc: MeshCtx, *, sync: str = "hier",
                  sparse_tokens_hint: Optional[int] = None,
                  retune: bool = False, salt_shards: bool = True):
     """The sync stage of :func:`make_train_step` alone, the bit-exactness
-    harness: ``(fn, spec)`` with ``fn(grads, token_ids) -> (synced,
-    overflow)``.  ``grads`` is one parameter-shaped gradient tree (every
-    data position holds it, as the reference's replicated layout does);
-    ``token_ids`` the [B, S] batch the sparse leaf's union is built from.
+    harness: ``(fn, spec)`` with ``fn(grads, token_ids, capture=None) ->
+    (synced, overflow)`` (``capture`` as :func:`sync_grads`'s).  ``grads``
+    is one parameter-shaped gradient tree (every data position holds it,
+    as the reference's replicated layout does); ``token_ids`` the [B, S]
+    batch the sparse leaf's union is built from.
     ``synced`` holds each leaf stacked [M, ...] (all rows equal) and
     ``overflow`` is [M].  With ``salt_shards`` each *logical* shard's
     copy is scaled by 2^-((n mod dp_logical) mod 4) first, so routing
     faults cannot cancel and replicas stay identical.  An FSDP leaf is
     only divided by dp, each position's salted copy on its own, as in the
     reference's harness (there its gather's transpose sums it).  Error
-    feedback is not threaded (``delta+int8ef`` syncs with no carry)."""
+    feedback is not threaded (``delta+int8ef`` syncs with no carry).  At
+    tp > 1 ``grads`` is the global tree at that tp; the salt is the data
+    position's, and ``overflow`` is [M * tp], per mesh position."""
     _check_sync_settings(sync, sync_merge, sync_wire, sync_overlap)
-    check_ported(cfg)
+    check_ported(cfg, mc.tp)
     repl_w, dp_logical = _replication(cfg, mc, replication, dead)
     plans = _build_sync_plans(cfg, mc, sync, dp_degrees, sparse_tokens_hint,
                               retune)
     node = torch.arange(mc.dp, device=mc.device)
     salt = torch.exp2(-((node % dp_logical) % 4).to(torch.float32))
 
-    def fn(grads, token_ids):
+    def fn(grads, token_ids, capture: Optional[dict] = None):
         def stack(g):
             s = g.to(mc.device).unsqueeze(0).expand((mc.dp,) + tuple(g.shape))
             if salt_shards:
@@ -505,7 +553,8 @@ def make_sync_fn(cfg: ModelConfig, mc: MeshCtx, *, sync: str = "hier",
         tokens = _stack_tokens(token_ids, mc).reshape(mc.dp, -1)
         synced, overflow, _ = sync_grads(
             stacked, cfg, mc, sync, plans, tokens, merge=sync_merge,
-            wire=sync_wire, repl_weight=repl_w, dp_logical=dp_logical)
+            wire=sync_wire, repl_weight=repl_w, dp_logical=dp_logical,
+            capture=capture)
         return synced, overflow
 
     return fn, full_model_spec_tuples(cfg, mc.tp)
@@ -550,6 +599,11 @@ def make_train_step(cfg: ModelConfig, mc: MeshCtx, *, sync: str = "ring",
     first time, then the ``{"adamw": ..., "ef": [M, V, d]}`` dict the
     step returned.  Metrics: ``loss`` and ``aux`` (means over the
     positions), ``gnorm``, ``sync_overflow`` (the largest position's).
+    At tp > 1 (``mc.tp``) the parameters are ``init_params(cfg, tp)``'s
+    global leaves and each data row's loss counts once; each model
+    position's aux is on its token slice, the objective weighs their
+    mean, ``aux`` reports the mean over every position, and
+    ``capture["aux"]`` receives them all, [M, tp].
 
     ``step(..., mark=fn)`` calls ``fn("fwd_bwd")``, ``fn("sync")`` and
     ``fn("update")`` as each stage is enqueued (timing hooks);
@@ -563,7 +617,7 @@ def make_train_step(cfg: ModelConfig, mc: MeshCtx, *, sync: str = "ring",
     (``cfg.fsdp``) are differentiated held once, through each period's
     gather; FSDP with ``replication`` > 1 raises ``ValueError``."""
     _check_sync_settings(sync, sync_merge, sync_wire, sync_overlap)
-    check_ported(cfg)
+    check_ported(cfg, mc.tp)
     if microbatch < 1:
         raise ValueError(f"microbatch must be >= 1, got {microbatch}")
     opt = opt or AdamW()
@@ -583,7 +637,10 @@ def make_train_step(cfg: ModelConfig, mc: MeshCtx, *, sync: str = "ring",
             tree, tokens, labels, cfg, ax,
             extra_embeds=extras.get("img_embeds"),
             enc_frames=extras.get("enc_frames"))
-        gs = torch.autograd.grad((loss + aux_weight * aux).sum(), ps)
+        # at tp > 1 aux is each model position's: the objective weighs
+        # their mean
+        aux_obj = aux.mean(-1) if mc.tp > 1 else aux
+        gs = torch.autograd.grad((loss + aux_weight * aux_obj).sum(), ps)
         return gs, loss.detach(), aux.detach()
 
     def step(params, opt_state, batch, mark: Optional[Callable] = None,
@@ -652,6 +709,8 @@ def make_train_step(cfg: ModelConfig, mc: MeshCtx, *, sync: str = "ring",
             new_opt = {"adamw": new_opt, "ef": new_ef}
         metrics = {"loss": losses.mean(), "aux": auxes.mean(), "gnorm": gnorm,
                    "sync_overflow": overflow.max()}
+        if capture is not None:
+            capture["aux"] = auxes
         mark("update")
         return new_params, new_opt, metrics
 

@@ -21,7 +21,7 @@ another order), the CSR kernel also bit-identical across two launches.
 The training stack: a reduced train step through the merge kernels
 repeated on the card gives the same bits (and the CPU run's losses
 within rtol 1e-4), for the dense, MoE, SSM, encoder-decoder and FSDP
-VLM models alike; the MoE and
+VLM models alike, and with a model axis (reduced qwen at 2 x 2); the MoE and
 SSM blocks on the card equal their CPU run within rtol 1e-4; and both
 scatters at the training width (w = 1,024) equal their plain versions
 on a CPU copy bit for bit.
@@ -810,8 +810,9 @@ def test_soak_runs_on_cuda_by_default(cuda, tmp_path):
 
 
 def _train_run(device, merge, wire="raw", steps=2, arch="qwen1.5-0.5b",
-               **cfg_kw):
-    """Two reduced untied steps of ``arch`` over 8 stacked positions."""
+               m=8, tp=1, degrees=(4, 2), **cfg_kw):
+    """Two reduced untied steps of ``arch`` over ``m`` stacked data
+    positions of ``tp`` model positions each."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.launch.train import batch_stream
@@ -820,10 +821,11 @@ def _train_run(device, merge, wire="raw", steps=2, arch="qwen1.5-0.5b",
     from repro_torch.train.step import make_train_step, mesh_ctx
     cfg = dataclasses.replace(get_config(arch).reduced(),
                               tie_embeddings=False, **cfg_kw)
-    step, _ = make_train_step(cfg, mesh_ctx(8, device=device), sync="sparse",
-                              dp_degrees={"data": (4, 2)}, sync_merge=merge,
-                              sync_wire=wire, sparse_tokens_hint=32)
-    params = T.init_params(cfg, 1, seed=0, device="cpu")
+    step, _ = make_train_step(cfg, mesh_ctx(m, tp, device=device),
+                              sync="sparse", dp_degrees={"data": degrees},
+                              sync_merge=merge, sync_wire=wire,
+                              sparse_tokens_hint=8 * 32 // m)
+    params = T.init_params(cfg, tp, seed=0, device="cpu")
     params = T.tree_from_leaves(params, [(p, t.to(device)) for p, t
                                          in T.tree_leaves(params)])
     st = AdamW().init(params)
@@ -852,6 +854,27 @@ def test_train_step_repeats_bit_identical_on_gpu(cuda, merge, wire):
     assert la == lb
     assert all(torch.equal(a, b) for a, b in zip(pa, pb))
     lc, _ = _train_run("cpu", merge, wire)
+    np.testing.assert_allclose(la, lc, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("merge", ["fused", "banded"])
+def test_model_axis_train_steps_on_gpu_equal_cpu(cuda, merge):
+    """Reduced untied qwen at (data, model) = (2, 2): the sparse sync's one
+    union reduce per vocab shard runs through the merge kernels (one
+    launch a layer for both columns, degrees (2,)); two runs on the card
+    give the same losses and parameters bit for bit, within rtol 1e-4 of
+    the CPU run's losses."""
+    from repro_torch.kernels import _build
+    run = dict(m=2, tp=2, degrees=(2,))
+    _build.reset_launches()
+    la, pa = _train_run(cuda, merge, **run)
+    name = "rank_counts" if merge == "fused" else "rank_counts_banded"
+    assert _build.LAUNCHES[name] == 2
+    lb, pb = _train_run(cuda, merge, **run)
+    assert la == lb
+    assert all(torch.equal(a, b) for a, b in zip(pa, pb))
+    lc, _ = _train_run("cpu", merge, **run)
     np.testing.assert_allclose(la, lc, rtol=1e-4)
 
 

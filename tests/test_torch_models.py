@@ -11,8 +11,8 @@ gradient leaf within rtol 1e-4, atol 1e-6.  On their own: ``rope``,
 ``rmsnorm``, the GQA attention with causal and window masks, the
 embedding and head loss; ``zipf_tokens`` and ``Batcher`` byte for byte;
 ``AdamW.update`` within rtol 1e-6; the weight copy both ways; what stays
-unported (tp > 1, a ``pod`` axis, sequences of 8,192 tokens, the
-bucketed overlap) raising with its ROADMAP item.
+unported (a ``pod`` axis, sequences of 8,192 tokens, the bucketed
+overlap) raising with its ROADMAP item.
 """
 import dataclasses
 
@@ -243,10 +243,6 @@ def test_configs_copied_as_data():
         get_config("qwen1.5-0.5b", "nope")
 
 
-def _raises_tp2():
-    T.init_params(get_config("qwen1.5-0.5b").reduced(), 2, device="cpu")
-
-
 def _raises_pod():
     from repro_torch.train.step import mesh_ctx
     mesh_ctx(4, pod=2, device="cpu")
@@ -267,15 +263,13 @@ def _raises_bucketed_overlap():
                     sync_overlap="bucketed")
 
 
-@pytest.mark.parametrize("call,item", [(_raises_tp2, "item 20"),
-                                       (_raises_pod, "item 21"),
+@pytest.mark.parametrize("call,item", [(_raises_pod, "item 21"),
                                        (_raises_long_sequence, "item 22"),
                                        (_raises_bucketed_overlap, "item 12")])
 def test_unported_kinds_raise_with_their_item(call, item):
     """What stays unported raises before anything large is allocated,
-    naming its ROADMAP item: a model axis (tp = 2), a ``pod`` axis, a
-    sequence of 8,192 tokens (``attn_train_blocked``) and the bucketed
-    overlap schedule."""
+    naming its ROADMAP item: a ``pod`` axis, a sequence of 8,192 tokens
+    (``attn_train_blocked``) and the bucketed overlap schedule."""
     with pytest.raises(NotImplementedError, match=item):
         call()
 

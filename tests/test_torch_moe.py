@@ -257,12 +257,6 @@ def test_position_stacked_moe_is_each_positions_own():
                                        msg=str(path))
 
 
-def test_moe_raises_beyond_tp1():
-    cfg = get_config("granite-moe-3b-a800m").reduced()
-    with pytest.raises(NotImplementedError, match="item 20"):
-        MOE.moe_ffn({}, torch.zeros(1, 2, cfg.d_model), cfg, tp=2)
-
-
 def test_three_train_steps_track_reference_4_devices(tmp_path):
     """Reduced untied granite-moe, sparse sync with the fused merge over M
     = 4 (degrees (2, 2)): the port's three losses and aux values within

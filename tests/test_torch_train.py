@@ -327,9 +327,6 @@ def test_launcher_runs_on_cpu_and_guards(tmp_path, monkeypatch):
          "--seq", "16", "--sync", "hier", "--data-axis", "4",
          "--replication", "2", "--dead", "0", "--dp-degrees", "2,2"])
     assert np.isfinite(loss)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        launch_train.main(["--reduced", "--device", "cpu", "--model-axis",
-                           "2"])
     with pytest.raises(NotImplementedError, match="item 12"):
         launch_train.main(["--reduced", "--device", "cpu", "--sync", "hier",
                            "--sync-overlap", "bucketed"])
