@@ -93,7 +93,9 @@ line each, after the ``nvidia-smi`` name/power-limit line):
    for bit, with the remaps' seconds and config tiers;
 16. soak_resume -- ``python -m repro_torch.launch.soak --job pagerank`` at
    the same graph size in subprocesses: baseline, a rack-fault run killed
-   at round 4 (exit 17), its ``--resume``; final.npz equal array by array;
+   at round 4 (exit 17), its ``--resume``; final.npz equal array by array,
+   and the baseline's equal to one eager loop of the same job in this
+   process;
 17. train -- the training stack at full width: ``make_train_step`` on
    qwen1.5-0.5b untied (24 layers, d 1,024, vocab 151,936, bf16) over M =
    8 data positions stacked on the card, degrees (4, 2), batch 8 x seq
@@ -107,7 +109,21 @@ line each, after the ``nvidia-smi`` name/power-limit line):
    bit, the step-1 float32 embedding sync equal across the merges and to
    ``hier``'s within rtol 1e-5 (+ 1e-7 x max), every other synced leaf
    bit-identical across the sparse configurations; each configuration
-   draws its weights afresh and donates them to the step;
+   draws its weights afresh and donates them to the step; then
+   ``train_tp`` (the model axis: qwen at 4 x 2 and its pair against 4 x
+   1, granite-moe at 2 x 2, reduced granite replayed on the CPU) and:
+   train_pod -- the ``pod`` axis: qwen at (pod, data, model) = (2, 2, 1)
+   with degrees {pod: (2,), data: (2,)} against (4, 1) with {data: (2,
+   2)} for ``hier``, sparse fused raw and sparse banded ``delta+int8ef``,
+   and (2, 2, 2) against (4, 2) for ``hier`` and sparse fused, two steps
+   each from the same weights: losses, step-1 synced gradients and final
+   parameters bit for bit;
+   train_long -- qwen on M = 2 positions of one 8,192-token row each (the
+   query-chunked attention), ``hier`` and sparse fused, two steps: step
+   ms, tokens/s, peak memory; the layer-0 attention blocked against
+   unblocked at T = 2,048 and 8,192 within 2^-7 x max;
+   train_overlap -- qwen as ``train``, ``hier`` with the bucketed schedule
+   against ``off``, three steps, bit for bit, with each sync's ms;
 18. soak_train -- ``python -m repro_torch.launch.soak --job train
    --reduced --dp 4 --replication 2`` in subprocesses: baseline, a rack
    fault from step 3 killed at step 4 (exit 17), its ``--resume``;
@@ -175,8 +191,10 @@ line each, after the ``nvidia-smi`` name/power-limit line):
    PageRank's first graph, and on the other graphs within 1e-5 x (|A|
    |x|) of the float64 product and 1e-4 x (|A| |x|) of the plain version,
    and repeatable; rows 1-6 also at every shape of the train phases --
-   the rank rows in ``shapes`` with phase ``train``, ``train_moe``,
-   ``train_ssm``, ``train_encdec`` or ``train_vlm``, the scatter rows in
+   the rank rows in ``shapes`` with phase ``train``, ``train_tp``,
+   ``train_tp_moe``, ``train_pod``, ``train_pod_tp``, ``train_long``
+   (capacity 8,192), ``train_moe``, ``train_ssm``, ``train_encdec`` or
+   ``train_vlm``, the scatter rows in
    ``train``, w = 512, 1,024, 1,536, 2,048 or 6,144 values a row of
    general floats, bit for bit
    against the plain version on a CPU copy, with their launches a step,
@@ -186,8 +204,21 @@ line each, after the ``nvidia-smi`` name/power-limit line):
    the main path now, is held to its plain version on ELL tables built
    for that row alone from the same graph.
 
-The launch counts of the ``kernels`` line are those of the main-path
-calls alone (``config`` + ``reduce``, the first ``union_reduce`` of each
+The graph phases (4-7, 15, 16) run every ``GraphEngine.run`` as one CUDA
+graph replay: each line carries ``graph`` readings (:func:`graph_check`:
+the replay against the engine's eager loop bit for bit, host seconds a
+round of each, one graph launch a run, and :func:`replay_kernels`:
+profiler traces of replays, in this process and taken again unless
+whole, hold every kernel launch the capture enqueued, once a replay,
+while no kernel wrapper is called), PageRank's also the rotated
+schedule's engine (``overlap=True``) bit for bit against the plain one.
+The SpMV wrapper counts an entry point's warm-up round and the rounds
+its capture enqueues; the kernels line's SpMV launches are what ran: the
+warm-up rounds, and the main path's replays times a traced replay's SpMV
+kernels.
+
+The other launch counts of the ``kernels`` line are those of the
+main-path calls alone (``config`` + ``reduce``, the first ``union_reduce`` of each
 (merge, wire), the ``pagerank``, ``hadi`` and ``power_iteration`` entry
 points, the supervised reduces and engine runs, each train
 configuration's steps): each starts with every
@@ -240,14 +271,20 @@ POOL, RACK, FAULT_AT, CKPT_EVERY = 80, 5, 3, 2
 # the phases whose recorded kernel inputs make up the shapes of a row, in
 # the order the rows list them
 ROW_PHASES = ("union_wire", "replicated_union", "resilient_union", "union",
-              "train", "train_tp", "train_tp_moe", "train_moe", "train_ssm",
+              "train", "train_tp", "train_tp_moe", "train_pod",
+              "train_pod_tp", "train_long", "train_moe", "train_ssm",
               "train_encdec", "train_vlm")
 GRAPH_PHASES = ("pagerank", "spectral", "pagerank_large",
                 "supervised_pagerank")
+# each graph phase's SpMV kernels run on its main path: the warm-up
+# rounds' launches, and its graph replays times the kernels a traced
+# replay of the same graph ran (:func:`replay_kernels`)
+GRAPH_RAN = {}
 # phases whose scatter calls are told apart by shape (one per layer)
 SHAPED_SCATTER_PHASES = ("resilient_union", "train", "train_tp",
-                         "train_tp_moe", "train_moe",
-                         "train_ssm", "train_encdec", "train_vlm")
+                         "train_tp_moe", "train_pod", "train_pod_tp",
+                         "train_long", "train_moe", "train_ssm",
+                         "train_encdec", "train_vlm")
 WIRES = ("raw", "delta", "delta+bf16", "delta+int8ef")
 # the train phase: qwen1.5-0.5b untied at full width on M = 8 stacked
 # data positions, degrees (4, 2), the launcher's batch 8 x seq 256
@@ -320,6 +357,23 @@ TP_PAIR_LIMITS = {"loss": 2.0 ** -10, "grads": (2.0 ** -6, 2.0 ** -6),
 # the key bias: softmax over the keys is invariant to q . bk, which is the
 # same for every key of a query
 TP_PAIR_ZERO_GRAD = ("bk",)
+# train_pod: qwen at (pod, data, model) = (2, 2, 1) with degrees {pod:
+# (2,), data: (2,)} against (4, 1) with {data: (2, 2)}, and (2, 2, 2)
+# against (4, 2) (recorder phase "train_pod_tp"), POD_STEPS steps each
+# from the same weights: losses, step-1 synced gradients and the
+# parameters after, bit for bit
+POD, POD_DATA, POD_STEPS = 2, 2, 2
+POD_CONFIGS = (("hier", "sort", "raw"), ("sparse", "fused", "raw"),
+               ("sparse", "banded", "delta+int8ef"))
+POD_TP_CONFIGS = (("hier", "sort", "raw"), ("sparse", "fused", "raw"))
+# train_long: qwen on M = 2 positions of one 8,192-token row each (the
+# query-chunked attention), LONG_STEPS steps a configuration
+LONG_M, LONG_BATCH, LONG_SEQ, LONG_STEPS = 2, 2, 8192, 2
+LONG_CONFIGS = (("hier", "sort", "raw"), ("sparse", "fused", "raw"))
+# train_overlap: qwen as the train phase (M = 8, degrees (4, 2)), hier
+# with the bucketed schedule (the default 4 MB budget) against off,
+# OVERLAP_STEPS steps from the same weights, bit for bit
+OVERLAP_STEPS = 3
 # the configurations each train phase runs, its repeat included, and the
 # steps of each
 TRAIN_RUNS = {"train": TRAIN_CONFIGS + (REPEAT,),
@@ -328,11 +382,14 @@ TRAIN_RUNS = {"train": TRAIN_CONFIGS + (REPEAT,),
               "train_encdec": TRAIN_CONFIGS + (REPEAT,),
               "train_vlm": VLM_CONFIGS + (REPEAT,),
               "train_tp": TP_CONFIGS + (REPEAT,),
-              "train_tp_moe": TP_MOE_CONFIGS + (REPEAT,)}
+              "train_tp_moe": TP_MOE_CONFIGS + (REPEAT,),
+              "train_pod": POD_CONFIGS * 2, "train_pod_tp": POD_TP_CONFIGS * 2,
+              "train_long": LONG_CONFIGS}
 TRAIN_PHASE_STEPS = {"train": TRAIN_STEPS, "train_moe": TRAIN_STEPS,
                      "train_ssm": SSM_STEPS, "train_encdec": TRAIN_STEPS,
                      "train_vlm": TRAIN_STEPS, "train_tp": TRAIN_STEPS,
-                     "train_tp_moe": TRAIN_STEPS}
+                     "train_tp_moe": TRAIN_STEPS, "train_pod": POD_STEPS,
+                     "train_pod_tp": POD_STEPS, "train_long": LONG_STEPS}
 
 
 def emit(obj) -> None:
@@ -372,6 +429,82 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def same_tree(torch, a, b) -> bool:
+    """Two run results (tensors in tuples, lists and dicts, or None)
+    bit for bit equal."""
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(same_tree(torch, a[k], b[k])
+                                              for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_tree(torch, x, y)
+                                        for x, y in zip(a, b))
+    if a is None or b is None:
+        return a is None and b is None
+    return torch.equal(a, b)
+
+
+def graph_check(torch, engine, k, state, extras, reps=5):
+    """``engine.run(k)`` -- one CUDA graph replay a run -- against the
+    engine's eager loop (``eager_fn``) on the same inputs: final state,
+    last product bit for bit.  Host-clock seconds a round of each (the
+    median of ``reps`` runs after a warm one, each ending in a
+    synchronize), the graph launches per run and the captures, and the
+    kernels of one replay (:func:`replay_kernels`).  Returns
+    ``(readings, the graph's result)``."""
+    eager = engine.eager_fn(k)
+
+    def timed(fn):
+        out = fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return out, float(np.median(times)) / k, times
+    runs0 = engine.report["dispatches"]
+    launches0 = engine.report["graph_launches"]
+    got, graph_s, graph_times = timed(lambda: engine.run(k, state, extras))
+    want, eager_s, _ = timed(lambda: eager(state, extras))
+    assert same_tree(torch, got, want), "graph replay differs from eager"
+    runs = engine.report["dispatches"] - runs0
+    per_run = (engine.report["graph_launches"] - launches0) / runs
+    assert per_run == 1, (per_run, engine.report)
+    captures = engine.report["captures"]
+    replay = replay_kernels(torch, engine, k, state, extras)
+    return {"round_wall_s": graph_s, "eager_round_wall_s": eager_s,
+            "run_wall_s": graph_times, "graph_vs_eager_bit_identical": True,
+            "graph_launches_per_run": per_run, "captures": captures,
+            "overlap": engine.overlap, **replay}, got
+
+
+def replay_kernels(torch, engine, k, state, extras, reps=5):
+    """The kernels one replay of ``engine``'s k-round graph runs on the
+    device, from ``torch.profiler`` traces of ``reps`` runs
+    (:func:`profile_kernels`: a trace is taken again unless every kernel
+    ran a whole number of times a run): every kernel launch the capture
+    enqueued (``captured_launches``, by wrapper) ran once a replay, no
+    kernel wrapper was called and nothing was captured again.  Returns
+    ``captured_launches``, ``replay_kernels`` (launches a replay by
+    device function), ``replay_device_ms`` (their device ms, summed) and
+    ``replay_spmv`` (the SpMV kernel's launches a replay)."""
+    from repro_torch.kernels import _build
+    captures, wrapped = engine.report["captures"], dict(_build.LAUNCHES)
+    stages = profile_kernels(torch, lambda: engine.run(k, state, extras),
+                             reps)
+    captured = engine.run_fn(k).launches
+    ran = {name: n for name, (_, n) in stages.items()}
+    assert engine.report["captures"] == captures, engine.report
+    assert dict(_build.LAUNCHES) == wrapped, "a replay called a wrapper"
+    assert set(captured) <= {"spmv_csr"}, captured
+    assert ran.get("spmv_csr_kernel", 0) == captured.get("spmv_csr", 0), \
+        (captured, ran)
+    return {"captured_launches": captured, "replay_kernels": ran,
+            "replay_device_ms": sum(ms for ms, _ in stages.values()),
+            "replay_spmv": ran.get("spmv_csr_kernel", 0)}
 
 
 class Recorder:
@@ -636,8 +769,11 @@ def phase_union_wire(torch):
 
 
 def phase_pagerank(torch, edges, parts, n_vertices):
-    """PageRank through the device entry point vs the float64 reference,
-    then the engine's wall time per round after a warm-up run."""
+    """PageRank through the device entry point vs the float64 reference
+    (one graph launch, after the capture's warm-up round), then the
+    engine's wall time per round, its graph replay against its eager loop
+    (:func:`graph_check`), and the rotated schedule's engine against the
+    plain one."""
     from repro_torch.graph.engine import GraphEngine
     from repro_torch.graph.pagerank import (make_pagerank_app, pagerank,
                                             pagerank_dense_reference,
@@ -657,8 +793,12 @@ def phase_pagerank(torch, edges, parts, n_vertices):
     peak = torch.cuda.max_memory_allocated()
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-10)
     rel = float(np.max(np.abs(got - ref) / np.abs(ref)))
-    assert launches["spmv_csr"] == ROUNDS and launches["spmv_ell"] == 0, \
-        launches
+    # the wrapper: the capture's warm-up round, then the ROUNDS rounds it
+    # enqueues into the graph (the replay calls no wrapper)
+    assert launches["spmv_csr"] == ROUNDS + GraphEngine.WARMUP_ROUNDS \
+        and launches["spmv_ell"] == 0, launches
+    assert stats["engine"]["graph_launches"] == \
+        stats["engine"]["dispatches"] == 1, stats["engine"]
     fresh_plan_cache()      # time a fresh config, as the entry point's
     t0 = time.perf_counter()
     app, out_sets, in_sets = make_pagerank_app(parts, n_vertices, DAMPING)
@@ -670,14 +810,20 @@ def phase_pagerank(torch, edges, parts, n_vertices):
                                 engine.uin_cap, device=DEVICE)
     torch.cuda.synchronize()
     state_s = time.perf_counter() - t0
-    first_state, first_q, _ = engine.run(ROUNDS, p0, extras)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, last_q, _ = engine.run(ROUNDS, p0, extras)
-    torch.cuda.synchronize()
-    round_s = (time.perf_counter() - t0) / ROUNDS
-    assert torch.equal(state, first_state) and torch.equal(last_q, first_q), \
+    first = engine.run(ROUNDS, p0, extras)
+    graph, (state, last_q, _) = graph_check(torch, engine, ROUNDS, p0,
+                                            extras)
+    GRAPH_RAN[PHASE["name"]] = GraphEngine.WARMUP_ROUNDS + \
+        stats["engine"]["graph_launches"] * graph["replay_spmv"]
+    assert same_tree(torch, first, (state, last_q, None)), \
         "two PageRank runs differ"
+    rotated = GraphEngine(out_sets, in_sets, app, degrees=DEGREES,
+                          device=DEVICE, overlap=True)
+    rot, out = graph_check(torch, rotated, ROUNDS, p0, extras)
+    assert same_tree(torch, out, (state, last_q, None)), \
+        "rotated schedule differs from plain"
+    rot["bit_identical_to_plain"] = True
+    del rotated, out, first
     csr_bytes = sum(int(t.numel() * t.element_size())
                     for t in extras.values())
     emit({"phase": PHASE["name"], "ok": True, "vertices": n_vertices,
@@ -694,9 +840,11 @@ def phase_pagerank(torch, edges, parts, n_vertices):
           "memory_allocated_before": int(base), "entry_point_s": total_s,
           "host_config_s": config_s, "config_cache": engine.config_cache,
           "csr_state_s": state_s, "reference_s": reference_s,
-          "round_wall_s": round_s, "two_runs_bit_identical": True,
-          "engine": stats["engine"], "launches": launches})
-    del engine, extras, p0, last_q, state, first_state, first_q
+          "round_wall_s": graph["round_wall_s"],
+          "two_runs_bit_identical": True, "graph": graph,
+          "overlap_engine": rot, "engine": stats["engine"],
+          "launches": launches})
+    del engine, extras, p0, last_q, state
     return launches
 
 
@@ -721,7 +869,8 @@ def hadi_oracle(edges, n_vertices, b0):
 
 def phase_hadi(torch, edges, parts, n_vertices):
     """HADI through the device entry point vs the float64 global OR
-    oracle (bit for bit), then the engine's ms per hop."""
+    oracle (bit for bit; one graph launch), then the engine's ms per hop
+    and its graph replay against its eager loop."""
     from repro_torch.graph.engine import csr_matvec_wide
     from repro_torch.graph.hadi import hadi, make_hadi_engine
     torch.cuda.synchronize()
@@ -741,18 +890,15 @@ def phase_hadi(torch, edges, parts, n_vertices):
     assert np.array_equal(curve, want_curve), (curve, want_curve)
     assert (eff, stats["hops_run"]) == (want_eff, want_hops), \
         (eff, stats["hops_run"], want_eff, want_hops)
-    assert stats["engine"]["dispatches"] == 1, stats["engine"]
+    assert stats["engine"]["dispatches"] == \
+        stats["engine"]["graph_launches"] == 1, stats["engine"]
     hops = stats["hops_run"]
     req = [np.union1d(p.in_idx, p.out_idx).astype(np.uint32) for p in parts]
     engine, extras, state0 = make_hadi_engine(
         parts, req, DEGREES, HADI_BITS, HADI_TRIALS, stats["b0"],
         device=DEVICE)
-    engine.run(hops, state0, extras)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    engine.run(hops, state0, extras)
-    torch.cuda.synchronize()
-    hop_s = (time.perf_counter() - t0) / hops
+    graph, _ = graph_check(torch, engine, hops, state0, extras, reps=3)
+    hop_s = graph["round_wall_s"]
     rp, cols, wts = extras["row_ptr"], extras["cols"], extras["wts"]
     product_ms = cuda_ms(lambda: csr_matvec_wide(rp, cols, wts, state0),
                          reps=10)
@@ -772,7 +918,7 @@ def phase_hadi(torch, edges, parts, n_vertices):
           "max_memory_allocated": int(peak),
           "max_memory_over_call": int(peak - base),
           "entry_point_s": total_s, "oracle_s": oracle_s,
-          "hop_wall_s": hop_s, "engine": stats["engine"],
+          "hop_wall_s": hop_s, "graph": graph, "engine": stats["engine"],
           "wide_product": {
               "nnz": nnz, "width": width, "ms": product_ms,
               "bound_ms": bound_ms(nnz * 8 + rp.numel() * rp.element_size()
@@ -788,7 +934,9 @@ def phase_hadi(torch, edges, parts, n_vertices):
 
 def phase_spectral(torch, edges, n_vertices):
     """Power iteration through the device entry point vs the float64
-    reference, then the engine's ms per round."""
+    reference (one graph launch), then the engine's ms per round and its
+    graph replay against its eager loop."""
+    from repro_torch.graph.engine import GraphEngine
     from repro_torch.graph.pagerank import build_partitions
     from repro_torch.graph.spectral import (make_spectral_engine,
                                             power_iteration,
@@ -808,20 +956,20 @@ def phase_spectral(torch, edges, n_vertices):
     rel = abs(lam - lam_r) / lam_r
     cos = float(abs(v @ v_r) / (np.linalg.norm(v) * np.linalg.norm(v_r)))
     assert rel < 1e-4 and cos > 1 - 1e-6, (rel, cos)
-    assert launches["spmv_csr"] == SPECTRAL_ITERS, launches
-    assert stats["engine"]["dispatches"] == 1, stats["engine"]
+    assert launches["spmv_csr"] == \
+        SPECTRAL_ITERS + GraphEngine.WARMUP_ROUNDS, launches
+    assert stats["engine"]["dispatches"] == \
+        stats["engine"]["graph_launches"] == 1, stats["engine"]
     sym = np.concatenate([edges, edges[:, ::-1]], axis=0)
     parts = build_partitions(sym, n_vertices, M)
     for p in parts:
         p.inv_outdeg = np.ones_like(p.inv_outdeg)
     engine, extras, state0 = make_spectral_engine(parts, n_vertices, DEGREES,
                                                   device=DEVICE)
-    engine.run(SPECTRAL_ITERS, state0, extras)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    engine.run(SPECTRAL_ITERS, state0, extras)
-    torch.cuda.synchronize()
-    round_s = (time.perf_counter() - t0) / SPECTRAL_ITERS
+    graph, _ = graph_check(torch, engine, SPECTRAL_ITERS, state0, extras)
+    GRAPH_RAN["spectral"] = GraphEngine.WARMUP_ROUNDS + \
+        stats["engine"]["graph_launches"] * graph["replay_spmv"]
+    round_s = graph["round_wall_s"]
     emit({"phase": "spectral", "ok": True, "vertices": n_vertices,
           "nnz": int(extras["cols"].numel()), "nodes": M,
           "degrees": list(DEGREES), "iters": SPECTRAL_ITERS,
@@ -832,6 +980,7 @@ def phase_spectral(torch, edges, n_vertices):
           "u_cap": engine.u_cap, "uin_cap": engine.uin_cap,
           "max_memory_allocated": int(peak), "entry_point_s": total_s,
           "reference_s": reference_s, "round_wall_s": round_s,
+          "graph": graph,
           "mesh_sums": engine.transport.sums, "engine": stats["engine"],
           "launches": launches})
     del engine, extras, state0
@@ -1346,8 +1495,11 @@ def soak_seed() -> int:
 def phase_supervised_pagerank(torch, parts):
     """``SupervisedEngineLoop`` (M = 64 over a pool of 80, 10 rounds,
     checkpoints every 2) with a rack schedule from round 3: final state
-    and last_q equal the fault-free run bit for bit, with a remap."""
+    and last_q equal the fault-free run bit for bit, with a remap; every
+    block one graph launch, and the fault-free run's replays equal one
+    eager loop of the ten rounds."""
     from repro_torch.core.faults import make_schedule
+    from repro_torch.graph.engine import GraphEngine
     from repro_torch.graph.pagerank import make_pagerank_app, pagerank_state
     from repro_torch.resilience import SupervisedEngineLoop
     seed = soak_seed()
@@ -1361,10 +1513,11 @@ def phase_supervised_pagerank(torch, parts):
                                     schedule=sched, fault_at=FAULT_AT,
                                     ckpt_dir=ckpt, ckpt_every=CKPT_EVERY,
                                     pool=POOL, device=DEVICE)
-        remaps = []
+        remaps, engines = [], [loop.engine]
         supervise = loop._supervise
 
-        def timed(rnd, loop=loop, supervise=supervise, remaps=remaps):
+        def timed(rnd, loop=loop, supervise=supervise, remaps=remaps,
+                  engines=engines):
             before = loop.remaps
             t0 = time.perf_counter()
             supervise(rnd)
@@ -1373,6 +1526,8 @@ def phase_supervised_pagerank(torch, parts):
                                "seconds": time.perf_counter() - t0,
                                "config_cache": loop.engine.config_cache,
                                "nodes_first": loop.engine.nodes[0]})
+            if loop.engine is not engines[-1]:
+                engines.append(loop.engine)
         loop._supervise = timed
         extras, p0 = pagerank_state(parts, N_VERTICES, loop.engine.u_cap,
                                     loop.engine.uin_cap, device=DEVICE)
@@ -1382,10 +1537,32 @@ def phase_supervised_pagerank(torch, parts):
         torch.cuda.synchronize()
         runs[name] = {"state": state, "last_q": last_q, "remaps": remaps,
                       "seconds": time.perf_counter() - t0,
-                      "events": [e.klass for e in loop.events]}
+                      "events": [e.klass for e in loop.events],
+                      "engine": loop.engine.sync_report()}
+        rep = runs[name]["engine"]
+        assert rep["graph_launches"] == rep["dispatches"] > 0, rep
+        # the wrapper: each capture's warm-up round and the CKPT_EVERY
+        # rounds it enqueues; the device: the warm-up rounds and every
+        # replay's kernels, those of a traced replay of the block
+        captures = sum(e.report["captures"] for e in engines)
+        assert launches["spmv_csr"] == captures * (
+            GraphEngine.WARMUP_ROUNDS + CKPT_EVERY), (launches, captures)
+        replays = sum(e.report["graph_launches"] for e in engines)
+        assert replays == ROUNDS // CKPT_EVERY, replays
+        if name == "clean":
+            # the blocks' replays against one eager loop of all rounds
+            e_state, e_q, _ = loop.engine.eager_fn(ROUNDS)(p0, extras)
+            assert torch.equal(e_state, state) and torch.equal(e_q, last_q), \
+                "supervised replays differ from the eager loop"
+            del e_state, e_q
+            replay = replay_kernels(torch, loop.engine, CKPT_EVERY, p0,
+                                    extras)
+        runs[name]["spmv_ran"] = captures * GraphEngine.WARMUP_ROUNDS \
+            + replays * replay["replay_spmv"]
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         del extras, p0
+    GRAPH_RAN[PHASE["name"]] = sum(r["spmv_ran"] for r in runs.values())
     clean, rack = runs["clean"], runs["rack"]
     assert len(rack["remaps"]) >= 1, rack["events"]
     assert torch.equal(clean["state"], rack["state"]) and \
@@ -1398,8 +1575,13 @@ def phase_supervised_pagerank(torch, parts):
               "seed": seed, "fault_at": FAULT_AT},
           "events": rack["events"], "remaps": rack["remaps"],
           "clean_run_s": clean["seconds"], "rack_run_s": rack["seconds"],
+          "engines": {"clean": clean["engine"], "rack": rack["engine"]},
+          "graph_launches_per_run": 1, "graph_vs_eager_bit_identical": True,
+          "block_replay": replay,
+          "spmv_ran": {"clean": clean["spmv_ran"], "rack": rack["spmv_ran"]},
           "tolerance": "final state and last_q bit for bit vs the "
-                       "fault-free run",
+                       "fault-free run, and the fault-free run's block "
+                       "replays vs one eager loop of all rounds",
           "launches": total})
     del runs
     return total
@@ -1409,9 +1591,11 @@ def phase_soak_resume(torch):
     """``python -m repro_torch.launch.soak --job pagerank`` at the smoke's
     graph size in subprocesses: a fault-free baseline, a rack-fault run
     killed at round 4 (exit 17), and its ``--resume``; final.npz equal to
-    the baseline's array by array.  The kernels run in the subprocesses,
-    so their launches (as each run prints them) are reported here and
-    kept apart from the in-process main-path counts."""
+    the baseline's array by array; the baseline's state and last_q equal
+    to one eager loop of the same job in this process (:func:`soak_eager`)
+    and each of its runs one graph launch.  The kernels run in the
+    subprocesses, so their launches (as each run prints them) are
+    reported here and kept apart from the in-process main-path counts."""
     seed = soak_seed()
     base_args = ["--job", "pagerank", "--vertices", str(N_VERTICES),
                  "--edges", str(N_EDGES), "--graph-nodes", str(M),
@@ -1432,12 +1616,14 @@ def phase_soak_resume(torch):
         assert proc.returncode == rc, (name, proc.returncode,
                                        proc.stdout[-2000:],
                                        proc.stderr[-4000:])
-        launches = [json.loads(line.split(" ", 1)[1]) for line in
-                    proc.stdout.splitlines()
-                    if line.startswith("SOAK_LAUNCHES ")]
+        tagged = lambda tag: [json.loads(line.split(" ", 1)[1]) for line in
+                              proc.stdout.splitlines()
+                              if line.startswith(tag + " ")]
+        launches, engine = tagged("SOAK_LAUNCHES"), tagged("SOAK_ENGINE")
         runs[name] = {"seconds": time.perf_counter() - t0, "rc": rc,
                       "launches": {k: v for k, v in launches[0].items() if v}
-                      if launches else None}
+                      if launches else None,
+                      "engine": engine[0] if engine else None}
         return proc.stdout
 
     base = os.path.join(SCRATCH["root"], "soak-base")
@@ -1452,15 +1638,43 @@ def phase_soak_resume(torch):
         assert sorted(a.files) == ["last_q", "scores", "state"]
         for k in a.files:
             assert np.array_equal(a[k], b[k]), k
+        eager = soak_eager(torch, seed)
+        for k, v in eager.items():
+            assert np.array_equal(a[k], v), ("soak vs eager loop", k)
+    eng = runs["baseline"]["engine"]
+    assert eng["graph_launches"] == eng["dispatches"] \
+        == ROUNDS // CKPT_EVERY, eng
     with open(os.path.join(faulted, "final.meta.json")) as f:
         meta = json.load(f)
     emit({"phase": "soak_resume", "ok": True, "seed": seed,
           "args": base_args + rack, "runs": runs,
           "remaps": meta["remaps"], "events": meta["events"],
+          "graph_launches_per_run": 1, "graph_vs_eager_bit_identical": True,
           "tolerance": "final.npz (state, last_q, scores) equal array by "
-                       "array to the fault-free baseline",
+                       "array to the fault-free baseline; the baseline's "
+                       "state and last_q equal to one eager loop of the "
+                       "soak's PageRank in this process",
           "launches": {}})
     return {}
+
+
+def soak_eager(torch, seed):
+    """The soak's PageRank job (its graph, partitions, degrees and seed)
+    as one eager loop of ROUNDS rounds in this process: ``{"state",
+    "last_q"}`` on the host."""
+    from repro_torch.data.pipeline import powerlaw_graph
+    from repro_torch.graph.engine import GraphEngine
+    from repro_torch.graph.pagerank import (build_partitions,
+                                            make_pagerank_app, pagerank_state)
+    edges = powerlaw_graph(N_VERTICES, N_EDGES, seed=seed)
+    parts = build_partitions(edges, N_VERTICES, M, seed=seed)
+    app, out_sets, in_sets = make_pagerank_app(parts, N_VERTICES, DAMPING)
+    engine = GraphEngine(out_sets, in_sets, app, degrees=(M,), seed=seed,
+                         device=DEVICE)
+    extras, p0 = pagerank_state(parts, N_VERTICES, engine.u_cap,
+                                engine.uin_cap, device=DEVICE)
+    state, last_q, _ = engine.eager_fn(ROUNDS)(p0, extras)
+    return {"state": state.cpu().numpy(), "last_q": last_q.cpu().numpy()}
 
 
 def train_close(torch, got, want, what):
@@ -1717,6 +1931,290 @@ def tp_pair_excess(torch, a, b):
             if x >= worst[k][0]:
                 worst[k] = (x, name)
     return worst, left_out
+
+
+def train_run(torch, cfg, mc, degrees, sync, merge="sort", wire="raw",
+              steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, **kw):
+    """``steps`` steps of ``cfg`` on mesh ``mc`` (``make_train_step`` with
+    ``degrees`` and the sync settings, ``kw`` passed on) from seed-0
+    weights drawn on the card, on the launcher's batch stream: per step
+    the step, forward + backward, sync and update ms (CUDA events),
+    losses and overflow, and the caching allocator's device allocations,
+    frees and retries and each stage's peak (``allocator``); the peak
+    memory (the largest stage peak) and what was allocated before the
+    run (``held``: earlier runs' results); row 0 of step 1's synced leaves
+    and the parameters after the last step, on the card."""
+    from repro_torch.launch.train import batch_stream
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.step import make_train_step
+    stream = batch_stream(cfg, batch, seq, seed=0)
+    batches = [next(stream) for _ in range(steps)]
+    step, _ = make_train_step(
+        cfg, mc, sync=sync, opt=AdamW(), dp_degrees=degrees,
+        sparse_tokens_hint=max(8, batch * seq // mc.dp), sync_merge=merge,
+        sync_wire=wire, **kw)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    params = T.init_params(cfg, mc.tp, seed=0, device=DEVICE)
+    st = AdamW().init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"losses": [], "overflow": [], "step_ms": [], "fwd_bwd_ms": [],
+           "sync_ms": [], "update_ms": [], "allocator": [], "held": held}
+    alloc_keys = {"cuda_mallocs": "segment.all.allocated",
+                  "cuda_frees": "segment.all.freed",
+                  "retries": "num_alloc_retries"}
+    for i, b in enumerate(batches):
+        before = torch.cuda.memory_stats()
+        ev = {k: torch.cuda.Event(enable_timing=True)
+              for k in ("start", "fwd_bwd", "sync", "update")}
+        capture = {} if i == 0 else None
+        peaks = {}
+
+        def mark(k, ev=ev, peaks=peaks):
+            ev[k].record()
+            peaks[k] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        ev["start"].record()
+        params, st, mets = step(params, st, b, mark=mark, capture=capture)
+        torch.cuda.synchronize()
+        out["losses"].append(float(mets["loss"]))
+        out["overflow"].append(int(mets["sync_overflow"]))
+        for k, a, z in (("step_ms", "start", "update"),
+                        ("fwd_bwd_ms", "start", "fwd_bwd"),
+                        ("sync_ms", "fwd_bwd", "sync"),
+                        ("update_ms", "sync", "update")):
+            out[k].append(ev[a].elapsed_time(ev[z]))
+        after = torch.cuda.memory_stats()
+        out["allocator"].append(
+            {k: after.get(v, 0) - before.get(v, 0)
+             for k, v in alloc_keys.items()}
+            | {"reserved": after.get("reserved_bytes.all.current", 0),
+               "peak_by_stage": peaks})
+        if capture is not None:
+            out["synced"] = [t for _, t in T.tree_leaves(capture["synced"])]
+            del capture
+    out["peak"] = max(max(a["peak_by_stage"].values())
+                      for a in out["allocator"])
+    out["params"] = [t for _, t in T.tree_leaves(params)]
+    del params, st, step
+    return out
+
+
+def pair_diff(torch, a, b) -> dict:
+    """Two :func:`train_run` results: the largest loss difference, and
+    for the synced leaves and the final parameters the elements that
+    differ and the largest |a - b| (all 0: bit for bit)."""
+    out = {"loss": max(abs(x - y) for x, y in zip(a["losses"], b["losses"]))}
+    for key in ("synced", "params"):
+        n, worst = 0, 0.0
+        for x, y in zip(a[key], b[key]):
+            k = int((x != y).sum())
+            if k:
+                n += k
+                worst = max(worst, float((x.float() - y.float()).abs().max()))
+        out[key] = {"differing": n, "max_abs_diff": worst}
+    return out
+
+
+def run_row(name, res, tokens):
+    """A configuration's line entry from a :func:`train_run` result: the
+    medians of the steps after the first."""
+    med = lambda xs: float(np.median(xs[1:] if len(xs) > 1 else xs))
+    step_ms = med(res["step_ms"])
+    return {"config": name, "step_ms": step_ms,
+            "fwd_bwd_ms": med(res["fwd_bwd_ms"]), "sync_ms": med(res["sync_ms"]),
+            "update_ms": med(res["update_ms"]), "step_ms_all": res["step_ms"],
+            "tokens_per_s": tokens / (step_ms / 1e3),
+            "fwd_bwd_ms_all": res["fwd_bwd_ms"],
+            "sync_ms_all": res["sync_ms"],
+            "allocator_per_step": res["allocator"],
+            "max_memory_allocated": int(res["peak"]),
+            "memory_allocated_before": int(res["held"]),
+            "losses": res["losses"], "sync_overflow": res["overflow"]}
+
+
+def phase_train_pod(torch):
+    """The ``pod`` axis on the card: qwen1.5-0.5b untied at full width on
+    (pod, data, model) = (2, 2, 1), degrees {pod: (2,), data: (2,)}, against
+    the flat (4, 1) mesh with {data: (2, 2)}, for ``hier``, sparse fused
+    (raw) and sparse banded ``delta+int8ef``; then (2, 2, 2) against (4,
+    2) (recorder phase ``train_pod_tp``) for ``hier`` and sparse fused;
+    POD_STEPS steps each from the same seed-0 weights on the launcher's
+    batch 8 x seq 256: losses, step 1's synced gradients and the
+    parameters after, bit for bit (:func:`pair_diff` all 0); overflow 0,
+    the first loss within 1.5 of ln(vocab)."""
+    from repro_torch.configs import get_config
+    from repro_torch.train.step import mesh_ctx
+    cfg = get_config(TRAIN_ARCH, "untied")
+    rows, total = [], {}
+    pod_degrees = {"pod": (POD,), "data": (POD_DATA,)}
+    flat_degrees = {"data": (POD, POD_DATA)}
+    for label, tp, configs in (("train_pod", 1, POD_CONFIGS),
+                               ("train_pod_tp", 2, POD_TP_CONFIGS)):
+        PHASE["name"] = label
+        for sync, merge, wire in configs:
+            name = f"{sync}/{merge}/{wire}" if sync == "sparse" else sync
+            res, entry = {}, {}
+            for mesh in ("pod", "flat"):
+                mc = mesh_ctx(POD_DATA, tp, pod=POD, device=DEVICE) \
+                    if mesh == "pod" else mesh_ctx(POD * POD_DATA, tp,
+                                                   device=DEVICE)
+                degs = pod_degrees if mesh == "pod" else flat_degrees
+                res[mesh], launches = main_path(lambda: train_run(
+                    torch, cfg, mc, degs, sync, merge, wire, steps=POD_STEPS))
+                for k, v in launches.items():
+                    total[k] = total.get(k, 0) + v
+                r = res[mesh]
+                assert all(math.isfinite(x) for x in r["losses"]), r["losses"]
+                assert abs(r["losses"][0] - math.log(cfg.vocab)) < 1.5
+                assert r["overflow"] == [0] * POD_STEPS, (name, r["overflow"])
+                entry[mesh] = dict(
+                    run_row(name, r, TRAIN_BATCH * TRAIN_SEQ),
+                    mesh=mc.shape, degrees={a: list(d) for a, d
+                                            in degs.items()},
+                    launches={k: v for k, v in launches.items() if v})
+            diff = pair_diff(torch, res["pod"], res["flat"])
+            ok = diff["loss"] == 0 and all(
+                diff[k]["differing"] == 0 for k in ("synced", "params"))
+            rows.append({"config": name, "tp": tp, "pod": entry["pod"],
+                         "flat": entry["flat"], "pair": diff,
+                         "bit_for_bit": ok})
+            assert ok, (name, tp, diff)
+            del res
+            torch.cuda.empty_cache()
+    PHASE["name"] = "train_pod"
+    emit({"phase": "train_pod", "ok": True, "arch": cfg.name,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab, "dtype": str(cfg.dtype),
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": POD_STEPS,
+          "configs": rows,
+          "tolerance": "pod mesh vs its flat mesh with the degrees "
+                       "concatenated, same weights and batches: losses, "
+                       "step-1 synced gradients and final parameters bit "
+                       "for bit; overflow 0; step-1 loss within 1.5 of "
+                       "ln(vocab)",
+          "launches": total})
+    return total
+
+
+def layer_check(torch, cfg, t):
+    """qwen's layer-0 attention (seed-0 weights) on one row of ``t``
+    normal bfloat16 activations on the card: ``attn_train_blocked``
+    against ``attn_train``: bit for bit or not, the largest |a - b| over
+    max |b|, and the ms of each (CUDA events)."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    params = T.init_params(cfg, 1, seed=0, device=DEVICE)
+    p = {k: v[0] for k, v in params["blocks"]["b0"]["attn"].items()}
+    del params
+    x = torch.randn(1, t, cfg.d_model, device=DEVICE,
+                    generator=torch.Generator(device=DEVICE).manual_seed(3)
+                    ).to(cfg.dtype)
+    with torch.no_grad():
+        want = A.attn_train(p, x, cfg, 1, cfg.window)
+        got = A.attn_train_blocked(p, x, cfg, 1, cfg.window)
+        out = {"seq": t, "bit_for_bit": bool(torch.equal(got, want)),
+               "max_rel_diff": float((got.float() - want.float()).abs().max()
+                                     / want.float().abs().max()),
+               "blocked_ms": cuda_ms(lambda: A.attn_train_blocked(
+                   p, x, cfg, 1, cfg.window), reps=5),
+               "unblocked_ms": cuda_ms(lambda: A.attn_train(
+                   p, x, cfg, 1, cfg.window), reps=5)}
+    del p, x, got, want
+    torch.cuda.empty_cache()
+    assert out["max_rel_diff"] <= 2.0 ** -7, out
+    return out
+
+
+def phase_train_long(torch):
+    """Sequences of 8,192 tokens: qwen1.5-0.5b untied at full width on
+    LONG_M = 2 data positions, degrees (2,), batch 2 x seq 8,192 (one row
+    a position: the block forward takes the query-chunked attention, and
+    the sparse sync's capacities are 8,192 in, 16,384 out), ``hier`` and
+    sparse fused, LONG_STEPS steps each: step ms, tokens/s, peak memory,
+    losses finite and the first within 1.5 of ln(vocab), overflow 0.  Then
+    the layer-0 attention on the card, blocked against unblocked, at T =
+    2,048 and 8,192 (:func:`layer_check`, within 2^-7 of max)."""
+    from repro_torch.configs import get_config
+    from repro_torch.train.step import mesh_ctx
+    cfg = get_config(TRAIN_ARCH, "untied")
+    rows, total = [], {}
+    mc = mesh_ctx(LONG_M, device=DEVICE)
+    for sync, merge, wire in LONG_CONFIGS:
+        name = f"{sync}/{merge}/{wire}" if sync == "sparse" else sync
+        res, launches = main_path(lambda: train_run(
+            torch, cfg, mc, {"data": (LONG_M,)}, sync, merge, wire,
+            steps=LONG_STEPS, batch=LONG_BATCH, seq=LONG_SEQ))
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        assert all(math.isfinite(x) for x in res["losses"]), res["losses"]
+        assert abs(res["losses"][0] - math.log(cfg.vocab)) < 1.5
+        assert res["overflow"] == [0] * LONG_STEPS, res["overflow"]
+        rows.append(dict(run_row(name, res, LONG_BATCH * LONG_SEQ),
+                         launches={k: v for k, v in launches.items() if v}))
+        del res
+        torch.cuda.empty_cache()
+    checks = [layer_check(torch, cfg, t) for t in (2048, LONG_SEQ)]
+    emit({"phase": "train_long", "ok": True, "arch": cfg.name,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab, "dtype": str(cfg.dtype),
+          "data_positions": LONG_M, "degrees": [LONG_M],
+          "batch": LONG_BATCH, "seq": LONG_SEQ, "steps": LONG_STEPS,
+          "attention": "query-chunked (attn_train_blocked), Q_CHUNK 1,024; "
+                       "per-block recompute only",
+          "configs": rows, "layer_checks": checks,
+          "tolerance": "losses finite, step-1 loss within 1.5 of ln(vocab); "
+                       "overflow 0; blocked vs unblocked attention within "
+                       "2^-7 x max",
+          "launches": total})
+    return total
+
+
+def phase_train_overlap(torch):
+    """The bucketed sync schedule on the card: qwen1.5-0.5b untied at full
+    width over M = 8, degrees (4, 2), batch 8 x seq 256, ``hier`` with
+    ``sync_overlap="bucketed"`` (the default 4 MB budget) against
+    ``"off"``, OVERLAP_STEPS steps each from the same weights: losses,
+    step 1's synced gradients and the final parameters bit for bit; sync
+    ms of each; the buckets and the leaves they hold."""
+    from repro_torch.configs import get_config
+    from repro_torch.train import step as S
+    cfg = get_config(TRAIN_ARCH, "untied")
+    mc = S.mesh_ctx(TRAIN_M, device=DEVICE)
+    res, rows, total = {}, [], {}
+    for overlap in ("off", "bucketed"):
+        res[overlap], launches = main_path(lambda: train_run(
+            torch, cfg, mc, {"data": TRAIN_DEGREES}, "hier",
+            steps=OVERLAP_STEPS, sync_overlap=overlap))
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        r = res[overlap]
+        assert all(math.isfinite(x) for x in r["losses"]), r["losses"]
+        rows.append(dict(run_row(overlap, r, TRAIN_BATCH * TRAIN_SEQ),
+                         sync_overlap=overlap))
+    diff = pair_diff(torch, res["bucketed"], res["off"])
+    ok = diff["loss"] == 0 and all(diff[k]["differing"] == 0
+                                   for k in ("synced", "params"))
+    sizes = [t.numel() + (-t.numel()) % TRAIN_M for t in res["off"]["params"]]
+    buckets = S.plan_grad_buckets(sizes, S.DEFAULT_BUCKET_BYTES)
+    del res
+    torch.cuda.empty_cache()
+    emit({"phase": "train_overlap", "ok": ok, "arch": cfg.name,
+          "data_positions": TRAIN_M, "degrees": list(TRAIN_DEGREES),
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": OVERLAP_STEPS,
+          "bucket_bytes": S.DEFAULT_BUCKET_BYTES, "leaves": len(sizes),
+          "buckets": len(buckets),
+          "leaves_in_shared_buckets": sum(len(b) for b in buckets
+                                          if len(b) > 1),
+          "configs": rows, "pair": diff,
+          "tolerance": "bucketed vs off, same weights and batches: losses, "
+                       "step-1 synced gradients and final parameters bit "
+                       "for bit",
+          "launches": total})
+    assert ok, diff
+    return total
 
 
 def moe_drops(torch, cfg, m, tp, batch):
@@ -2954,17 +3452,24 @@ def spmv_csr_call(torch, args, calls, first):
 
 def spmv_csr_row(torch, rec, launches):
     """The SpMV kernel at each graph phase's first round on the stacked
-    CSR (main path); the top-level numbers are PageRank's."""
+    CSR (main path); the top-level numbers are PageRank's.  A phase's
+    launches are the kernels its main path ran (``GRAPH_RAN``): its
+    warm-up rounds, and its graph replays times the SpMV kernels a traced
+    replay ran.  Its wrapper calls (``wrapper_calls``: the warm-up rounds
+    and the rounds each capture enqueued) sum to ``launches``'s count."""
     keys = sorted(rec.args, key=lambda key: GRAPH_PHASES.index(key[0]))
-    shapes = [dict(spmv_csr_call(torch, rec.args[key][0], rec.calls[key],
-                                 key[0] == "pagerank"), phase=key[0])
+    assert sorted(k[0] for k in keys) == sorted(GRAPH_RAN), \
+        (keys, GRAPH_RAN)
+    shapes = [dict(spmv_csr_call(torch, rec.args[key][0], GRAPH_RAN[key[0]],
+                                 key[0] == "pagerank"), phase=key[0],
+                   wrapper_calls=rec.calls[key])
               for key in keys]
-    assert sum(e["launches"] for e in shapes) == launches["spmv_csr"], \
-        ([e["launches"] for e in shapes], launches["spmv_csr"])
+    assert sum(e["wrapper_calls"] for e in shapes) == launches["spmv_csr"], \
+        ([e["wrapper_calls"] for e in shapes], launches["spmv_csr"])
     row = {"name": "spmv_csr", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/spmv_csr.cu",
            "replaces": "src/repro/kernels/spmv_ell.py:34",
-           "launches": launches["spmv_csr"],
+           "launches": sum(e["launches"] for e in shapes),
            "max_abs_err": max(e["max_abs_err"] for e in shapes),
            "check": "; ".join(f"{e['phase']}: {e['check']}"
                               for e in shapes)}
@@ -3185,6 +3690,9 @@ def smoke(torch) -> int:
     per_phase["soak_resume"] = run("soak_resume", phase_soak_resume)
     per_phase["train"] = run("train", phase_train)
     per_phase["train_tp"] = run("train_tp", phase_train_tp)
+    per_phase["train_pod"] = run("train_pod", phase_train_pod)
+    per_phase["train_long"] = run("train_long", phase_train_long)
+    per_phase["train_overlap"] = run("train_overlap", phase_train_overlap)
     per_phase["soak_train"] = run("soak_train", phase_soak_train)
     per_phase["train_moe"] = run("train_moe", phase_train_moe)
     per_phase["train_ssm"] = run("train_ssm", phase_train_ssm)
@@ -3197,9 +3705,12 @@ def smoke(torch) -> int:
         r.restore()
     emit({"phase": "main_path_launches", "launches": launches,
           "per_phase": per_phase, "graph_s": graph_s,
-          "phase_seconds": seconds,
-          "note": "in-process main-path calls; the soak's subprocess "
-                  "launches are in its phase line"})
+          "phase_seconds": seconds, "graph_spmv_ran": GRAPH_RAN,
+          "note": "in-process main-path calls of the kernel wrappers (a "
+                  "graph's kernels count once, at its capture; "
+                  "graph_spmv_ran counts the SpMV kernels the graph phases "
+                  "ran); the soak's subprocess launches are in its phase "
+                  "line"})
     # off the main path: the ELL kernel (PageRank runs the CSR kernel), the
     # dense scatter's layout stages and the banded scatter's window table,
     # each launched on its own
@@ -3219,7 +3730,8 @@ def smoke(torch) -> int:
     with fresh_profiler():
         rows = kernel_rows(torch, rec, launches, parts, train_launches)
     emit({"phase": "profiler", "process": "fresh", "calls": FRESH["calls"],
-          "traces": FRESH["traces"]})
+          "traces": FRESH["traces"],
+          "in_process_traces": PROFILER["traces"]})
     emit({"phase": "timing", "kernels_s": time.perf_counter() - t0,
           "total_s": time.perf_counter() - T_START})
     emit({"kernels": rows})

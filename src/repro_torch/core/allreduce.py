@@ -27,7 +27,8 @@ replication=r)``), and each physical node's values are multiplied by its
 summed from its first alive replica.  The dense baselines run on
 stacked ``[M, n]`` tensors too: the ring is the transport's ``psum``, the
 hierarchical and binary butterflies a tiled reduce-scatter per layer down
-and a tiled all-gather per layer up.
+and a tiled all-gather per layer up, and the bucketed hierarchical
+butterfly the same over a list of buckets, stage-major.
 """
 from __future__ import annotations
 
@@ -375,17 +376,34 @@ def dense_allreduce_hierarchical(x: torch.Tensor, plan: DevicePlan,
                                  transport: StackedTransport) -> torch.Tensor:
     """Heterogeneous-degree hierarchical dense allreduce of a stacked
     ``[M, n]`` tensor: a tiled reduce-scatter down the butterfly layers,
-    then a tiled all-gather back up.  ``n`` must divide by the butterfly
-    size; ``transport`` is bound to ``plan.logical``.  Costs ``2 * depth``
-    exchanges; every node's row holds the full sum."""
-    if x.shape[1] % plan.num_nodes:
-        raise ValueError(f"length {x.shape[1]} is not divisible by the "
+    then a tiled all-gather back up: the one bucket of
+    :func:`dense_allreduce_hierarchical_bucketed`.  ``n`` must divide by
+    the butterfly size; ``transport`` is bound to ``plan.logical``.  Costs
+    ``2 * depth`` exchanges; every node's row holds the full sum."""
+    return dense_allreduce_hierarchical_bucketed([x], plan, transport)[0]
+
+
+def dense_allreduce_hierarchical_bucketed(
+        xs: Sequence[torch.Tensor], plan: DevicePlan,
+        transport: StackedTransport) -> List[torch.Tensor]:
+    """The hierarchical dense allreduce of a list of stacked buckets
+    ``[M, n_b]`` (each ``n_b`` divisible by the butterfly size), in
+    stage-major issue order: every bucket's reduce-scatter at stage l
+    comes before any bucket's at stage l + 1, then the all-gathers in
+    reverse stage order, bucket by bucket.  Both collectives sum each
+    element over its group members in member order, whichever bucket
+    holds it, so every bucket's result is bit for bit that of reducing it
+    alone.  ``2 * depth * len(xs)`` exchanges."""
+    xs = list(xs)
+    bad = [x.shape[1] for x in xs if x.shape[1] % plan.num_nodes]
+    if bad:
+        raise ValueError(f"length {bad[0]} is not divisible by the "
                          f"butterfly size {plan.num_nodes}")
     for l in range(len(plan.stages)):
-        x = transport.reduce_scatter(l, x)
+        xs = [transport.reduce_scatter(l, x) for x in xs]
     for l in range(len(plan.stages) - 1, -1, -1):
-        (x,) = transport.all_gather(l, x)
-    return x
+        xs = [transport.all_gather(l, x)[0] for x in xs]
+    return xs
 
 
 def dense_allreduce_binary(x: torch.Tensor, axis_size: int,

@@ -31,7 +31,9 @@ runs as ``lax.psum`` over the mesh axis (spectral's Rayleigh norm): a
 pairwise tree over the node axis in one fixed order, broadcast back to
 every node, so repeats give the same bits on any device.  It is counted
 in ``sums``, apart from ``calls``, so a reduce still costs exactly ``2 *
-depth`` exchanges.
+depth`` exchanges.  Over a mesh of several data axes (``pod``, then
+``data``) it sums one axis after another, as the reference's ``psum``
+per axis does.
 
 The model axis is a second stacked axis.  On a (data, model) mesh of dp x
 tp positions, position n = d * tp + m (the device order of
@@ -151,22 +153,34 @@ class StackedTransport:
             out += rows.index_select(0, src[:, t])
         return out
 
-    def psum(self, x: torch.Tensor) -> torch.Tensor:
+    def psum(self, x: torch.Tensor, axes: Optional[Tuple[int, ...]] = None
+             ) -> torch.Tensor:
         """Whole-mesh sum of a per-node ``[M, ...]`` tensor, broadcast
         back to ``[M, ...]``: the nodes are added pairwise in a tree of
         ceil(log2 M) levels (at each level node 2i + 1 into node 2i, an
         odd last node carried up unchanged), the same order every call.
-        (A whole-mesh sum: a transport with ``columns`` > 1 has none.)"""
-        if self.columns != 1 or x.shape[0] != self.num_nodes:
+        ``axes`` (sizes whose product is M, the mesh's axes in row-major
+        order) sums one axis after another, first to last, each by that
+        tree within its groups, as the reference's ``psum`` over each
+        data axis in turn; each axis counts one sum.  (A whole-mesh sum:
+        a transport with ``columns`` > 1 has none.)"""
+        sizes = (self.num_nodes,) if axes is None else tuple(axes)
+        if self.columns != 1 or x.shape[0] != self.num_nodes \
+                or int(np.prod(sizes)) != self.num_nodes:
             raise ValueError(f"psum: expected {self.num_nodes} nodes of one "
-                             f"column, got {x.shape[0]} of {self.columns}")
-        self.sums += 1
-        s = x
-        while s.shape[0] > 1:
-            n = s.shape[0]
-            pair = s[0:n - 1:2] + s[1:n:2]
-            s = torch.cat([pair, s[n - 1:]]) if n % 2 else pair
-        return s.expand(x.shape).contiguous()
+                             f"column over axes {sizes}, got {x.shape[0]} "
+                             f"of {self.columns}")
+        s = x.reshape(sizes + tuple(x.shape[1:]))
+        for a in range(len(sizes)):
+            self.sums += 1
+            s = s.movedim(a, 0)
+            while s.shape[0] > 1:
+                n = s.shape[0]
+                pair = s[0:n - 1:2] + s[1:n:2]
+                s = torch.cat([pair, s[n - 1:]]) if n % 2 else pair
+            s = s.movedim(0, a)
+        return s.reshape((1,) + tuple(x.shape[1:])).expand(
+            x.shape).contiguous()
 
 
 class ModelAxis:

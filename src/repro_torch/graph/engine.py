@@ -10,9 +10,26 @@ device and runs k rounds per :meth:`GraphEngine.run`, each round
 
 over the stacked ``[M, ...]`` node axis, with one host round-trip per
 ``run`` (the caller's read of the result).  Where the reference compiles
-the k rounds into one ``lax.scan`` dispatch, ``run(k)`` here is a Python
-loop of k rounds of eager launches; capturing it as one CUDA graph is a
-later PR.  ``report`` keeps the reference's keys.
+the k rounds into one ``lax.scan`` dispatch, the port captures them, on
+a CUDA device, as one CUDA graph (:class:`_GraphRun`): the first ``run``
+of each ``(k, collect)`` warms the round's launches up once
+(``WARMUP_ROUNDS`` eager rounds on its inputs) and captures the k rounds
+on a static copy of the state and on the caller's extras; every ``run``
+copies its state in, replays the graph once and returns copies of the
+final state and last product (a trajectory is handed over whole, and the
+next such run captures again).  A capture that fails raises; nothing
+falls back to eager launches.  The CPU has no graphs and runs the same k
+rounds as a Python loop (:meth:`GraphEngine.eager_fn`, also the card's
+comparison for tests).  ``report`` keeps the reference's keys, and
+``graph_launches`` counts the replays.
+
+``overlap=True`` is the reference's rotated schedule (k >= 2): round 1's
+product and down half of the reduce before the loop, then for each
+later round the previous round's up half and update with this round's
+product and down half, and round k's up half and update after it.  On
+one stream every round's launches are the same, in the same order, so
+the results are the plain build's bit for bit; the per-round exchanges
+stay ``2 * depth``.
 
 Layouts.  The reference stacks ELL tables, which pad every partition to
 the global max rows x max per-row nonzeros; the hash permutation balances
@@ -31,7 +48,7 @@ device tensors, so the host never holds the whole stack.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +56,7 @@ import torch
 from repro_torch.core.api import SparseAllreduce
 from repro_torch.core.netmodel import EC2_2013, Fabric
 from repro_torch.core.transport import resolve_device
+from repro_torch.kernels import _build
 from repro_torch.kernels.spmv_csr import csr_bins, spmv_csr
 from repro_torch.kernels.spmv_ell import spmv_ell
 
@@ -266,6 +284,114 @@ def to_device(tree, device):
     return torch.as_tensor(tree, device=device)
 
 
+def _tree_map(fn, tree):
+    """``fn`` on every tensor of a dict / list / tuple tree (None kept)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return None if tree is None else fn(tree)
+
+
+def _tree_tensors(tree) -> List[torch.Tensor]:
+    """The tensors of a tree, in a fixed order."""
+    out: List[torch.Tensor] = []
+    _tree_map(out.append, tree)
+    return out
+
+
+def _signature(tree):
+    """Structure, shapes and dtypes of a tree: what a captured graph's
+    static inputs fix."""
+    if isinstance(tree, dict):
+        return tuple((k, _signature(tree[k])) for k in sorted(tree))
+    if isinstance(tree, (list, tuple)):
+        return (type(tree).__name__,) + tuple(_signature(v) for v in tree)
+    return (tuple(tree.shape), str(tree.dtype))
+
+
+class _GraphRun:
+    """One ``(k, collect)`` program of a :class:`GraphEngine` on a CUDA
+    device: the k rounds captured once as a CUDA graph, replayed once per
+    call.
+
+    A capture clones ``state`` into a static buffer and reads ``extras``
+    where the caller holds them (iteration-invariant inputs: the graph
+    keeps them alive and reads them in place); it runs ``WARMUP_ROUNDS``
+    eager rounds first on a side stream (every launch a round makes,
+    before capture), then captures ``eager(static_state, extras)``.  A
+    call captures anew when its state changes shape or dtype or its
+    extras are other tensors; every call copies its state into the
+    static buffer, replays, and returns clones of the final state and
+    last product, which the next replay cannot overwrite.  A trajectory
+    is not cloned: the run hands the graph's own outputs to the caller
+    and drops the graph, and the next call captures again.
+
+    The kernel wrappers count their launches in ``kernels._build.LAUNCHES``
+    as they enqueue them, at capture too; a replay calls no wrapper, so
+    the kernels a replay runs are counted by a trace of the device
+    (``launches`` holds what the capture enqueued, one replay's worth).
+    The transport's exchange and sum counts are the engine's accounting
+    of rounds: a capture adds nothing to them and each replay adds what
+    the capture issued."""
+
+    def __init__(self, engine: "GraphEngine", eager: Callable,
+                 collect: str):
+        self.engine, self.eager, self.collect = engine, eager, collect
+        self.graph = self.sig = None
+        self.static_state = self.extras = self.static_out = None
+        self.launches: Dict[str, int] = {}
+        self.exchanges = (0, 0)
+
+    def _capture(self, state, extras):
+        dev, tr = self.engine.device, self.engine.transport
+        self.graph = self.static_state = self.extras = self.static_out = None
+        s_state = _tree_map(lambda t: t.clone(), state)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            warm = self.engine.eager_fn(GraphEngine.WARMUP_ROUNDS)(s_state,
+                                                                   extras)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        del warm
+        launches, calls, sums = dict(_build.LAUNCHES), tr.calls, tr.sums
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            s_out = self.eager(s_state, extras)
+        self.launches = {k: v - launches[k] for k, v in _build.LAUNCHES.items()
+                         if v != launches[k]}
+        # the exchanges ran nowhere yet: each replay counts them
+        self.exchanges = (tr.calls - calls, tr.sums - sums)
+        tr.calls, tr.sums = calls, sums
+        self.graph, self.static_state, self.extras = graph, s_state, extras
+        self.static_out = s_out
+        self.engine.report["captures"] += 1
+
+    def __call__(self, state, extras):
+        sig = (_signature(state), _signature(extras),
+               tuple(t.data_ptr() for t in _tree_tensors(extras)))
+        if self.graph is None or sig != self.sig:
+            self._capture(state, extras)
+            self.sig = sig
+        for dst, src in zip(_tree_tensors(self.static_state),
+                            _tree_tensors(state)):
+            if dst.data_ptr() != src.data_ptr():
+                dst.copy_(src)
+        self.graph.replay()
+        tr = self.engine.transport
+        tr.calls += self.exchanges[0]
+        tr.sums += self.exchanges[1]
+        self.engine.report["graph_launches"] += 1
+        if self.collect == "trajectory":
+            out = self.static_out
+            self.graph = self.sig = None
+            self.static_state = self.extras = self.static_out = None
+            return out
+        final, last_out, traj = self.static_out
+        return (_tree_map(lambda t: t.clone(), final),
+                _tree_map(lambda t: t.clone(), last_out), traj)
+
+
 class GraphEngine:
     """k iterations on device per ``run`` (see module docstring).
 
@@ -283,20 +409,21 @@ class GraphEngine:
     ``plan_cache`` / ``retune`` forward to ``SparseAllreduce``.
     ``nodes`` names the pool positions of the M stacked nodes (default
     ``range(M)``); :meth:`remesh` rebinds the same program to others.
-    ``overlap=True`` is not ported yet and raises.
+    ``overlap=True`` runs k >= 2 rounds in the rotated schedule (module
+    docstring).  On a CUDA device every ``run`` is one graph replay
+    (``report["graph_launches"]``; ``captures`` counts the captures).
     """
+
+    # eager rounds a capture runs first, on the static inputs
+    WARMUP_ROUNDS = 1
 
     def __init__(self, out_sets, in_sets, app: EngineApp, *,
                  degrees="auto", device=None, seed: int = 0,
                  fabric: Fabric = EC2_2013, plan_cache=True,
                  retune: bool = False, overlap: bool = False,
                  nodes: Optional[Sequence[int]] = None):
-        if overlap:
-            raise NotImplementedError(
-                "GraphEngine(overlap=True) is not ported yet (ROADMAP "
-                "Queue 1 item 12)")
         self.app = app
-        self.overlap = False
+        self.overlap = bool(overlap)
         self.num_nodes = len(out_sets)
         self.out_sets = [np.asarray(o, np.uint32) for o in out_sets]
         self.in_sets = [np.asarray(i, np.uint32) for i in in_sets]
@@ -319,7 +446,8 @@ class GraphEngine:
         self.in_lens = meta["in_lens"]
         self._routing = self.planned.device_args(self.device)
         self._run_cache: Dict[Tuple[int, str], Callable] = {}
-        self.report = {"dispatches": 0, "rounds": 0, "step_traces": 0}
+        self.report = {"dispatches": 0, "rounds": 0, "step_traces": 0,
+                       "graph_launches": 0, "captures": 0}
 
     def remesh(self, nodes: Sequence[int]) -> "GraphEngine":
         """The same engine program on other pool positions ``nodes`` (M of
@@ -334,7 +462,7 @@ class GraphEngine:
                            degrees=self.ar.plan.degrees, device=self.device,
                            seed=self.seed, fabric=self.fabric,
                            plan_cache=self.plan_cache_arg, retune=False,
-                           nodes=nodes)
+                           overlap=self.overlap, nodes=nodes)
 
     @property
     def transport(self):
@@ -343,7 +471,9 @@ class GraphEngine:
 
     def sync_report(self) -> dict:
         """Per-round sync accounting: one reduce = ``depth`` down +
-        ``depth`` up exchanges; host round-trips equal ``run`` calls."""
+        ``depth`` up exchanges (the rotated schedule splits round 1's and
+        round k's halves around the loop, with the same total); host
+        round-trips equal ``run`` calls."""
         return dict(self.report,
                     butterfly_depth=self.planned.depth,
                     reduce_collectives_per_round=2 * self.planned.depth,
@@ -351,38 +481,70 @@ class GraphEngine:
                     config_cache=self.config_cache,
                     overlap=self.overlap)
 
-    def _build(self, k: int, collect: str) -> Callable:
+    def eager_fn(self, k: int, collect: str = "last") -> Callable:
+        """The k rounds of :meth:`run` as a Python loop of eager launches,
+        ``run_k(state, extras) -> (final, last_out, traj)``, in the rotated
+        schedule with ``overlap`` and k >= 2: what the CPU runs, and what
+        a test or the smoke holds the card's graph replay against.  Not
+        cached, not counted in ``report``."""
+        if collect not in ("last", "trajectory"):
+            raise ValueError(f"collect must be 'last' or 'trajectory', "
+                             f"got {collect!r}")
+        if k < 1:
+            raise ValueError(f"need k >= 1 rounds, got {k}")
         planned, app, routing = self.planned, self.app, self._routing
+        tr = routing.transport
+
+        def record(traj, i, state):
+            if collect != "trajectory":
+                return None
+            if isinstance(state, torch.Tensor):
+                if traj is None:   # one [k, ...] buffer, filled in place
+                    traj = state.new_empty((k,) + tuple(state.shape))
+                traj[i].copy_(state)
+                return traj
+            return (traj or []) + [state]
 
         def run_k(state, extras):
             last_out, traj = None, None
             for i in range(k):
                 last_out = app.out_fn(state, extras)
                 in_raw = planned.reduce_on_device(last_out, routing)
-                state = app.update_fn(state, in_raw, extras, routing.transport)
-                if collect != "trajectory":
-                    continue
-                if isinstance(state, torch.Tensor):
-                    if traj is None:   # one [k, ...] buffer, filled in place
-                        traj = state.new_empty((k,) + tuple(state.shape))
-                    traj[i].copy_(state)
-                else:
-                    traj = (traj or []) + [state]
+                state = app.update_fn(state, in_raw, extras, tr)
+                traj = record(traj, i, state)
             return state, last_out, traj
 
-        return run_k
+        def run_rotated(state, extras):
+            # round 1's product and down half before the loop; each body
+            # is round i's up half and update, then round i + 1's product
+            # and down half; round k's up half and update after it
+            traj = None
+            last_out = app.out_fn(state, extras)
+            bottom = planned.reduce_down_on_device(last_out, routing)
+            for i in range(k - 1):
+                in_raw = planned.reduce_up_on_device(bottom, routing)
+                state = app.update_fn(state, in_raw, extras, tr)
+                traj = record(traj, i, state)
+                last_out = app.out_fn(state, extras)
+                bottom = planned.reduce_down_on_device(last_out, routing)
+            in_raw = planned.reduce_up_on_device(bottom, routing)
+            state = app.update_fn(state, in_raw, extras, tr)
+            traj = record(traj, k - 1, state)
+            return state, last_out, traj
+
+        return run_rotated if self.overlap and k >= 2 else run_k
 
     def run_fn(self, k: int, collect: str = "last") -> Callable:
         """The k-round callable ``run(state, extras) -> (final, last_out,
-        traj)`` that :meth:`run` invokes, cached per ``(k, collect)``."""
-        if collect not in ("last", "trajectory"):
-            raise ValueError(f"collect must be 'last' or 'trajectory', "
-                             f"got {collect!r}")
-        if k < 1:
-            raise ValueError(f"need k >= 1 rounds, got {k}")
+        traj)`` that :meth:`run` invokes, cached per ``(k, collect)``: on a
+        CUDA device a :class:`_GraphRun` (one graph replay a call), on the
+        CPU the eager loop."""
         fn = self._run_cache.get((k, collect))
         if fn is None:
-            fn = self._run_cache[(k, collect)] = self._build(k, collect)
+            eager = self.eager_fn(k, collect)
+            fn = _GraphRun(self, eager, collect) \
+                if self.device.type == "cuda" else eager
+            self._run_cache[(k, collect)] = fn
             self.report["step_traces"] += 1
         return fn
 
@@ -395,7 +557,8 @@ class GraphEngine:
         the engine's device.  Returns ``(final_state, last_out, traj)``
         as device tensors: ``last_out`` is round k's pre-reduce outbound
         values ``[M, u_cap(,W)]``; ``traj`` stacks every round's state when
-        ``collect="trajectory"``, else None.
+        ``collect="trajectory"``, else None.  On a CUDA device the k
+        rounds are one graph replay.
         """
         fn = self.run_fn(k, collect)
         state = to_device(state, self.device)

@@ -30,7 +30,11 @@ that hosts a partition triggers a remap onto a spare (bit-identical).
 ``--pool N`` is the fleet size (the reference's device count);
 ``--device`` binds the run (default: the current CUDA device; ``cpu``
 runs the kernels' plain versions).  Both jobs print ``SOAK_LAUNCHES``
-(the kernels' launch counts) and ``SOAK_OK``.
+(the kernel wrappers' launch counts; a CUDA graph's kernels count once,
+when its capture enqueues them, not per replay) and ``SOAK_OK``; the
+PageRank job also
+``SOAK_ENGINE`` (its last engine's runs, rounds, graph launches and
+captures).
 """
 from __future__ import annotations
 
@@ -148,7 +152,8 @@ def run_train(args) -> int:
                                  seed=args.seed, rack_size=args.rack_size)
     fp = train_fingerprint(cfg, batch=args.batch, seq=args.seq, lr=args.lr,
                            sync=args.sync, merge=args.merge, dp=dp,
-                           replication=r, seed=args.seed)
+                           replication=r, seed=args.seed,
+                           mesh=mesh_ctx(m_roles, device=device).shape)
 
     # role -> pool position; sticky until a fault forces a remap
     assignment = list(range(m_roles))
@@ -318,6 +323,10 @@ def run_pagerank(args) -> int:
                meta={"rounds": args.steps, "remaps": loop.remaps,
                      "events": events})
     print("SOAK_LAUNCHES " + json.dumps(dict(_build.LAUNCHES)))
+    report = loop.engine.sync_report()
+    print("SOAK_ENGINE " + json.dumps(
+        {k: report[k] for k in ("dispatches", "rounds", "graph_launches",
+                                "captures")}))
     print(f"SOAK_OK job=pagerank rounds={args.steps} remaps={loop.remaps} "
           f"events={events}")
     return 0

@@ -5,6 +5,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
         --untied --sync sparse --merge fused --data-axis 2 --model-axis 2
+    PYTHONPATH=src python -m repro_torch.launch.train --untied --sync hier \\
+        --data-axis 8 --dp-degrees 4,2 --sync-overlap bucketed
 
 Stacks ``--data-axis`` data positions, each with ``--model-axis``
 model positions, on one device (the port's mesh,
@@ -19,7 +21,9 @@ one; ``--device cpu`` runs the kernels' plain versions.  ``--dp-degrees
 auto`` resolves through the port's calibrated, cached autotuner
 (``$REPRO_PLAN_CACHE``).  A VLM's stub image embeddings and an
 encoder-decoder's stub frames come with each batch.  ``--sync-overlap
-bucketed`` raises, naming its ROADMAP item;
+bucketed`` (``hier`` / ``sparse``) syncs the dense leaves in
+``--sync-bucket-kb`` buckets issued stage-major, with the bits of
+``off``; ``--seq`` of 8,192 and more takes the query-chunked attention.
 ``--replication`` > 1 with an FSDP config raises ``ValueError``, as in
 the reference.
 """
@@ -97,10 +101,14 @@ def main(argv=None):
                     help="payload encoding of the sparse sync ('delta' is "
                          "bit-identical to raw; the last two quantize)")
     ap.add_argument("--sync-overlap", default="off",
-                    choices=["off", "bucketed"])
+                    choices=["off", "bucketed"],
+                    help="gradient-sync schedule (hier / sparse sync): "
+                         "'bucketed' groups the dense butterfly's leaves "
+                         "into byte-bounded buckets issued stage-major; "
+                         "results are bit for bit those of 'off'")
     ap.add_argument("--sync-bucket-kb", type=int, default=4096,
-                    help="bucket budget of --sync-overlap bucketed (not "
-                         "ported yet: ROADMAP Queue 1 item 12)")
+                    help="bucket budget (KiB) of --sync-overlap bucketed; "
+                         "a leaf above it gets a bucket of its own")
     ap.add_argument("--replication", type=int, default=1,
                     help="r-way replicated data parallelism (paper §V)")
     ap.add_argument("--dead", default="",
@@ -118,10 +126,6 @@ def main(argv=None):
                     help="torch device (default: the current CUDA device)")
     args = ap.parse_args(argv)
 
-    if args.sync_overlap == "bucketed":
-        raise NotImplementedError(
-            "--sync-overlap bucketed is not ported yet (ROADMAP Queue 1 "
-            "item 12)")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -141,7 +145,9 @@ def main(argv=None):
         microbatch=args.microbatch, dp_degrees=parse_degrees(args.dp_degrees),
         sparse_tokens_hint=max(8, args.batch * args.seq // mc.dp),
         sync_merge=args.merge, sync_wire=args.wire,
-        replication=args.replication, dead=dead, retune=args.retune)
+        replication=args.replication, dead=dead, retune=args.retune,
+        sync_overlap=args.sync_overlap,
+        sync_bucket_bytes=args.sync_bucket_kb * 1024)
     params = T.init_params(cfg, mc.tp, seed=args.seed, device=mc.device)
     opt_state = AdamW().init(params)
     stream = batch_stream(cfg, args.batch, args.seq, seed=args.seed)

@@ -21,8 +21,14 @@ one batch; the output projection, the positions' partial products
 summed over the model axis in the reference (its ``psum``), is one
 product of their heads side by side with the held ``wo``.
 
-The query-chunked ``attn_train_blocked`` (sequences of 8,192 tokens and
-more) and decode are not ported yet (ROADMAP Queue 1 items 22 and 14).
+``attn_train_blocked`` is the reference's query-chunked attention,
+which the block forward takes for sequences of ``BLOCKED_ATTN_THRESHOLD``
+tokens and more: the same projections and rotation, then each chunk of
+``Q_CHUNK`` queries scored against the whole key sequence under its rows
+of the mask, built from the positions (never a [T, T] mask), with a full
+softmax row per chunk.  A chunk's float32 scores, not the sequence's,
+are alive at a time in the forward; the function is ``attn_train``'s.
+Decode is not ported yet (ROADMAP Queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from .common import ModelConfig, linear, rope, vec
 
 NEG = -1e30
 BLOCKED_ATTN_THRESHOLD = 8192
+Q_CHUNK = 1024
 
 
 def attn_params(cfg: ModelConfig, tp: int, draw, zeros):
@@ -121,29 +128,52 @@ def _group_scores_to_out(q, k, v, mask, cfg: ModelConfig, tp: int):
 
 
 def attn_mask(t: int, window: int, causal: bool = True,
-              device=None) -> torch.Tensor:
+              device=None, rows: Optional[range] = None) -> torch.Tensor:
     """bool [T, T]: causal (key <= query), within ``window`` positions
-    when ``window > 0``; all true when not causal."""
-    ti = torch.arange(t, dtype=torch.int64, device=device)
-    rel = ti[:, None] - ti[None, :]
+    when ``window > 0``; all true when not causal.  ``rows``: only those
+    query rows, [len(rows), T]."""
+    rows = rows if rows is not None else range(t)
+    ti = torch.arange(rows.start, rows.stop, dtype=torch.int64,
+                      device=device)
+    si = torch.arange(t, dtype=torch.int64, device=device)
+    rel = ti[:, None] - si[None, :]
     if not causal:
-        return torch.ones((t, t), dtype=torch.bool, device=device)
+        return torch.ones((len(rows), t), dtype=torch.bool, device=device)
     w_eff = window if window > 0 else t + 1
     return (rel >= 0) & (rel < w_eff)
 
 
-def _attend_tp(q, k, v, mask, wo, cfg: ModelConfig, tp: int):
-    """The model-axis tail of an attention block: q [M, ..., T, Hp, hd],
-    k / v [M, ..., S, KV, hd] (or already per position, [M, tp, ..., S,
-    kv_local, hd]) -> each position's heads attended, laid side by side
-    and projected by ``wo``: [M, ..., T, d]."""
-    qt = _heads_tp(q, tp)
-    if k.ndim == q.ndim:
-        k, v = _kv_tp(k, cfg, tp), _kv_tp(v, cfg, tp)
-    out = _group_scores_to_out(_merge_pos(qt), _merge_pos(k), _merge_pos(v),
+def _heads_out(q, k, v, mask, cfg: ModelConfig, tp: int) -> torch.Tensor:
+    """The attended heads of q [..., T, H, hd] against k / v [..., S, KV,
+    hd] under ``mask`` [T, S], before the output projection: [..., T,
+    H * hd].  At tp > 1 (position-stacked; k / v may be per position
+    already, [M, tp, ..., S, kv_local, hd]) each model position's heads,
+    laid side by side."""
+    if tp > 1:
+        qt = _heads_tp(q, tp)
+        if k.ndim == q.ndim:
+            k, v = _kv_tp(k, cfg, tp), _kv_tp(v, cfg, tp)
+        out = _group_scores_to_out(_merge_pos(qt), _merge_pos(k),
+                                   _merge_pos(v), mask, cfg, tp)
+        out = out.reshape(qt.shape[:-2] + (out.shape[-1],))  # [M, tp, ..., hl*hd]
+        return out.movedim(1, -2).flatten(-2)
+    out = _group_scores_to_out(q.reshape((-1,) + tuple(q.shape[-3:])),
+                               k.reshape((-1,) + tuple(k.shape[-3:])),
+                               v.reshape((-1,) + tuple(v.shape[-3:])),
                                mask, cfg, tp)
-    out = out.reshape(qt.shape[:-2] + (out.shape[-1],))   # [M, tp, ..., hl*hd]
-    return linear(out.movedim(1, -2).flatten(-2), wo)
+    return out.reshape(q.shape[:-2] + (out.shape[-1],))
+
+
+def _rotated_qkv(p, x: torch.Tensor, cfg: ModelConfig,
+                 positions: Optional[torch.Tensor]):
+    """q, k, v of x projected, q and k rotated at ``positions`` (default
+    0..T-1)."""
+    q, k, v = _project_qkv(p, x, cfg)
+    if positions is None:
+        positions = torch.arange(x.shape[-2], dtype=torch.int64,
+                                 device=x.device)
+    return (rope(q, positions, cfg.rope_theta),
+            rope(k, positions, cfg.rope_theta), v)
 
 
 def attn_train(p, x: torch.Tensor, cfg: ModelConfig, tp: int, window: int,
@@ -154,22 +184,47 @@ def attn_train(p, x: torch.Tensor, cfg: ModelConfig, tp: int, window: int,
     broadcastable to the leading dims + [T].  At tp > 1 (position-stacked)
     each model position's heads."""
     t = x.shape[-2]
-    if t >= BLOCKED_ATTN_THRESHOLD:
-        raise NotImplementedError(
-            f"sequences of {BLOCKED_ATTN_THRESHOLD} tokens and more need "
-            "attn_train_blocked, not ported yet (ROADMAP Queue 1 item 22)")
-    q, k, v = _project_qkv(p, x, cfg)
-    if positions is None:
-        positions = torch.arange(t, dtype=torch.int64, device=x.device)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    q, k, v = _rotated_qkv(p, x, cfg, positions)
     mask = attn_mask(t, int(window), causal, device=x.device)
+    return linear(_heads_out(q, k, v, mask, cfg, tp), p["wo"])
+
+
+def attn_train_blocked(p, x: torch.Tensor, cfg: ModelConfig, tp: int,
+                       window: int, positions: Optional[torch.Tensor] = None,
+                       causal: bool = True) -> torch.Tensor:
+    """:func:`attn_train` in chunks of ``Q_CHUNK`` queries (the reference's
+    query-chunked attention for long sequences): project and rotate as
+    ``attn_train``, then score each chunk against the whole key sequence,
+    ``[..., heads, Q_CHUNK, T]``, under the chunk's rows of the causal and
+    window mask (built from the positions), softmax each full row, attend,
+    and lay the chunks end to end for one ``wo`` product.  T must be a
+    multiple of ``Q_CHUNK``.  At tp > 1 each chunk takes each model
+    position's heads."""
+    t = x.shape[-2]
+    if t % Q_CHUNK:
+        raise ValueError(f"attn_train_blocked: sequence length {t} is not a "
+                         f"multiple of Q_CHUNK={Q_CHUNK}")
+    q, k, v = _rotated_qkv(p, x, cfg, positions)
     if tp > 1:
-        return _attend_tp(q, k, v, mask, p["wo"], cfg, tp)
-    seq = (-1,) + tuple(q.shape[-3:])
-    out = _group_scores_to_out(q.reshape(seq), k.reshape((-1,) + k.shape[-3:]),
-                               v.reshape((-1,) + v.shape[-3:]), mask, cfg, tp)
-    return linear(out.reshape(x.shape[:-1] + (out.shape[-1],)), p["wo"])
+        k, v = _kv_tp(k, cfg, tp), _kv_tp(v, cfg, tp)
+    outs = []
+    for lo in range(0, t, Q_CHUNK):
+        rows = range(lo, lo + Q_CHUNK)
+        mask = attn_mask(t, int(window), causal, device=x.device, rows=rows)
+        outs.append(_heads_out(q[..., lo:lo + Q_CHUNK, :, :], k, v, mask,
+                               cfg, tp))
+    return linear(torch.cat(outs, dim=-2), p["wo"])
+
+
+def attn_train_any(p, x: torch.Tensor, cfg: ModelConfig, tp: int,
+                   window: int, positions: Optional[torch.Tensor] = None,
+                   causal: bool = True) -> torch.Tensor:
+    """The block forward's dispatch (the reference's ``_attn_any``):
+    :func:`attn_train_blocked` for sequences of ``BLOCKED_ATTN_THRESHOLD``
+    tokens and more, else :func:`attn_train`."""
+    fn = attn_train_blocked if x.shape[-2] >= BLOCKED_ATTN_THRESHOLD \
+        else attn_train
+    return fn(p, x, cfg, tp, window, positions=positions, causal=causal)
 
 
 def cross_attn(p, x: torch.Tensor, enc_k: torch.Tensor, enc_v: torch.Tensor,
@@ -184,15 +239,8 @@ def cross_attn(p, x: torch.Tensor, enc_k: torch.Tensor, enc_v: torch.Tensor,
     q = q.reshape(q.shape[:-1] + (-1, hd))
     s = enc_k.shape[-3]
     mask = torch.ones((t, s), dtype=torch.bool, device=x.device)
-    if tp > 1:
-        return _attend_tp(q, enc_k.to(q.dtype), enc_v.to(q.dtype), mask,
-                          p["wo"], cfg, tp)
-    out = _group_scores_to_out(
-        q.reshape((-1,) + tuple(q.shape[-3:])),
-        enc_k.to(q.dtype).reshape((-1,) + tuple(enc_k.shape[-3:])),
-        enc_v.to(q.dtype).reshape((-1,) + tuple(enc_v.shape[-3:])),
-        mask, cfg, tp)
-    return linear(out.reshape(x.shape[:-1] + (out.shape[-1],)), p["wo"])
+    return linear(_heads_out(q, enc_k.to(q.dtype), enc_v.to(q.dtype), mask,
+                             cfg, tp), p["wo"])
 
 
 def encode_kv(p, enc_out: torch.Tensor, cfg: ModelConfig, tp: int = 1):

@@ -279,8 +279,9 @@ def _period_fwd(pp: Params, x: torch.Tensor, cfg: ModelConfig, ax: AxisCtx,
         def mixer(pm, ln1, x, blk=blk, w=w):
             h = rmsnorm(x, ln1, cfg.norm_eps)
             if blk == "attn":
-                return x + A.attn_train(pm, h, cfg, tp, w,
-                                        positions=positions, causal=causal)
+                return x + A.attn_train_any(pm, h, cfg, tp, w,
+                                            positions=positions,
+                                            causal=causal)
             if blk == "mamba":
                 return x + SSM.mamba_train(pm, h, cfg, tp)
             if blk == "mlstm":

@@ -48,9 +48,27 @@ then only divides such a leaf by dp, and the M stacked copies of a
 period's block gradients never outlive its backward.  The other leaves
 keep the stacked path.  Batches of a VLM (``img_embeds``) and of an
 encoder-decoder (``enc_frames``) are split over the positions and the
-microbatches as the tokens are.  The bucketed overlap schedule (ROADMAP
-Queue 1 item 12) and a ``pod`` axis (item 21) are not ported yet and
-raise.
+microbatches as the tokens are.
+
+A ``pod`` axis (``mesh_ctx(data, model, pod=p)``): a second data axis
+outside ``data``, the data positions being the p * data of both, in
+row-major order (the device order of ``jax.make_mesh((pod, data,
+model), ("pod", "data", "model"))``).  The butterfly plans bind the pod
+stage first, as the reference's do (the slowest link gets the outermost
+layer), with each axis's degrees concatenated into one logical plan, so
+the hier and sparse syncs on a pod mesh are those of the flat mesh with
+the degrees concatenated; the ring sums over ``pod`` and then over
+``data``, as the reference's ``psum`` per axis.
+
+``sync_overlap="bucketed"`` (the reference's overlapped sync schedule):
+the dense butterfly's leaves are concatenated into byte-bounded buckets
+(:func:`plan_grad_buckets`) whose exchanges are issued stage-major
+(``core.allreduce.dense_allreduce_hierarchical_bucketed``).  Each
+element is summed over the same members in the same order as by its
+leaf's own butterfly, so the synced gradients are those of ``"off"`` bit
+for bit, on any floats.  The sync runs after the backward on one stream,
+so here the schedule only reorders the exchanges and groups small
+leaves.
 """
 from __future__ import annotations
 
@@ -63,9 +81,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.allreduce import (MERGE_MODES, DevicePlan,
-                                        make_device_plan,
-                                        sparse_allreduce_union)
+from repro_torch.core.allreduce import (
+    MERGE_MODES, DevicePlan, dense_allreduce_hierarchical_bucketed,
+    make_device_plan, sparse_allreduce_union)
 from repro_torch.core.sparse_vec import SENTINEL, HashPerm, SparseChunk
 from repro_torch.core.topology import ButterflyPlan, check_wire
 from repro_torch.core.transport import (ModelAxis, StackedTransport,
@@ -88,18 +106,20 @@ SYNC_MODES = ("ring", "hier", "sparse")
 
 @dataclasses.dataclass(frozen=True)
 class MeshCtx:
-    """A ``data`` axis of ``data`` stacked positions and a ``model`` axis
-    of ``model`` positions within each data row, on ``device``; mesh
-    position d * model + m is data row d's model position m.
-    ``model_axis`` is the model axis's transport (its counts read what
-    the forwards exchanged)."""
+    """A ``data`` axis of ``data`` stacked positions, an optional ``pod``
+    axis of ``pod`` outside it, and a ``model`` axis of ``model``
+    positions within each data row, on ``device``; mesh position (p *
+    data + d) * model + m is pod p's data row d's model position m, and
+    data row p * data + d of the M = pod * data rows.  ``model_axis`` is
+    the model axis's transport (its counts read what the forwards
+    exchanged)."""
     data: int
     device: torch.device
     tp_axis: str = "model"
-    dp_axes: Tuple[str, ...] = ("data",)
     model: int = 1
     model_axis: Optional[ModelAxis] = dataclasses.field(default=None,
                                                         compare=False)
+    pod: int = 1
 
     @property
     def tp(self) -> int:
@@ -108,13 +128,27 @@ class MeshCtx:
 
     @property
     def dp(self) -> int:
-        """Data-parallel size M."""
-        return self.data
+        """Data-parallel size M: pod * data."""
+        return self.pod * self.data
+
+    @property
+    def dp_axes(self) -> Tuple[str, ...]:
+        """The data axes, the outermost first: ``("pod", "data")`` on a
+        pod mesh, else ``("data",)``."""
+        return ("pod", "data") if self.pod > 1 else ("data",)
+
+    @property
+    def dp_sizes(self) -> List[Tuple[str, int]]:
+        """``[(axis, size)]`` of the data axes, the outermost (``pod``)
+        first."""
+        return [(a, self.pod if a == "pod" else self.data)
+                for a in self.dp_axes]
 
     @property
     def shape(self) -> Dict[str, int]:
-        """Axis sizes, as a mesh's ``shape``."""
-        return {"data": self.data, "model": self.model}
+        """Axis sizes, as a mesh's ``shape`` (``pod`` only on a pod
+        mesh)."""
+        return dict(self.dp_sizes, model=self.model)
 
     def axis_ctx(self, cfg: ModelConfig) -> T.AxisCtx:
         """The models' axis context: tp and the model axis; with
@@ -131,54 +165,72 @@ class MeshCtx:
 
 def mesh_ctx(data: int, model: int = 1, pod: int = 1,
              device=None) -> MeshCtx:
-    """The port's mesh: ``data`` stacked data positions, each with
-    ``model`` model positions, on ``device`` (default: the current CUDA
-    device).  A pod axis raises."""
-    if pod != 1:
-        raise NotImplementedError(
-            "a pod axis is not ported yet (ROADMAP Queue 1 item 21)")
-    if data < 1 or model < 1:
-        raise ValueError(f"data and model axes must be >= 1, got {data}, "
-                         f"{model}")
+    """The port's mesh: ``pod`` x ``data`` stacked data positions, each
+    with ``model`` model positions, on ``device`` (default: the current
+    CUDA device).  ``pod`` > 1 adds the ``pod`` data axis outside
+    ``data`` (``dp_axes = ("pod", "data")``)."""
+    if data < 1 or model < 1 or pod < 1:
+        raise ValueError(f"pod, data and model axes must be >= 1, got "
+                         f"{pod}, {data}, {model}")
     return MeshCtx(data=int(data), device=resolve_device(device),
-                   model=int(model),
+                   model=int(model), pod=int(pod),
                    model_axis=ModelAxis(model) if model > 1 else None)
 
 
 def tuned_dp_degrees(mc: MeshCtx, in_capacity: int, out_capacity: int,
                      retune: bool = False) -> Dict[str, Tuple[int, ...]]:
-    """``dp_degrees="auto"``: the data axis's degrees from the port's
-    cached autotuner (``core.autotune.resolve_degrees``) under the stored
-    calibration of this backend and node count.  With none stored, the
-    stacked transport is calibrated once (``calibrate_fabric(store=True)``)
-    -- a TPU's nominal rates say nothing about this device."""
+    """``dp_degrees="auto"``: each data axis's degrees from the port's
+    cached autotuner (``core.autotune.resolve_degrees``, ``mesh_sig`` the
+    axis and its size), under the stored calibration of this backend and
+    the mesh's M positions.  With none stored, the stacked transport is
+    calibrated once (``calibrate_fabric(store=True)``).  The reference
+    falls back to nominal TPU rates per axis (``TPU_DCN`` for ``pod``,
+    ``TPU_ICI`` for the others); those are a TPU's links and say nothing
+    about this device, whose every axis is the same stacked transport."""
     from repro_torch.core import autotune
     if mc.dp == 1:
-        return {"data": ()}
+        return {a: () for a in mc.dp_axes}
     backend = autotune.backend_name(mc.device)
     fabric = autotune.calibrated_fabric(backend=backend, num_devices=mc.dp)
     if fabric is None:
         fabric = autotune.calibrate_fabric(mc.dp, device=mc.device,
                                            store=True)
-    degs, _src = autotune.resolve_degrees(
-        mc.dp, n0=max(in_capacity, 1), total_range=max(out_capacity, 2) * 4,
-        fabric=fabric, serial_nic=False, mesh_sig=(("data", mc.dp),),
-        retune=retune)
-    return {"data": tuple(degs)}
+    degrees = {}
+    for a, size in mc.dp_sizes:
+        degs, _src = autotune.resolve_degrees(
+            size, n0=max(in_capacity, 1),
+            total_range=max(out_capacity, 2) * 4, fabric=fabric,
+            serial_nic=False, mesh_sig=((a, size),), retune=retune)
+        degrees[a] = tuple(degs)
+    return degrees
+
+
+def _dp_plan(mc: MeshCtx, degrees, in_capacity: int,
+             out_capacity: int) -> DevicePlan:
+    """``make_device_plan`` over the data axes, the pod stage first;
+    ``degrees`` a dict with at most one entry per data axis, or ``None``
+    (one round-robin stage per axis)."""
+    axes = mc.dp_sizes
+    if degrees is None:
+        degrees = {a: (size,) for a, size in axes}
+    unknown = sorted(set(degrees) - set(mc.dp_axes))
+    if unknown:
+        raise ValueError(f"dp_degrees names {unknown}, not data axes of "
+                         f"this mesh {list(mc.dp_axes)}")
+    return make_device_plan(axes, degrees, in_capacity=in_capacity,
+                            out_capacity=out_capacity)
 
 
 def default_dp_plan(mc: MeshCtx, in_capacity: int, out_capacity: int,
                     degrees=None, retune: bool = False) -> DevicePlan:
-    """Butterfly plan over the data axis: ``degrees`` a dict, ``"auto"``
-    (:func:`tuned_dp_degrees`) or ``None`` (one round-robin stage)."""
+    """Butterfly plan over the data axes, the pod stage first (the
+    slowest link gets the outermost layer): ``degrees`` a dict of each
+    axis's degrees, ``"auto"`` (:func:`tuned_dp_degrees`) or ``None`` (one
+    round-robin stage per axis)."""
     if degrees == "auto":
         degrees = tuned_dp_degrees(mc, in_capacity, out_capacity,
                                    retune=retune)
-    elif degrees is None:
-        degrees = {"data": (mc.dp,)}
-    return make_device_plan([("data", mc.dp)], degrees,
-                            in_capacity=in_capacity,
-                            out_capacity=out_capacity)
+    return _dp_plan(mc, degrees, in_capacity, out_capacity)
 
 
 # ---------------------------------------------------------------------------
@@ -191,38 +243,151 @@ HIER_BLOCK = 1 << 27
 
 def _hier_allreduce_leaf(g: torch.Tensor, plan: DevicePlan,
                          transport: StackedTransport,
-                         capture: Optional[dict] = None) -> torch.Tensor:
-    """One stacked leaf [M, ...] through the dense butterfly, in column
-    blocks of at most ``HIER_BLOCK`` float32 elements: each block cast to
-    float32, padded to a multiple of M, reduced (a tiled reduce-scatter
-    down the layers, the all-gather back up, as
-    ``core.allreduce.dense_allreduce_hierarchical``) and cast back into
-    the output.  Every element is summed in the same butterfly order
-    whatever block holds it, so the blocks give the bits of one pass over
-    the leaf, and a multi-GB leaf needs no float32 copy of itself."""
+                         capture: Optional[dict] = None,
+                         row: Optional[int] = None) -> torch.Tensor:
+    """One stacked leaf [M, ...] through the dense butterfly: the leaf
+    alone in :func:`_bucketed_hier_leaves` (one bucket, in column blocks
+    of at most ``HIER_BLOCK`` float32 elements when it is larger), so a
+    multi-GB leaf needs no float32 copy of itself.  ``capture`` receives
+    its float32 row 0 under ``"f32"``; with ``row`` only that row of the
+    result is kept."""
+    return _bucketed_hier_leaves([g], plan, transport, DEFAULT_BUCKET_BYTES,
+                                 captures=[capture], row=row)[0]
+
+
+# The bucket budget of the bucketed sync schedule (the reference's): 4 MB
+# sits just above the paper's 2-4 MB packet floor
+DEFAULT_BUCKET_BYTES = 4 << 20
+
+
+def plan_grad_buckets(sizes: Sequence[int], bucket_bytes: int,
+                      bytes_per_elem: int = 4) -> List[List[int]]:
+    """Greedy contiguous partition of leaf indices into byte-bounded
+    buckets (the reference's, unchanged).
+
+    ``sizes``: element count per gradient leaf, in sync order.  The
+    buckets' concatenation is exactly ``range(len(sizes))``, every leaf in
+    one bucket, and each bucket holds at most ``bucket_bytes`` unless it
+    is a single leaf larger than the budget (which gets a bucket of its
+    own rather than being split)."""
+    if bucket_bytes <= 0:
+        raise ValueError(f"bucket_bytes must be positive, got {bucket_bytes}")
+    if bytes_per_elem <= 0:
+        raise ValueError(
+            f"bytes_per_elem must be positive, got {bytes_per_elem}")
+    buckets: List[List[int]] = []
+    cur: List[int] = []
+    cur_bytes = 0
+    for i, n in enumerate(sizes):
+        if n < 0:
+            raise ValueError(f"leaf size must be >= 0, got sizes[{i}]={n}")
+        nb = int(n) * bytes_per_elem
+        if cur and cur_bytes + nb > bucket_bytes:
+            buckets.append(cur)
+            cur, cur_bytes = [], 0
+        cur.append(i)
+        cur_bytes += nb
+    if cur:
+        buckets.append(cur)
+    return buckets
+
+
+def _bucketed_hier_leaves(gs: List[torch.Tensor], plan: DevicePlan,
+                          transport: StackedTransport, bucket_bytes: int,
+                          captures: Optional[List[Optional[dict]]] = None,
+                          row: Optional[int] = None) -> List[torch.Tensor]:
+    """The dense butterfly of stacked leaves ``gs`` ([M, ...] each) in the
+    bucketed stage-major schedule; returns each leaf's reduced stacked
+    value in its dtype, in order.
+
+    Each leaf is cast to float32 and padded to a multiple of M;
+    :func:`plan_grad_buckets` groups the padded flats (one position's
+    float32 bytes, as the reference counts one device's), and a bucket is
+    their concatenation ``[M, sum n_i]``.  Buckets go through
+    ``core.allreduce.dense_allreduce_hierarchical_bucketed`` in windows of
+    at most ``HIER_BLOCK`` float32 elements: the buckets of a window are
+    built, reduced stage-major together and written back before the next
+    window's are built, and a bucket above ``HIER_BLOCK`` (one oversized
+    leaf) is cut into column blocks of at most ``HIER_BLOCK`` elements,
+    each a window of its own.  Every element is summed over the same
+    members in the same order whatever bucket, window or block holds it,
+    so the result is that of each leaf alone (``"off"``,
+    :func:`_hier_allreduce_leaf`) bit for bit.  The leaves of ``gs`` are
+    dropped from the list as their windows are built, and each result is
+    allocated at its leaf's first write-back.  With ``row`` only that row
+    of each result is kept and returned (the rows are equal).
+    ``captures[i]``, when a dict, receives leaf i's float32 row 0 under
+    ``"f32"``."""
     m = plan.num_nodes
-    flat = g.reshape(m, -1)
-    n = flat.shape[1]
+    shapes = [g.shape for g in gs]
+    n = [int(np.prod(sh[1:], dtype=np.int64)) for sh in shapes]
+    padded = [x + (-x) % m for x in n]
+    buckets = plan_grad_buckets(padded, bucket_bytes)
+    captured = {i for i, c in enumerate(captures or ()) if c is not None}
+    # units, each [(leaf, lo, hi)] column slices of padded flats: one per
+    # bucket, or one per column block of an oversized leaf (lo < n always:
+    # blocks start at multiples of M)
     cols = max(m, HIER_BLOCK // m // m * m)
-    out = torch.empty_like(flat)
-    row0 = None if capture is None else torch.empty(
-        n, dtype=torch.float32, device=g.device)
-    for lo in range(0, n, cols):
-        x = flat[:, lo:lo + cols].to(torch.float32)
-        w = x.shape[1]
-        if w % m:
-            x = F.pad(x, (0, (-w) % m))
-        for layer in range(len(plan.stages)):
-            x = transport.reduce_scatter(layer, x)
-        for layer in range(len(plan.stages) - 1, -1, -1):
-            (x,) = transport.all_gather(layer, x)
-        if row0 is not None:
-            row0[lo:lo + w] = x[0, :w]
-        out[:, lo:lo + w] = x[:, :w]
-        del x
-    if capture is not None:
-        capture["f32"] = row0.reshape(g.shape[1:])
-    return out.reshape(g.shape)
+    units = []
+    for b in buckets:
+        width = sum(padded[i] for i in b)
+        if m * width <= HIER_BLOCK or len(b) > 1:
+            units.append([(i, 0, padded[i]) for i in b])
+        else:
+            (i,) = b
+            units.extend([(i, lo, min(lo + cols, padded[i]))]
+                         for lo in range(0, padded[i], cols))
+    keep = slice(None) if row is None else slice(row, row + 1)
+    # each result (and captured row) is allocated at its leaf's first
+    # write-back, as the leaves before it are freed
+    dtypes, device = [g.dtype for g in gs], gs[0].device
+    results: List[Optional[torch.Tensor]] = [None] * len(gs)
+    rows0: Dict[int, torch.Tensor] = {}
+    u = 0
+    while u < len(units):
+        window, elems = [], 0
+        while u < len(units):
+            w = sum(hi - lo for _, lo, hi in units[u])
+            if window and elems + m * w > HIER_BLOCK:
+                break
+            window.append(units[u])
+            elems += m * w
+            u += 1
+        def bucket(unit):
+            parts = []
+            for i, lo, hi in unit:
+                x = gs[i].reshape(m, -1)[:, lo:min(hi, n[i])].to(
+                    torch.float32)
+                if hi > n[i]:
+                    x = F.pad(x, (0, hi - n[i]))
+                parts.append(x)
+                if hi == padded[i]:   # a leaf is dropped once fully read
+                    gs[i] = None
+            return parts[0] if len(parts) == 1 else torch.cat(parts, 1)
+        # the window's buffers are held by the reduce alone, which drops
+        # them after the first stage
+        reduced = dense_allreduce_hierarchical_bucketed(
+            [bucket(unit) for unit in window], plan, transport)
+        for unit, r in zip(window, reduced):
+            off = 0
+            for i, lo, hi in unit:
+                real = min(hi, n[i]) - lo
+                if results[i] is None:
+                    results[i] = torch.empty(
+                        (m if row is None else 1, n[i]), dtype=dtypes[i],
+                        device=device)
+                    if i in captured:
+                        rows0[i] = torch.empty(n[i], dtype=torch.float32,
+                                               device=device)
+                results[i][:, lo:lo + real] = r[keep, off:off + real]
+                if i in rows0:
+                    rows0[i][lo:lo + real] = r[0, off:off + real]
+                off += hi - lo
+        del reduced
+    for i, r0 in rows0.items():
+        captures[i]["f32"] = r0.reshape(shapes[i][1:])
+    return [r.reshape(sh if row is None else sh[1:])
+            for r, sh in zip(results, shapes)]
 
 
 def _as_int32(x: torch.Tensor) -> torch.Tensor:
@@ -348,7 +513,8 @@ def sync_grads(grads, cfg: ModelConfig, mc: MeshCtx, mode: str,
                repl_weight: Optional[torch.Tensor] = None,
                dp_logical: Optional[int] = None,
                rows: Optional[int] = None, consume: bool = False,
-               capture: Optional[dict] = None):
+               capture: Optional[dict] = None, overlap: str = "off",
+               bucket_bytes: int = DEFAULT_BUCKET_BYTES):
     """Combine stacked per-position gradients [M, ...] into the gradient
     of the global mean loss: ``(synced, overflow [M * tp], new carry)``
     (at tp > 1 each leaf is the data row's global-shape gradient).
@@ -364,13 +530,23 @@ def sync_grads(grads, cfg: ModelConfig, mc: MeshCtx, mode: str,
     (``capture["emb"]``, a test hook).  An FSDP leaf arrives held once,
     already summed over the positions by its gather's backward, and its
     synced gradient is ``g / dp`` with no exchange (the replication
-    weights never apply: FSDP with replication > 1 raises)."""
+    weights never apply: FSDP with replication > 1 raises).  The ring
+    sums over each data axis in turn (``pod`` first).
+    ``overlap="bucketed"`` defers the dense butterfly's leaves to one
+    bucketed pass (:func:`_bucketed_hier_leaves`, ``bucket_bytes`` a
+    bucket) after the others; the sparse, FSDP and ring leaves are not
+    bucketed, and every result is that of ``"off"`` bit for bit."""
+    if overlap not in SYNC_OVERLAP_MODES:
+        raise ValueError(
+            f"overlap must be one of {SYNC_OVERLAP_MODES}, got {overlap!r}")
     spec = dict(T.tree_leaves(full_model_spec_tuples(cfg, mc.tp)))
     dp = float(dp_logical if dp_logical is not None else mc.dp)
     overflow = torch.zeros(mc.dp * mc.tp, dtype=torch.int64,
                            device=mc.device)
     new_ef = ef
     out = []
+    deferred = []          # (weighted grad, capture) of the bucketed leaves
+    ring_axes = tuple(size for _, size in mc.dp_sizes)
     for path in [p for p, _ in T.tree_leaves(grads)]:
         parent = grads
         for k in path[:-1]:
@@ -397,10 +573,16 @@ def sync_grads(grads, cfg: ModelConfig, mc: MeshCtx, mode: str,
             picked = rows is not None
         elif mode in ("hier", "sparse") and plans.hier_plan is not None \
                 and g[0].numel() >= mc.dp:
+            if overlap == "bucketed":
+                deferred.append((g, cap))
+                out.append((path, None))
+                del g
+                continue
             r = _hier_allreduce_leaf(g, plans.hier_plan, plans.hier,
-                                     capture=cap)
+                                     capture=cap, row=rows)
+            picked = rows is not None
         else:
-            r = plans.psum.psum(g)
+            r = plans.psum.psum(g, axes=ring_axes)
         del g
         if rows is not None and not picked:
             r = r[rows]
@@ -409,6 +591,20 @@ def sync_grads(grads, cfg: ModelConfig, mc: MeshCtx, mode: str,
             capture["emb"] = cap
         out.append((path, r))
         del r
+    if deferred:
+        gs = [g for g, _ in deferred]
+        caps = [cap for _, cap in deferred]
+        del deferred[:]
+        reduced = _bucketed_hier_leaves(gs, plans.hier_plan, plans.hier,
+                                        bucket_bytes, captures=caps,
+                                        row=rows)
+        reduced.reverse()                # each row dropped once divided
+        for j, cap in zip([j for j, (_, v) in enumerate(out) if v is None],
+                          caps):
+            out[j] = (out[j][0], reduced.pop() / dp)
+            if cap is not None:
+                capture["emb"] = cap
+        del gs
     return T.tree_from_leaves(
         full_model_spec_tuples(cfg, mc.tp), out), overflow, new_ef
 
@@ -431,9 +627,10 @@ def _build_sync_plans(cfg: ModelConfig, mc: MeshCtx, sync: str, dp_degrees,
     """The plan set of one (cfg, mesh, sync) combination, shared by
     :func:`make_train_step` and :func:`make_sync_fn`: the hier plan
     (capacities unused), and for ``sparse`` a union plan over the data
-    axis sized to the batch's sparsity -- in = min(tokens a position, V /
+    axes sized to the batch's sparsity -- in = min(tokens a position, V /
     tp) and out = min(V / tp, in * M), each rounded up to 8 -- whose
-    transport and edges repeat it in every model column."""
+    transport and edges repeat it in every model column.  Both plans bind
+    the data axes pod first."""
     sparse_plan = sparse_edges = hier_plan = None
     hier_t = sparse_t = None
     if sync in ("hier", "sparse"):
@@ -447,9 +644,7 @@ def _build_sync_plans(cfg: ModelConfig, mc: MeshCtx, sync: str, dp_degrees,
         sp_degrees = dp_degrees
         if dp_degrees == "auto":
             sp_degrees = tuned_dp_degrees(mc, cin, cout, retune=retune)
-        sparse_plan = make_device_plan(
-            [("data", mc.dp)], sp_degrees or {"data": (mc.dp,)},
-            in_capacity=cin, out_capacity=cout)
+        sparse_plan = _dp_plan(mc, sp_degrees or None, cin, cout)
         sparse_edges = [e.repeat_interleave(mc.tp, 0) for e
                         in sparse_plan.edges_tensors(mc.device)]
         sparse_t = StackedTransport(sparse_plan.logical, mc.device,
@@ -476,10 +671,11 @@ def _check_sync_settings(sync: str, sync_merge: str, sync_wire: str,
     if sync_overlap not in SYNC_OVERLAP_MODES:
         raise ValueError(f"sync_overlap must be one of {SYNC_OVERLAP_MODES}, "
                          f"got {sync_overlap!r}")
-    if sync_overlap == "bucketed":
-        raise NotImplementedError(
-            "sync_overlap='bucketed' is not ported yet (ROADMAP Queue 1 "
-            "item 12)")
+    if sync_overlap == "bucketed" and sync not in ("hier", "sparse"):
+        raise ValueError(
+            f"sync_overlap='bucketed' requires sync in ('hier', 'sparse') "
+            f"(got sync={sync!r}): ring sync is a single psum per leaf with "
+            f"no butterfly stages to interleave")
 
 
 def _replication(cfg: ModelConfig, mc: MeshCtx, replication: int, dead):
@@ -517,6 +713,7 @@ def make_sync_fn(cfg: ModelConfig, mc: MeshCtx, *, sync: str = "hier",
                  dp_degrees=None, sync_merge: str = "sort",
                  sync_wire: str = "raw", replication: int = 1,
                  dead: Optional[set] = None, sync_overlap: str = "off",
+                 sync_bucket_bytes: int = DEFAULT_BUCKET_BYTES,
                  sparse_tokens_hint: Optional[int] = None,
                  retune: bool = False, salt_shards: bool = True):
     """The sync stage of :func:`make_train_step` alone, the bit-exactness
@@ -533,7 +730,9 @@ def make_sync_fn(cfg: ModelConfig, mc: MeshCtx, *, sync: str = "hier",
     reference's harness (there its gather's transpose sums it).  Error
     feedback is not threaded (``delta+int8ef`` syncs with no carry).  At
     tp > 1 ``grads`` is the global tree at that tp; the salt is the data
-    position's, and ``overflow`` is [M * tp], per mesh position."""
+    position's, and ``overflow`` is [M * tp], per mesh position.
+    ``sync_overlap`` / ``sync_bucket_bytes``: as :func:`sync_grads`'s
+    ``overlap`` / ``bucket_bytes``."""
     _check_sync_settings(sync, sync_merge, sync_wire, sync_overlap)
     check_ported(cfg, mc.tp)
     repl_w, dp_logical = _replication(cfg, mc, replication, dead)
@@ -554,7 +753,8 @@ def make_sync_fn(cfg: ModelConfig, mc: MeshCtx, *, sync: str = "hier",
         synced, overflow, _ = sync_grads(
             stacked, cfg, mc, sync, plans, tokens, merge=sync_merge,
             wire=sync_wire, repl_weight=repl_w, dp_logical=dp_logical,
-            capture=capture)
+            capture=capture, overlap=sync_overlap,
+            bucket_bytes=sync_bucket_bytes)
         return synced, overflow
 
     return fn, full_model_spec_tuples(cfg, mc.tp)
@@ -565,7 +765,9 @@ EXTRA_KEYS = ("img_embeds", "enc_frames")
 
 def train_fingerprint(cfg: ModelConfig, **settings) -> str:
     """Digest of the config and run settings a checkpoint must match to
-    resume exactly (the soak refuses a mismatch)."""
+    resume exactly (the soak refuses a mismatch).  Pass the mesh's
+    ``shape`` among the settings: a pod mesh's names its ``pod`` axis, so
+    its digest differs from the flat mesh's of the same M."""
     payload = {"cfg": dataclasses.asdict(cfg),
                "settings": {k: settings[k] for k in sorted(settings)}}
     return hashlib.sha1(
@@ -580,6 +782,7 @@ def make_train_step(cfg: ModelConfig, mc: MeshCtx, *, sync: str = "ring",
                     sync_merge: str = "sort", sync_wire: str = "raw",
                     replication: int = 1, dead: Optional[set] = None,
                     retune: bool = False, sync_overlap: str = "off",
+                    sync_bucket_bytes: int = DEFAULT_BUCKET_BYTES,
                     donate: bool = True):
     """``(step, specs)``: ``step(params, opt_state, batch) -> (params,
     opt_state, metrics)`` over the stacked data mesh ``mc``.
@@ -615,7 +818,12 @@ def make_train_step(cfg: ModelConfig, mc: MeshCtx, *, sync: str = "ring",
     replaces them, so a step holds one set of moments: the caller must
     not read the ``params`` and ``opt_state`` it passed.  FSDP leaves
     (``cfg.fsdp``) are differentiated held once, through each period's
-    gather; FSDP with ``replication`` > 1 raises ``ValueError``."""
+    gather; FSDP with ``replication`` > 1 raises ``ValueError``.
+    ``sync_overlap="bucketed"`` (``hier`` or ``sparse`` only) syncs the
+    dense butterfly's leaves in ``sync_bucket_bytes`` buckets issued
+    stage-major, with the bits of ``"off"`` (:func:`sync_grads`).  On a
+    pod mesh the batch splits over the pod * data positions in row-major
+    order."""
     _check_sync_settings(sync, sync_merge, sync_wire, sync_overlap)
     check_ported(cfg, mc.tp)
     if microbatch < 1:
@@ -697,7 +905,8 @@ def make_train_step(cfg: ModelConfig, mc: MeshCtx, *, sync: str = "ring",
             grads, cfg, mc, sync, plans,
             tokens.reshape(mc.dp, -1), merge=sync_merge, wire=sync_wire,
             ef=ef, repl_weight=repl_w, dp_logical=dp_logical, rows=0,
-            consume=True, capture=capture)
+            consume=True, capture=capture, overlap=sync_overlap,
+            bucket_bytes=sync_bucket_bytes)
         mark("sync")
         if capture is not None:
             capture["synced"] = T.tree_from_leaves(synced,

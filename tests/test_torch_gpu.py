@@ -24,7 +24,13 @@ within rtol 1e-4), for the dense, MoE, SSM, encoder-decoder and FSDP
 VLM models alike, and with a model axis (reduced qwen at 2 x 2); the MoE and
 SSM blocks on the card equal their CPU run within rtol 1e-4; and both
 scatters at the training width (w = 1,024) equal their plain versions
-on a CPU copy bit for bit.
+on a CPU copy bit for bit.  The graph engine's ``run`` replays one CUDA
+graph: bit for bit its eager loop (plain and rotated, PageRank, HADI and
+spectral), the kernels a profiler trace of n replays holds are n times
+those its capture enqueued, and a replay calls no kernel wrapper;
+the bucketed sync and the pod mesh equal their plain counterparts bit
+for bit on the card; the query-chunked attention at T = 8,192 is within
+bfloat16 rounding of the unchunked one.
 """
 import json
 import os
@@ -35,6 +41,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.graph.engine import GraphEngine
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.onehot_scatter import (BANDED_ROWS,
                                                 banded_onehot_scatter_add,
@@ -142,7 +149,10 @@ def test_pagerank_runs_on_cuda_by_default(cuda):
     np.testing.assert_allclose(got, pagerank_dense_reference(edges, 2000, 10),
                                rtol=1e-4, atol=1e-10)
     assert stats["engine"]["rounds"] == 10
-    assert _build.LAUNCHES["spmv_csr"] == 10
+    assert stats["engine"]["graph_launches"] == 1
+    # the capture's warm-up round, then the 10 rounds enqueued into the
+    # graph (its replay calls no wrapper)
+    assert _build.LAUNCHES["spmv_csr"] == 10 + GraphEngine.WARMUP_ROUNDS
     assert _build.LAUNCHES["spmv_ell"] == 0
 
 
@@ -705,7 +715,7 @@ def test_graph_apps_run_on_cuda_by_default(cuda):
     _build.reset_launches()
     lam, v, _ = power_iteration(edges, 2000, m=8, degrees=(4, 2), iters=20,
                                 backend="device")
-    assert _build.LAUNCHES["spmv_csr"] == 20
+    assert _build.LAUNCHES["spmv_csr"] == 20 + GraphEngine.WARMUP_ROUNDS
     lam_r, v_r = power_iteration_reference(edges, 2000, iters=20)
     assert abs(lam - lam_r) / lam_r < 1e-4
     assert abs(v @ v_r) / (np.linalg.norm(v) * np.linalg.norm(v_r)) > 1 - 1e-6
@@ -797,7 +807,9 @@ def test_soak_runs_on_cuda_by_default(cuda, tmp_path):
 
     out = soak("base")
     launches = json.loads(out.split("SOAK_LAUNCHES ")[1].splitlines()[0])
-    assert launches["spmv_csr"] == 8
+    # one warm-up round and the capture of the 2-round graph; its four
+    # replays call no wrapper
+    assert launches["spmv_csr"] == 2 + GraphEngine.WARMUP_ROUNDS
     soak("cpu", "--device", "cpu")
     soak("faulted", *rack, "--kill-at", "4", rc=17)
     assert "resumed at round 4" in soak("faulted", *rack, "--resume")
@@ -1009,3 +1021,209 @@ def test_scatters_at_width_1024_equal_plain_on_cpu(cuda, banded, scaled):
                                       None if scale is None else scale.cpu())
     assert got.shape == (8, rows, 1024)
     assert torch.equal(got.cpu(), want) and torch.equal(got, again)
+
+
+def _graph_engines(device, overlap):
+    """PageRank, HADI and spectral engines on a small power-law graph:
+    ``[(name, engine, state, extras, k)]``."""
+    from repro_torch.data.pipeline import powerlaw_graph
+    from repro_torch.graph.hadi import fm_bitstrings, make_hadi_engine
+    from repro_torch.graph.pagerank import (build_partitions,
+                                            make_pagerank_app, pagerank_state)
+    from repro_torch.graph.spectral import make_spectral_engine
+    n = 3000
+    edges = powerlaw_graph(n, 20000, seed=2)
+    parts = build_partitions(edges, n, 8)
+    app, o, i = make_pagerank_app(parts, n)
+    pr = GraphEngine(o, i, app, degrees=(4, 2), device=device,
+                     overlap=overlap)
+    extras, p0 = pagerank_state(parts, n, pr.u_cap, pr.uin_cap,
+                                device=device)
+    req = [np.union1d(p.in_idx, p.out_idx).astype(np.uint32) for p in parts]
+    b0 = fm_bitstrings(n, 8, 2, np.random.RandomState(3))
+    hd, hx, h0 = make_hadi_engine(parts, req, (4, 2), 8, 2, b0,
+                                  device=device)
+    sym = np.concatenate([edges, edges[:, ::-1]], axis=0)
+    sparts = build_partitions(sym, n, 8)
+    for p in sparts:
+        p.inv_outdeg = np.ones_like(p.inv_outdeg)
+    sp, sx, s0 = make_spectral_engine(sparts, n, (4, 2), device=device)
+    if overlap:
+        hd.overlap = sp.overlap = True
+    return [("pagerank", pr, p0, extras, 6), ("hadi", hd, h0, hx, 4),
+            ("spectral", sp, s0, sx, 5)]
+
+
+def _flat(out):
+    """The tensors of a ``run`` result, in order."""
+    final, last, traj = out
+    parts = [final, last, traj]
+    flat = []
+    for p in parts:
+        if isinstance(p, dict):
+            flat.extend(p[k] for k in sorted(p))
+        elif isinstance(p, list):
+            for q in p:
+                flat.extend(q[k] for k in sorted(q))
+        elif p is not None:
+            flat.append(p)
+    return flat
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("overlap", [False, True])
+def test_graph_replay_equals_eager_loop_on_gpu(cuda, overlap):
+    """PageRank, HADI and spectral on the card: ``run(k)`` replays one
+    CUDA graph (one graph launch a run; one capture for ``"last"``, one a
+    run for ``"trajectory"``, whose outputs are handed over) whose final
+    state, last product and trajectory equal the eager loop's bit for
+    bit, plain and rotated; a run's result survives the runs after it;
+    the rotated schedule equals the plain one."""
+    plain = {}
+    for name, eng, state, extras, k in _graph_engines(cuda, overlap):
+        for collect in ("last", "trajectory"):
+            want = _flat(eng.eager_fn(k, collect)(state, extras))
+            first = _flat(eng.run(k, state, extras, collect=collect))
+            for _ in range(2):
+                got = _flat(eng.run(k, state, extras, collect=collect))
+                assert len(got) == len(want)
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+                    (name, collect)
+            assert all(torch.equal(a, b) for a, b in zip(first, want)), \
+                (name, collect, "overwritten")
+            plain[(name, collect)] = want
+        rep = eng.sync_report()
+        assert rep["graph_launches"] == rep["dispatches"] == 6, rep
+        assert rep["captures"] == 1 + 3 and rep["overlap"] == overlap, rep
+    if overlap:
+        for name, eng, state, extras, k in _graph_engines(cuda, False):
+            for collect in ("last", "trajectory"):
+                got = _flat(eng.run(k, state, extras, collect=collect))
+                assert all(torch.equal(a, b) for a, b in
+                           zip(got, plain[(name, collect)])), name
+
+
+def _kernels_per_run(fn, reps=4, tries=5):
+    """``{kernel name: launches}`` a call of ``fn`` runs on the device,
+    from a ``torch.profiler`` trace of ``reps`` calls after a warm one;
+    taken again (``tries`` in all) unless every kernel ran a whole number
+    of times a call, as ``chip_smoke.profile_kernels`` does."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = {}
+        for evt in prof.key_averages():
+            if evt.device_type == DeviceType.CPU:
+                continue
+            key = evt.key.replace("(anonymous namespace)::", "")
+            key = key[5:] if key.startswith("void ") else key
+            name = re.split(r"[<(]", key)[0].split("::")[-1]
+            total[name] = total.get(name, 0) + evt.count
+        if total and all(n % reps == 0 for n in total.values()):
+            return {name: n // reps for name, n in total.items()}
+    raise AssertionError(f"no whole trace of {reps} calls: {total}")
+
+
+@pytest.mark.gpu
+def test_graph_replay_runs_its_captured_kernels_on_gpu(cuda):
+    """A profiler trace of replays of a captured k-round PageRank graph
+    holds, a replay, the k SpMV kernels its capture enqueued; no kernel
+    wrapper is called and nothing is captured again; the transport's
+    exchange count rises by 2 * depth * k a replay, as the eager loop's
+    does."""
+    (name, eng, state, extras, k), *_ = _graph_engines(cuda, False)
+    eng.run(k, state, extras)                       # capture + 1 replay
+    assert eng.run_fn(k).launches == {"spmv_csr": k}
+    _build.reset_launches()
+    calls, runs = eng.transport.calls, eng.report["dispatches"]
+    ran = _kernels_per_run(lambda: eng.run(k, state, extras))
+    assert ran.get("spmv_csr_kernel", 0) == k, ran
+    assert not any(_build.LAUNCHES.values()), _build.LAUNCHES
+    runs = eng.report["dispatches"] - runs
+    assert eng.transport.calls - calls == runs * 2 * eng.planned.depth * k
+    assert eng.sync_report()["captures"] == 1
+
+
+def _reduced_step(device, mc, degrees, sync, **kw):
+    """One reduced untied qwen step at ``mc`` from seed-0 weights: the
+    loss, row 0 of every synced leaf and the parameters after, on the
+    host."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import batch_stream
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.step import make_train_step
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(),
+                              tie_embeddings=False)
+    step, _ = make_train_step(cfg, mc, sync=sync, dp_degrees=degrees,
+                              sync_merge="fused",
+                              sparse_tokens_hint=8 * 32 // mc.dp, **kw)
+    params = T.init_params(cfg, mc.tp, seed=0, device=device)
+    st = AdamW().init(params)
+    cap = {}
+    params, st, m = step(params, st, next(batch_stream(cfg, 8, 32, seed=0)),
+                         capture=cap)
+    return (float(m["loss"]),
+            [t.cpu() for _, t in T.tree_leaves(cap["synced"])],
+            [t.cpu() for _, t in T.tree_leaves(params)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sync", ["hier", "sparse"])
+def test_pod_mesh_and_bucketed_sync_bit_for_bit_on_gpu(cuda, sync):
+    """Reduced untied qwen on the card: the (pod, data, model) = (2, 2, 1)
+    mesh with degrees {pod: (2,), data: (2,)} equals the flat (4, 1) mesh
+    with {data: (2, 2)}, and (2, 2, 2) equals (4, 2); the bucketed sync
+    (a 64 KiB budget) equals ``off``: the loss, every synced leaf and
+    every parameter after the step, bit for bit."""
+    from repro_torch.train.step import mesh_ctx
+    pairs = [
+        ((mesh_ctx(2, pod=2, device=cuda), {"pod": (2,), "data": (2,)}, {}),
+         (mesh_ctx(4, device=cuda), {"data": (2, 2)}, {})),
+        ((mesh_ctx(2, 2, pod=2, device=cuda), {"pod": (2,), "data": (2,)},
+          {}), (mesh_ctx(4, 2, device=cuda), {"data": (2, 2)}, {})),
+        ((mesh_ctx(4, device=cuda), {"data": (2, 2)},
+          {"sync_overlap": "bucketed", "sync_bucket_bytes": 1 << 16}),
+         (mesh_ctx(4, device=cuda), {"data": (2, 2)}, {}))]
+    for (ma, da, ka), (mb, db, kb) in pairs:
+        la, ga, pa = _reduced_step(cuda, ma, da, sync, **ka)
+        lb, gb, pb = _reduced_step(cuda, mb, db, sync, **kb)
+        assert la == lb, (la, lb)
+        assert all(torch.equal(a, b) for a, b in zip(ga, gb))
+        assert all(torch.equal(a, b) for a, b in zip(pa, pb))
+
+
+@pytest.mark.gpu
+def test_blocked_attention_at_8192_on_gpu(cuda):
+    """One reduced qwen attention layer in bfloat16 at T = 8,192 on the
+    card: the block forward takes the query-chunked attention, which is
+    within bfloat16 rounding of ``attn_train`` (|a - b| <= 2^-7 x max|b|)
+    and whose input gradient is finite; a second run bit-identical."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    p = {k: v[0].to(cuda) for k, v in
+         T.init_params(cfg, 1, seed=0, device="cpu")["blocks"]["b0"]
+         ["attn"].items()}
+    x = torch.randn(1, A.BLOCKED_ATTN_THRESHOLD, cfg.d_model,
+                    generator=torch.Generator().manual_seed(4)
+                    ).to(cfg.dtype).to(cuda)
+    want = A.attn_train(p, x, cfg, 1, 0)
+    xg = x.clone().requires_grad_(True)
+    got = A.attn_train_any(p, xg, cfg, 1, 0)
+    (gx,) = torch.autograd.grad(got.float().sum(), xg)
+    got = got.detach()
+    assert torch.equal(got, A.attn_train_blocked(p, x, cfg, 1, 0))
+    gap = float((got.float() - want.float()).abs().max())
+    assert gap <= 2.0 ** -7 * float(want.float().abs().max()), gap
+    assert torch.isfinite(gx).all()

@@ -106,7 +106,9 @@ def test_engine_runs_cache_and_trajectory(graph):
     assert tr.calls - calls == 3 * 2 * 2
     f2, q2, _ = engine.run(3, p0, extras)
     assert torch.equal(f1, f2) and torch.equal(q1, q2)
-    assert engine.report == {"dispatches": 2, "rounds": 6, "step_traces": 1}
+    # the CPU runs the eager loop: no graph is captured or replayed
+    assert engine.report == {"dispatches": 2, "rounds": 6, "step_traces": 1,
+                             "graph_launches": 0, "captures": 0}
     final, last, traj = engine.run(3, p0, extras, collect="trajectory")
     assert traj.shape == (3,) + tuple(p0.shape)
     assert torch.equal(traj[-1], final) and torch.equal(final, f1)
@@ -123,8 +125,11 @@ def test_engine_runs_cache_and_trajectory(graph):
 def test_engine_guards():
     app = EngineApp(out_fn=lambda s, e: s, update_fn=lambda s, i, e, t: i)
     sets = [np.arange(4, dtype=np.uint32)] * 2
-    with pytest.raises(NotImplementedError, match="item 12"):
-        GraphEngine(sets, sets, app, degrees=(2,), device="cpu", overlap=True)
+    # the rotated schedule (overlap=True) is ported: the engine takes it
+    # and reports it
+    rotated = GraphEngine(sets, sets, app, degrees=(2,), device="cpu",
+                          overlap=True)
+    assert rotated.sync_report()["overlap"] is True
     # the plan cache (ROADMAP item 10) is ported: the engine takes it,
     # reports the tier its config came from, and serves a second engine
     # on the same pattern from the memo

@@ -10,9 +10,7 @@ sliding-window pattern): ``forward_loss`` within rtol 1e-5 and every
 gradient leaf within rtol 1e-4, atol 1e-6.  On their own: ``rope``,
 ``rmsnorm``, the GQA attention with causal and window masks, the
 embedding and head loss; ``zipf_tokens`` and ``Batcher`` byte for byte;
-``AdamW.update`` within rtol 1e-6; the weight copy both ways; what stays
-unported (a ``pod`` axis, sequences of 8,192 tokens, the bucketed
-overlap) raising with its ROADMAP item.
+``AdamW.update`` within rtol 1e-6; the weight copy both ways.
 """
 import dataclasses
 
@@ -241,37 +239,6 @@ def test_configs_copied_as_data():
         assert a == b
     with pytest.raises(ValueError, match="variant"):
         get_config("qwen1.5-0.5b", "nope")
-
-
-def _raises_pod():
-    from repro_torch.train.step import mesh_ctx
-    mesh_ctx(4, pod=2, device="cpu")
-
-
-def _raises_long_sequence():
-    cfg = get_config("qwen1.5-0.5b").reduced()
-    p = T.init_params(cfg, 1, seed=0, device="cpu")["blocks"]["b0"]["attn"]
-    A.attn_train({k: v[0] for k, v in p.items()},
-                 torch.zeros(1, A.BLOCKED_ATTN_THRESHOLD, cfg.d_model), cfg,
-                 1, 0)
-
-
-def _raises_bucketed_overlap():
-    from repro_torch.train.step import make_train_step, mesh_ctx
-    make_train_step(get_config("qwen1.5-0.5b").reduced(),
-                    mesh_ctx(2, device="cpu"), sync="hier",
-                    sync_overlap="bucketed")
-
-
-@pytest.mark.parametrize("call,item", [(_raises_pod, "item 21"),
-                                       (_raises_long_sequence, "item 22"),
-                                       (_raises_bucketed_overlap, "item 12")])
-def test_unported_kinds_raise_with_their_item(call, item):
-    """What stays unported raises before anything large is allocated,
-    naming its ROADMAP item: a ``pod`` axis, a sequence of 8,192 tokens
-    (``attn_train_blocked``) and the bucketed overlap schedule."""
-    with pytest.raises(NotImplementedError, match=item):
-        call()
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "gemma3-12b"])

@@ -519,8 +519,8 @@ def test_tp_pair_holds_each_leaf_to_its_own_max():
 
 def test_launcher_trains_with_a_model_axis(tmp_path, monkeypatch):
     """``--model-axis 2`` trains two steps of reduced untied granite-moe
-    with the sparse fused sync; a pod axis and a dim that does not split
-    over tp still raise."""
+    with the sparse fused sync; a pod axis composes with the model axis; a
+    dim that does not split over tp still raises."""
     monkeypatch.setenv("REPRO_PLAN_CACHE", str(tmp_path / "plans"))
     loss = launch_train.main(
         ["--arch", "granite-moe-3b-a800m", "--reduced", "--device", "cpu",
@@ -528,7 +528,8 @@ def test_launcher_trains_with_a_model_axis(tmp_path, monkeypatch):
          "--untied", "--merge", "fused", "--data-axis", "2",
          "--model-axis", "2", "--dp-degrees", "2"])
     assert np.isfinite(loss)
-    with pytest.raises(NotImplementedError, match="item 21"):
-        S.mesh_ctx(2, 2, pod=2, device="cpu")
+    mc = S.mesh_ctx(2, 2, pod=2, device="cpu")
+    assert (mc.dp, mc.tp, mc.shape) == (4, 2, {"pod": 2, "data": 2,
+                                                "model": 2})
     with pytest.raises(ValueError, match="does not split d_ff 512"):
         S.make_train_step(_cfg("qwen1.5-0.5b"), S.mesh_ctx(1, 3, device="cpu"))

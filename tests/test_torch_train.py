@@ -327,11 +327,12 @@ def test_launcher_runs_on_cpu_and_guards(tmp_path, monkeypatch):
          "--seq", "16", "--sync", "hier", "--data-axis", "4",
          "--replication", "2", "--dead", "0", "--dp-degrees", "2,2"])
     assert np.isfinite(loss)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        launch_train.main(["--reduced", "--device", "cpu", "--sync", "hier",
-                           "--sync-overlap", "bucketed"])
-    with pytest.raises(NotImplementedError, match="item 21"):
-        S.mesh_ctx(8, pod=2, device="cpu")
+    loss = launch_train.main(
+        ["--reduced", "--device", "cpu", "--steps", "1", "--batch", "8",
+         "--seq", "16", "--sync", "hier", "--sync-overlap", "bucketed"])
+    assert np.isfinite(loss)
+    mc = S.mesh_ctx(8, pod=2, device="cpu")
+    assert (mc.dp, mc.dp_axes) == (16, ("pod", "data"))
     with pytest.raises(ValueError, match="sparse sync"):
         S.make_train_step(_cfg(), S.mesh_ctx(8, device="cpu"), sync="hier",
                           sync_wire="delta")
