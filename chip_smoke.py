@@ -138,8 +138,8 @@ line each, after the ``nvidia-smi`` name/power-limit line):
    copies each expert is sent (max, mean, min), those beyond cap_e, the
    block's forward ms and the ms of the copy ``torch.matmul`` makes of
    the broadcast expert weights;
-20. train_ssm -- xlstm-1.3b untied at full width (48 layers, 7 mLSTM + 1
-   sLSTM a period, d 2,048, vocab 50,304, bf16) over M = 8, degrees (4,
+20. train_ssm -- xlstm-1.3b untied at full width (SSM_LAYERS of its 48
+   layers, 7 mLSTM + 1 sLSTM a period, d 2,048, vocab 50,304, bf16) over M = 8, degrees (4,
    2), two steps a configuration: ``hier``, sparse fused / banded (raw),
    fused and banded ``delta+int8ef``, the repeat, the train phase's
    asserts, and the forward ms of one mLSTM and one sLSTM block; reduced
@@ -169,8 +169,31 @@ line each, after the ``nvidia-smi`` name/power-limit line):
    ``fsdp=True`` against ``False``, step-1 losses bit-equal, step 1's
    synced FSDP leaves within FSDP_PAIR_LIMITS, every other synced leaf
    bit-equal, both peaks;
-23. kernels -- each kernel on the inputs it got on the main path (phases
-   2-22, layer 0 / first round; the two merge-rank kernels at every shape
+23. serve -- ``ContinuousBatchingScheduler`` of qwen1.5-0.5b as published
+   (tied, 24 layers, d 1,024, vocab 151,936, bf16) on 4 data positions,
+   8 slots: 16 Zipf(1.2) requests of 512 tokens, ``max_new`` 32 (max_seq
+   545); the sequential oracle, then the batched service with the sparse
+   dispatch over the 4 positions for each (merge, wire) of sort / fused
+   / banded raw and fused / banded ``delta+int8ef`` (the tail unions
+   through rows 1-6), then the same stream at (data, model) = (2, 2) with
+   fused raw (``serve_tp``); serve_moe -- granite-moe-3b-a800m as
+   published but 16 of its 32 layers, at (2, 2), slots 4, 8 requests,
+   fused dispatch and ``expert_load`` equal to the predictor's bincount;
+   serve_ssm -- xlstm-1.3b as published but 16 of its 48 layers, 2
+   positions, slots 4, 4 requests;
+   serve_encdec -- whisper-base as published, the launcher's fixed batch
+   of 4 rows with its cross cache.  Each holds (a) batched = oracle token
+   for token (whisper: row 0's ids unchanged with the other rows
+   replaced), (b) a decode after a prefill of S tokens against the
+   prefill of S + 1 (xlstm: in float32, against the same on a CPU copy)
+   within SERVE_REL_BOUND of max |logit|, a decode from an empty cache
+   outside it, (c) every id <
+   vocab, (d) one DtoH copy of slots x 4 bytes in a decode step's window
+   (profiler trace, the dispatch outside it); prefill ms, decode ms a
+   step, the kernels' device ms of a step, tokens/s, peak memory and the
+   dispatch's plan hit rate;
+24. kernels -- each kernel on the inputs it got on the main path (phases
+   2-23, layer 0 / first round; the two merge-rank kernels at every shape
    the main path handed them, the replica stage's [64, 2, C] and the
    survivors' flat [62, 31, C] included, the dense scatter also at the
    replica stage and the survivor layer, the CSR SpMV at each graph
@@ -198,7 +221,11 @@ line each, after the ``nvidia-smi`` name/power-limit line):
    ``train``, w = 512, 1,024, 1,536, 2,048 or 6,144 values a row of
    general floats, bit for bit
    against the plain version on a CPU copy, with their launches a step,
-   byte bound and ``index_add_`` time), with
+   byte bound and ``index_add_`` time), and at the serve dispatch's tail
+   unions (the rank rows in ``shapes`` with phase ``serve``,
+   ``serve_tp`` or ``serve_moe``, the dense scatters in ``serve``, the
+   banded ones in ``shapes``: counts of width 1, launches a dispatch
+   step), with
    CUDA-event times of kernel, plain version and the nearest single
    PyTorch call, and the least time the card needs.  The ELL kernel, off
    the main path now, is held to its plain version on ELL tables built
@@ -273,18 +300,22 @@ POOL, RACK, FAULT_AT, CKPT_EVERY = 80, 5, 3, 2
 ROW_PHASES = ("union_wire", "replicated_union", "resilient_union", "union",
               "train", "train_tp", "train_tp_moe", "train_pod",
               "train_pod_tp", "train_long", "train_moe", "train_ssm",
-              "train_encdec", "train_vlm")
+              "train_encdec", "train_vlm", "serve", "serve_tp", "serve_moe")
 GRAPH_PHASES = ("pagerank", "spectral", "pagerank_large",
                 "supervised_pagerank")
 # each graph phase's SpMV kernels run on its main path: the warm-up
 # rounds' launches, and its graph replays times the kernels a traced
 # replay of the same graph ran (:func:`replay_kernels`)
 GRAPH_RAN = {}
+# the sparse steps each phase ran by (phase, merge, int8 wire): a train
+# phase's sparse syncs and a serve phase's dispatch steps
+MERGE_STEPS = {}
 # phases whose scatter calls are told apart by shape (one per layer)
 SHAPED_SCATTER_PHASES = ("resilient_union", "train", "train_tp",
                          "train_tp_moe", "train_pod", "train_pod_tp",
                          "train_long", "train_moe", "train_ssm",
-                         "train_encdec", "train_vlm")
+                         "train_encdec", "train_vlm", "serve", "serve_tp",
+                         "serve_moe")
 WIRES = ("raw", "delta", "delta+bf16", "delta+int8ef")
 # the train phase: qwen1.5-0.5b untied at full width on M = 8 stacked
 # data positions, degrees (4, 2), the launcher's batch 8 x seq 256
@@ -304,10 +335,12 @@ MOE_CONFIGS = (("hier", "sort", "raw"), ("sparse", "sort", "raw"),
                ("sparse", "fused", "raw"), ("sparse", "banded", "raw"),
                ("sparse", "fused", "delta+int8ef"),
                ("sparse", "banded", "delta+int8ef"))
-# train_ssm: xlstm-1.3b untied at full width on M = 8 (SSM_STEPS a
-# configuration: its steps take seconds), then reduced jamba on M = 4,
-# replayed on the CPU
+# train_ssm: xlstm-1.3b untied at full width, SSM_LAYERS of its 48 (whole
+# periods of 7 mLSTM + 1 sLSTM; cut to keep the smoke well inside its
+# time limit: its steps are launch-bound), on M = 8 (SSM_STEPS a configuration: its steps take
+# seconds), then reduced jamba on M = 4, replayed on the CPU
 SSM_ARCH, SSM_M, SSM_DEGREES, SSM_STEPS = "xlstm-1.3b", 8, (4, 2), 2
+SSM_LAYERS = 8
 SSM_CONFIGS = (("hier", "sort", "raw"), ("sparse", "fused", "raw"),
                ("sparse", "banded", "raw"),
                ("sparse", "fused", "delta+int8ef"),
@@ -374,22 +407,53 @@ LONG_CONFIGS = (("hier", "sort", "raw"), ("sparse", "fused", "raw"))
 # with the bucketed schedule (the default 4 MB budget) against off,
 # OVERLAP_STEPS steps from the same weights, bit for bit
 OVERLAP_STEPS = 3
-# the configurations each train phase runs, its repeat included, and the
-# steps of each
-TRAIN_RUNS = {"train": TRAIN_CONFIGS + (REPEAT,),
-              "train_moe": MOE_CONFIGS + (REPEAT,),
-              "train_ssm": SSM_CONFIGS + (REPEAT,),
-              "train_encdec": TRAIN_CONFIGS + (REPEAT,),
-              "train_vlm": VLM_CONFIGS + (REPEAT,),
-              "train_tp": TP_CONFIGS + (REPEAT,),
-              "train_tp_moe": TP_MOE_CONFIGS + (REPEAT,),
-              "train_pod": POD_CONFIGS * 2, "train_pod_tp": POD_TP_CONFIGS * 2,
-              "train_long": LONG_CONFIGS}
-TRAIN_PHASE_STEPS = {"train": TRAIN_STEPS, "train_moe": TRAIN_STEPS,
-                     "train_ssm": SSM_STEPS, "train_encdec": TRAIN_STEPS,
-                     "train_vlm": TRAIN_STEPS, "train_tp": TRAIN_STEPS,
-                     "train_tp_moe": TRAIN_STEPS, "train_pod": POD_STEPS,
-                     "train_pod_tp": POD_STEPS, "train_long": LONG_STEPS}
+# serve: qwen1.5-0.5b as published (tied) on SERVE_M stacked data
+# positions with SERVE_SLOTS slots, SERVE_REQUESTS Zipf(1.2) requests of
+# SERVE_PROMPT tokens and max_new SERVE_GEN; the sparse dispatch over the
+# positions for each (merge, wire) of SERVE_DISPATCH, then the same stream
+# at (data, model) = SERVE_TP with SERVE_TP_DISPATCH (recorder phase
+# "serve_tp")
+SERVE_ARCH, SERVE_M, SERVE_SLOTS = "qwen1.5-0.5b", 4, 8
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN = 16, 512, 32
+SERVE_DISPATCH = (("sort", "raw"), ("fused", "raw"), ("banded", "raw"),
+                  ("fused", "delta+int8ef"), ("banded", "delta+int8ef"))
+SERVE_TP, SERVE_TP_DISPATCH = (2, 2), ("fused", "raw")
+# serve_moe, serve_ssm, serve_encdec: the published configs, granite's and
+# xlstm's at "layers" of their 32 and 48 (the host-bound decode's time)
+SERVE_MOE = {"arch": MOE_ARCH, "data": 2, "tp": 2, "requests": 8,
+             "slots": 4, "prompt": 256, "gen": 16, "layers": 16}
+SERVE_SSM = {"arch": SSM_ARCH, "data": 2, "tp": 1, "requests": 4,
+             "slots": 4, "prompt": 256, "gen": 16, "layers": 16}
+SERVE_ENCDEC = {"arch": ENCDEC_ARCH, "data": 2, "rows": 4, "prompt": 64,
+                "gen": 16}
+# (b): what a decode after a prefill of S tokens is held to, and in which
+# torch dtype (None: the config's): "prefill", the prefill of S + 1 on the
+# card; "cpu", the same prefill and decode on a CPU copy.  xlstm-1.3b's
+# longer prefill is not the decode's function (the reference's chunkwise
+# mLSTM normaliser, ROADMAP Queue 3), and its bf16 forward at seed-0
+# weights is too ill-conditioned for any reference (the card and the CPU
+# differ by ~0.6 of max |logit|), so its decode is held in float32 to
+# the CPU's; the bf16 readings of SERVE_PRINTOUTS are printed only
+SERVE_CONSISTENCY = {SERVE_ARCH: ("prefill", None),
+                     MOE_ARCH: ("prefill", None),
+                     SSM_ARCH: ("cpu", "float32"),
+                     ENCDEC_ARCH: ("prefill", None)}
+SERVE_PRINTOUTS = {SSM_ARCH: (("prefill", None), ("cpu", None))}
+# the bound on max |logit difference| / max |logit| for every arch: ~3x
+# the largest bf16 / float32 reading on an H100 (1.5e-2, qwen at (2, 2)),
+# ~25x below the smallest reading of a decode from an empty cache (1.3)
+SERVE_REL_BOUND = 5e-2
+# serve_moe's (b) prompt: the longer prefill's 8 tokens a data position
+# drop nothing, as the decode does not (at 32 tokens and more the Zipf
+# prompt's repeated tokens overflow an expert, and the prefill is another
+# function)
+SERVE_MOE_CONSISTENCY_PROMPT = 7
+# the serve phases whose dispatch runs the union path's kernels
+SERVE_PHASES = ("serve", "serve_tp", "serve_moe")
+# the train phases whose sparse syncs run the union path's kernels
+TRAIN_PHASES = ("train", "train_tp", "train_tp_moe", "train_pod",
+                "train_pod_tp", "train_long", "train_moe", "train_ssm",
+                "train_encdec", "train_vlm")
 
 
 def emit(obj) -> None:
@@ -528,6 +592,38 @@ class Recorder:
 
     def restore(self):
         setattr(self.module, self.name, self.fn)
+
+    def move(self, device) -> int:
+        """Copies every recorded call's tensors to ``device`` (see
+        :func:`move_storages`); returns the bytes copied."""
+        seen = {}
+        self.args = {k: move_storages(v, device, seen)
+                     for k, v in self.args.items()}
+        return sum(st.nbytes() for st in seen.values())
+
+
+def move_storages(obj, device, seen):
+    """``obj`` (tensors in tuples, lists and dicts) with each tensor not
+    yet on ``device``'s type rebuilt on a copy of its whole storage there,
+    with the same offset, sizes and strides; tensors that share a storage
+    share its one copy (``seen``, by the source storage).  Between phases
+    the recorded inputs wait on the host: on the card they took 8.7-9.3
+    GB that the later train phases need (internvl2's peak 69.1 GiB of
+    79.2)."""
+    import torch
+    if isinstance(obj, dict):
+        return {k: move_storages(v, device, seen) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(move_storages(v, device, seen) for v in obj)
+    if not isinstance(obj, torch.Tensor) or \
+            obj.device.type == torch.device(device).type:
+        return obj
+    src = obj.untyped_storage()
+    key = (src.device, src.data_ptr())
+    if key not in seen:
+        seen[key] = src.to(device=device)
+    return torch.empty(0, dtype=obj.dtype, device=seen[key].device).set_(
+        seen[key], obj.storage_offset(), obj.size(), obj.stride())
 
 
 def scatter_variant(args, kwargs):
@@ -1759,6 +1855,8 @@ def train_configs(torch, cfg, m, degrees, configs, steps=TRAIN_STEPS, tp=1):
                     out["synced"] = host_leaves(capture["synced"])
                 del capture
         out["peak"] = torch.cuda.max_memory_allocated()
+        if sync == "sparse":
+            note_merge_steps(merge, wire, len(batches))
         if (sync, merge) == REPEAT[:2] and wire in ("raw", "delta"):
             out["params"] = host_leaves(params)
         return out
@@ -1818,6 +1916,14 @@ TRAIN_TOLERANCE = ("losses finite, step-1 loss within 1.5 of ln(vocab); "
                    "embedding sync across merges and vs hier rtol 1e-5 + "
                    "1e-7 x max, other synced leaves bit-identical; repeat "
                    "bit-identical")
+
+
+def cut_depth(cfg, layers):
+    """``(cfg at `layers` layers, the phase line's `reduced` list)``."""
+    if layers == cfg.n_layers:
+        return cfg, []
+    return (dataclasses.replace(cfg, n_layers=layers),
+            [f"layers {cfg.n_layers} -> {layers}"])
 
 
 def train_line(phase, cfg, m, degrees, rows, info, total, **extra):
@@ -1999,6 +2105,8 @@ def train_run(torch, cfg, mc, degrees, sync, merge="sort", wire="raw",
                       for a in out["allocator"])
     out["params"] = [t for _, t in T.tree_leaves(params)]
     del params, st, step
+    if sync == "sparse":
+        note_merge_steps(merge, wire, len(batches))
     return out
 
 
@@ -2279,11 +2387,7 @@ def phase_train_tp(torch):
                       tp=TP_TP, heads=cfg.n_heads, kv_heads=cfg.n_kv,
                       reduced=[], tp_pair=pair)
     PHASE["name"] = "train_tp_moe"
-    mcfg = get_config(MOE_ARCH, "untied")
-    reduced = []
-    if TP_MOE_LAYERS != mcfg.n_layers:
-        reduced.append(f"layers {mcfg.n_layers} -> {TP_MOE_LAYERS}")
-        mcfg = dataclasses.replace(mcfg, n_layers=TP_MOE_LAYERS)
+    mcfg, reduced = cut_depth(get_config(MOE_ARCH, "untied"), TP_MOE_LAYERS)
     torch.cuda.empty_cache()
     mrows, mtotal, minfo = train_configs(torch, mcfg, TP_MOE_M,
                                          TP_MOE_DEGREES, TP_MOE_CONFIGS,
@@ -2397,10 +2501,7 @@ def phase_train_moe(torch):
     # near 68 GB, and a 7.5 GiB float32 sync copy failed on a cache
     # fragmented by small tensors in large segments
     torch.cuda.empty_cache()
-    reduced = []
-    if MOE_LAYERS != cfg.n_layers:
-        reduced.append(f"layers {cfg.n_layers} -> {MOE_LAYERS}")
-        cfg = dataclasses.replace(cfg, n_layers=MOE_LAYERS)
+    cfg, reduced = cut_depth(cfg, MOE_LAYERS)
     layer0 = moe_layer0(torch, cfg, MOE_M,
                         next(batch_stream(cfg, TRAIN_BATCH, TRAIN_SEQ, 0)))
     torch.cuda.empty_cache()
@@ -2621,8 +2722,9 @@ def block_ms(torch, cfg, kind, m):
 
 
 def phase_train_ssm(torch):
-    """xlstm-1.3b untied at full width (48 layers, 7 mLSTM + 1 sLSTM a
-    period, d 2,048, 4 heads of 512, vocab 50,304, bf16) over M = 8
+    """xlstm-1.3b untied at full width (SSM_LAYERS of its 48 layers, 7
+    mLSTM + 1 sLSTM a period, d 2,048, 4 heads of 512, vocab 50,304,
+    bf16) over M = 8
     stacked data positions, degrees (4, 2), batch 8 x seq 256, SSM_STEPS
     steps a configuration: ``hier``, sparse fused / banded (raw), fused
     and banded ``delta+int8ef``, then fused / raw again, with
@@ -2634,7 +2736,7 @@ def phase_train_ssm(torch):
     before it (:func:`hybrid_replay`), every check within
     :data:`HYBRID_LIMITS`."""
     from repro_torch.configs import get_config
-    cfg = get_config(SSM_ARCH, "untied")
+    cfg, reduced = cut_depth(get_config(SSM_ARCH, "untied"), SSM_LAYERS)
     blocks = {k: block_ms(torch, cfg, k, SSM_M) for k in ("mlstm", "slstm")}
     torch.cuda.empty_cache()
     rows, total, info = train_configs(torch, cfg, SSM_M, SSM_DEGREES,
@@ -2651,6 +2753,7 @@ def phase_train_ssm(torch):
     hcfg = get_config(HYBRID_ARCH).reduced()
     emit(train_line("train_ssm", cfg, SSM_M, SSM_DEGREES, rows, info, total,
                     ok=ok, heads=cfg.n_heads, pattern=list(cfg.pattern),
+                    reduced=reduced,
                     block_fwd_ms=blocks,
                     hybrid={"arch": hcfg.name, "reduced": ".reduced()",
                             "pattern": list(hcfg.pattern),
@@ -2804,10 +2907,7 @@ def phase_train_vlm(torch):
     cfg = get_config(VLM_ARCH, "untied")
     assert cfg.fsdp
     torch.cuda.empty_cache()
-    reduced = []
-    if VLM_LAYERS != cfg.n_layers:
-        reduced.append(f"layers {cfg.n_layers} -> {VLM_LAYERS}")
-        cfg = dataclasses.replace(cfg, n_layers=VLM_LAYERS)
+    cfg, reduced = cut_depth(cfg, VLM_LAYERS)
     rows, total, info = train_configs(torch, cfg, VLM_M, VLM_DEGREES,
                                       VLM_CONFIGS)
     pair, launches = main_path(lambda: fsdp_pair(torch, cfg))
@@ -2820,6 +2920,425 @@ def phase_train_vlm(torch):
                               "carry alone would be 4 x 92,560 x 6,144 "
                               "float32, 9.1 GB", fsdp_pair=pair))
     return total
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+def dtoh_check(torch, fn, expect: int, reps: int = 3, tries: int = 5):
+    """Device-to-host copies of ``fn`` (one decode step and the host read
+    of its ids) from ``torch.profiler`` traces of ``reps`` calls, read
+    from the exported trace's memcpy records: the copies and bytes a
+    call, asserted to be one copy of ``expect`` bytes; also the kernels
+    a call launches and their summed device ms (the device's busy time,
+    against the step's CUDA-event time).  A trace
+    is taken again, up to ``tries`` times in all, unless it holds ``reps``
+    kernel launches of the argmax (a trace whose device events are not
+    whole)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    seen = None
+    for _ in range(tries):
+        path = os.path.join(SCRATCH["root"], "dtoh_trace.json")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        PROFILER["traces"] += 1
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        os.remove(path)
+        copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+                  and "DtoH" in e.get("name", "")]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        argmax = [e for e in kernels if "argmax" in e.get("name", "").lower()]
+        seen = {"copies": len(copies), "argmax_kernels": len(argmax),
+                "bytes": [e.get("args", {}).get("bytes") for e in copies],
+                "kernels": len(kernels),
+                "kernel_ms": sum(e.get("dur", 0) for e in kernels) / 1e3}
+        if len(argmax) == reps:
+            break
+    else:
+        raise RuntimeError(f"profiler: no whole decode trace in {tries} "
+                           f"tries; the last held {seen}")
+    assert len(copies) == reps and all(b == expect for b in seen["bytes"]), \
+        ("decode step copies to the host", seen, expect)
+    return {"copies_per_step": len(copies) // reps, "bytes_per_step":
+            sum(seen["bytes"]) // reps, "expected_bytes": expect,
+            "kernels_per_step": seen["kernels"] / reps,
+            "kernel_ms_per_step": seen["kernel_ms"] / reps}
+
+
+def consistency_readings(torch, cfg, mc, params, s_b: int, extras=None,
+                         against="prefill", dtype=None):
+    """The decode of token S after a prefill of S tokens, M rows of Zipf
+    prompts, on the real vocab, in the torch dtype ``dtype`` (None: the
+    config's; else the config's leaves cast to it), against ``against``:
+    ``"prefill"``, the prefill of S + 1 on the card; ``"cpu"``, the same
+    prefill and decode of row 0 on a CPU copy of the weights (the path the
+    CPU tests hold to the reference).  ``rel_err``: max |logit
+    difference| / max |logit| of the reference logits; ``stale_rel_err``:
+    the same of a decode from an empty cache (a decode that ignores its
+    cache); each row's top-two margin of the reference over its max
+    |logit| (``margins``) and whether the greedy ids agree
+    (``ids_equal``); the max |softmax difference|, a printout only (at
+    these vocab sizes no two softmaxes differ by much)."""
+    from repro_torch.data.pipeline import zipf_tokens
+    from repro_torch.models import transformer as T
+    from repro_torch.train.step import (init_cache_global, make_decode_step,
+                                        make_prefill_step, mesh_ctx)
+    if dtype is not None:
+        params = T.tree_from_leaves(params, [
+            (k, t.to(getattr(torch, dtype)) if t.dtype == cfg.dtype else t)
+            for k, t in T.tree_leaves(params)])
+        cfg = dataclasses.replace(cfg, dtype=getattr(torch, dtype))
+    rng = np.random.RandomState(7)
+    b = mc.dp
+    toks = zipf_tokens(rng, (b, s_b + 1), cfg.vocab)
+    max_seq = s_b + 2 + cfg.img_tokens
+    pos = np.full(b, s_b + cfg.img_tokens)
+
+    def decode_after_prefill(mesh, weights, rows):
+        """The decode of token S after the prefill of S tokens of the
+        first ``rows`` rows, the same decode from an empty cache, and the
+        prefill of S + 1."""
+        pre, _ = make_prefill_step(cfg, mesh, max_seq)
+        dec, _ = make_decode_step(cfg, mesh)
+        batch = {k: v[:rows] for k, v in (extras or {}).items()}
+        batch["tokens"] = toks[:rows, :s_b]
+        _, cache = pre(weights, batch)
+        cross = ()
+        if cfg.enc_layers:
+            from repro_torch.launch.serve import _cross_cache
+            cross = (_cross_cache(cfg, mesh, weights, batch["enc_frames"]),)
+        args = (toks[:rows, s_b], pos[:rows])
+        got, _ = dec(weights, *args, cache, *cross)
+        del cache
+        stale, _ = dec(weights, *args,
+                       init_cache_global(cfg, mesh, rows, max_seq), *cross)
+        if against == "cpu":
+            return got, stale, None
+        return got, stale, pre(weights, dict(batch, tokens=toks[:rows]))[0]
+
+    got, stale, want = decode_after_prefill(mc, params, b)
+    if against == "cpu":
+        cpu = T.tree_from_leaves(params, [(k, t.cpu())
+                                          for k, t in T.tree_leaves(params)])
+        want = decode_after_prefill(mesh_ctx(1, mc.tp, device="cpu"), cpu,
+                                    1)[0].to(got.device)
+        got, stale = got[:1], stale[:1]
+    got, stale, want = (t[:, :cfg.vocab].float() for t in (got, stale, want))
+    scale = float(want.abs().max())
+    top2 = want.topk(2, dim=-1).values
+    return {"against": against, "dtype": str(cfg.dtype), "prompt": s_b,
+            "rows": want.shape[0],
+            "max_abs_logit": scale,
+            "rel_err": float((got - want).abs().max()) / scale,
+            "stale_rel_err": float((stale - want).abs().max()) / scale,
+            "margins": ((top2[:, 0] - top2[:, 1]) / scale).tolist(),
+            "ids_equal": (got.argmax(-1) == want.argmax(-1)).tolist(),
+            "softmax_max_abs_diff": float(
+                (torch.softmax(got, -1) - torch.softmax(want, -1))
+                .abs().max())}
+
+
+def serve_consistency(torch, cfg, mc, params, s_b: int, extras=None):
+    """(b): :func:`consistency_readings` against ``SERVE_CONSISTENCY``'s
+    reference for ``cfg``, held to ``SERVE_REL_BOUND``: ``rel_err`` <
+    bound; the greedy ids equal on every row whose top-two margin clears
+    the bound; and ``stale_rel_err`` > bound, so that a decode that
+    ignored its cache would fail.  ``SERVE_PRINTOUTS``' readings are
+    added under ``printouts``, unchecked."""
+    against, dtype = SERVE_CONSISTENCY[cfg.name]
+    tol = SERVE_REL_BOUND
+    r = consistency_readings(torch, cfg, mc, params, s_b, extras, against,
+                             dtype)
+    assert r["rel_err"] < tol, ("decode vs reference", cfg.name, r, tol)
+    assert r["stale_rel_err"] > tol, ("bound too loose", cfg.name, r, tol)
+    decided = [m > tol for m in r["margins"]]
+    assert all(eq for eq, d in zip(r["ids_equal"], decided) if d), \
+        ("greedy ids vs reference", cfg.name, r, tol)
+    printouts = [consistency_readings(torch, cfg, mc, params, s_b, extras,
+                                      *spec)
+                 for spec in SERVE_PRINTOUTS.get(cfg.name, ())]
+    return dict(r, bound=tol, decided_rows=sum(decided), printouts=printouts)
+
+
+def serve_phase(torch, phase, cfg, data, tp, n_req, slots, prompt, gen,
+                dispatches, s_b):
+    """``ContinuousBatchingScheduler`` of ``cfg`` (seed-0 weights on the
+    card) on (data, model) = (``data``, ``tp``) with ``slots`` slots, a
+    Zipf(1.2) stream of ``n_req`` requests of ``prompt`` tokens and
+    ``max_new`` ``gen``: the sequential oracle first, then the batched
+    service once for each (merge, wire) of ``dispatches`` (the sparse
+    dispatch over the data positions; ``None``: no dispatch), each a
+    main-path call: (a) its ids equal the oracle's token for token, (c)
+    every id < vocab; then (b) :func:`serve_consistency` at ``s_b``
+    prompt tokens and (d) :func:`dtoh_check` of one scheduler decode step
+    (``slots`` x 4 bytes).  Prefill ms (one join's greedy prefill, CUDA
+    events), decode ms a step (the scheduler's greedy decode step at its
+    shapes), each run's tokens/s (host wall of the service run), plan hit
+    rate and launches, peak memory."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import (ContinuousBatchingScheduler,
+                                   DecodeService, zipf_request_stream)
+    from repro_torch.serve.dispatch import SparseServeDispatch
+    from repro_torch.serve.service import run_sequential_oracle
+    from repro_torch.train.step import mesh_ctx
+    mc = mesh_ctx(data, tp, device=DEVICE)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, tp, seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    def stream():
+        return zipf_request_stream(n_req, cfg.vocab, alpha=1.2,
+                                   prompt_lens=(prompt,),
+                                   max_new=(gen, gen), seed=0)
+    sched = ContinuousBatchingScheduler(cfg, mc, params, slots=slots,
+                                        max_seq=prompt + gen + 1)
+    t0 = time.perf_counter()
+    oracle = run_sequential_oracle(sched, stream())
+    oracle_s = time.perf_counter() - t0
+    runs, total, last = [], {}, None
+    for spec in dispatches:
+        disp = None
+        reqs = stream()
+        if spec is not None:
+            disp = SparseServeDispatch(mc.dp, vocab=cfg.vocab,
+                                       n_experts=cfg.n_experts,
+                                       merge=spec[0], wire=spec[1],
+                                       device=DEVICE, seed=1)
+            disp.fit_hot_set(np.concatenate([r.prompt for r in reqs]),
+                             head_size=64)
+        sched.reset()
+        sched.dispatch = disp
+        report, launches = main_path(lambda: DecodeService(sched).run(reqs))
+        done = {r.rid: list(r.tokens) for r in report.completed}
+        assert len(done) == n_req, (phase, spec, len(done))
+        for i, r in enumerate(reqs):
+            assert done[r.rid] == oracle[i], (phase, spec, r.rid)
+            assert all(0 <= t < cfg.vocab for t in done[r.rid]), r.rid
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        if disp is not None:
+            note_merge_steps(spec[0], spec[1], disp.steps)
+        runs.append({"merge": spec and spec[0], "wire": spec and spec[1],
+                     "steps": report.steps, "decode_steps":
+                     sched.metrics.decode_steps,
+                     "tokens_out": report.tokens_out, "wall_s": report.wall_s,
+                     "tokens_per_s": report.tokens_per_s,
+                     "plan_hit_rate": report.plan_hit_rate,
+                     "dispatch_steps": disp.steps if disp else 0,
+                     "launches": {k: v for k, v in launches.items() if v},
+                     "oracle_equal": True})
+        last = disp
+    sched.dispatch = None
+    toks = np.tile(np.asarray(stream()[0].prompt)[None], (mc.dp, 1))
+    prefill_ms = cuda_ms(lambda: sched._prefill(params, {"tokens": toks}),
+                         reps=3, warmup=1)
+    decode_ms = cuda_ms(lambda: sched._decode(params, sched._tok, sched._pos,
+                                              sched._cache), reps=20)
+    dtoh = dtoh_check(torch, lambda: sched._decode(
+        params, sched._tok, sched._pos, sched._cache)[0].cpu(), slots * 4)
+    consistency = serve_consistency(torch, cfg, mc, params, s_b)
+    out = {"phase": phase, "ok": True, "arch": cfg.name,
+           "params": int(sum(t.numel() for _, t in T.tree_leaves(params))),
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab, "tied": cfg.tie_embeddings,
+           "dtype": str(cfg.dtype), "data": data, "model": tp,
+           "slots": slots, "requests": n_req, "prompt": prompt,
+           "max_new": gen, "max_seq": prompt + gen + 1, "init_s": init_s,
+           "oracle_s": oracle_s, "prefill_ms": prefill_ms,
+           "decode_ms_per_step": decode_ms, "runs": runs,
+           "consistency": consistency, "dtoh": dtoh,
+           "peak_memory": torch.cuda.max_memory_allocated(),
+           "memory_allocated_before": held,
+           "checks": "(a) batched = sequential oracle token for token in "
+                     "every run; (b) decode logits vs the arch's "
+                     "reference within SERVE_REL_BOUND x max |logit|, "
+                     "greedy ids equal where the margin clears it, an "
+                     "empty-cache decode outside it; (c) ids < vocab; (d) "
+                     "one DtoH copy of slots x 4 bytes a decode step",
+           "launches": total}
+    return out, params, mc, last, stream
+
+
+def phase_serve(torch):
+    """qwen1.5-0.5b as published (tied, 24 layers, d 1,024, vocab
+    151,936, bf16) on SERVE_M = 4 data positions, slots 8: 16 Zipf(1.2)
+    requests of 512 tokens, ``max_new`` 32 (max_seq 545), the oracle then
+    the batched service with the sparse dispatch over the 4 positions for
+    each (merge, wire) of SERVE_DISPATCH (the tail union through the
+    merge-rank and scatter kernels); then the same stream at (data, model)
+    = (2, 2) with the fused raw dispatch (recorder phase ``serve_tp``)
+    (:func:`serve_phase`'s checks)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(SERVE_ARCH)
+    assert cfg.tie_embeddings
+    line, params, _, _, _ = serve_phase(
+        torch, "serve", cfg, SERVE_M, 1, SERVE_REQUESTS, SERVE_SLOTS,
+        SERVE_PROMPT, SERVE_GEN, SERVE_DISPATCH, SERVE_PROMPT)
+    del params
+    total = dict(line["launches"])
+    PHASE["name"] = "serve_tp"
+    tp_line, params, _, _, _ = serve_phase(
+        torch, "serve_tp", cfg, SERVE_TP[0], SERVE_TP[1], SERVE_REQUESTS,
+        SERVE_SLOTS, SERVE_PROMPT, SERVE_GEN, (SERVE_TP_DISPATCH,),
+        SERVE_PROMPT)
+    PHASE["name"] = "serve"
+    del params
+    for k, v in tp_line.pop("launches").items():
+        total[k] = total.get(k, 0) + v
+    line["serve_tp"] = tp_line
+    line["launches"] = total
+    emit(line)
+    return total
+
+
+def phase_serve_moe(torch):
+    """granite-moe-3b-a800m as published (tied, d 1,536, 40 experts
+    top-8, vocab 49,155) but at SERVE_MOE["layers"] of its 32 layers at (data, model) = (2, 2), slots 4 (the
+    decode drops nothing: ``moe_decode_drops_nothing``), 8 requests, the
+    fused raw dispatch with the expert-load exchange: ``expert_load`` of
+    the predictor's experts for each position's prompt tokens equals their
+    bincount; (b) at SERVE_MOE_CONSISTENCY_PROMPT tokens, where the longer
+    prefill drops nothing (:func:`serve_phase`'s checks)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve.dispatch import (first_moe_router,
+                                            make_expert_predictor)
+    from repro_torch.serve.scheduler import moe_decode_drops_nothing
+    s = SERVE_MOE
+    cfg, reduced = cut_depth(get_config(s["arch"]), s["layers"])
+    assert moe_decode_drops_nothing(cfg, s["slots"] // s["data"], s["tp"])
+    # (b)'s longer prefill: one row of S + 1 tokens a data position
+    assert moe_decode_drops_nothing(cfg, SERVE_MOE_CONSISTENCY_PROMPT + 1,
+                                    s["tp"])
+    line, params, mc, disp, stream = serve_phase(
+        torch, "serve_moe", cfg, s["data"], s["tp"], s["requests"],
+        s["slots"], s["prompt"], s["gen"], (("fused", "raw"),),
+        SERVE_MOE_CONSISTENCY_PROMPT)
+    pred = make_expert_predictor(cfg)
+    router = first_moe_router(params)
+    reqs = stream()
+    eks = [pred(params["emb"], router, np.concatenate(
+        [r.prompt for r in reqs[n::mc.dp]])) for n in range(mc.dp)]
+    load = disp.expert_load(eks)
+    want = sum(np.bincount(e.cpu().numpy().reshape(-1),
+                           minlength=cfg.n_experts) for e in eks)
+    assert np.array_equal(load, want.astype(np.float32)), (load, want)
+    line["expert_load"] = {"equal_to_bincount": True,
+                           "assignments": int(load.sum()),
+                           "max": float(load.max()), "min": float(load.min())}
+    line["reduced"] = reduced
+    emit(line)
+    return line["launches"]
+
+
+def phase_serve_ssm(torch):
+    """xlstm-1.3b as published (tied, 7 mLSTM + 1 sLSTM a period, d
+    2,048, vocab 50,304, bf16) but at SERVE_SSM["layers"] of its 48 on 2 data positions, slots 4, 4
+    requests of 256 tokens, ``max_new`` 16, no dispatch; (b) at 127 prompt
+    tokens, in float32 against the same prefill and decode on a CPU copy
+    (``SERVE_CONSISTENCY``) (:func:`serve_phase`'s checks)."""
+    from repro_torch.configs import get_config
+    s = SERVE_SSM
+    cfg, reduced = cut_depth(get_config(s["arch"]), s["layers"])
+    line, params, _, _, _ = serve_phase(
+        torch, "serve_ssm", cfg, s["data"], s["tp"], s["requests"],
+        s["slots"], s["prompt"], s["gen"], (None,), 127)
+    del params
+    line["reduced"] = reduced
+    emit(line)
+    return line["launches"]
+
+
+def phase_serve_encdec(torch):
+    """whisper-base as published (tied, 6 encoder + 6 decoder layers, d
+    512, vocab 51,865, 1,500 stub frames a row, bf16), the launcher's
+    fixed-batch path on 2 data positions: 4 rows of 64 prompt tokens, the
+    cross cache built once (``build_cross_cache``), 16 greedy ids a row.
+    (a) row independence in the batch's geometry: row 0's ids equal those
+    of the same batch with every other row's prompt and frames replaced;
+    (b) decode vs the longer prefill; (c) ids < vocab; (d) one DtoH copy
+    of rows x 4 bytes a decode step.  Prefill ms, cross-cache ms, decode
+    ms a step."""
+    import argparse
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import _cross_cache, _fixed_batch_generate
+    from repro_torch.models import transformer as T
+    from repro_torch.train.step import (make_decode_greedy_step,
+                                        make_prefill_greedy_step, mesh_ctx)
+    s = SERVE_ENCDEC
+    cfg = get_config(s["arch"])
+    mc = mesh_ctx(s["data"], device=DEVICE)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(cfg, 1, seed=0, device=DEVICE)
+    args = argparse.Namespace(prompt_len=s["prompt"], gen=s["gen"],
+                              requests=s["rows"], seed=0)
+    gen, launches = main_path(lambda: _fixed_batch_generate(cfg, mc, params,
+                                                            args))
+    assert gen.shape == (s["rows"], s["gen"]) and int(gen.max()) < cfg.vocab
+    other = argparse.Namespace(**vars(args))
+    other.seed = 1
+    # row independence: the seed-0 batch's row 0 with seed-1 rows around it
+    rng0, rng1 = np.random.RandomState(0), np.random.RandomState(1)
+    b, p = s["rows"], s["prompt"]
+    t0, t1 = (r.randint(0, cfg.vocab, (b, p)).astype(np.int32)
+              for r in (rng0, rng1))
+    f0, f1 = (r.randn(b, cfg.enc_seq, cfg.d_model).astype(np.float32)
+              for r in (rng0, rng1))
+    t1[0], f1[0] = t0[0], f0[0]
+    max_seq = p + s["gen"]
+    prefill, _ = make_prefill_greedy_step(cfg, mc, max_seq)
+    decode, _ = make_decode_greedy_step(cfg, mc)
+
+    def generate(toks, frames):
+        tok, cache = prefill(params, {"tokens": toks, "enc_frames": frames})
+        cross = _cross_cache(cfg, mc, params, frames)
+        ids = [tok.cpu().numpy()]
+        for i in range(s["gen"] - 1):
+            tok, cache = decode(params, tok, np.full(b, p + i), cache, cross)
+            ids.append(tok.cpu().numpy())
+        return np.stack(ids, 1), (tok, cache, cross)
+    mixed, _ = generate(t1, f1)
+    assert np.array_equal(mixed[0], gen[0]), (mixed[0], gen[0])
+    _, (tok, cache, cross) = generate(t0, f0)
+    batch = {"tokens": t0, "enc_frames": f0}
+    prefill_ms = cuda_ms(lambda: prefill(params, batch), reps=3, warmup=1)
+    cross_ms = cuda_ms(lambda: _cross_cache(cfg, mc, params, f0), reps=3,
+                       warmup=1)
+    pos = np.full(b, p + s["gen"] - 1)
+    decode_ms = cuda_ms(lambda: decode(params, tok, pos, cache, cross),
+                        reps=20)
+    dtoh = dtoh_check(torch, lambda: decode(params, tok, pos, cache,
+                                            cross)[0].cpu(), b * 4)
+    consistency = serve_consistency(torch, cfg, mc, params, p,
+                                    extras={"enc_frames": f0[:mc.dp]})
+    emit({"phase": "serve_encdec", "ok": True, "arch": cfg.name,
+          "layers": cfg.n_layers, "enc_layers": cfg.enc_layers,
+          "enc_frames": cfg.enc_seq, "d_model": cfg.d_model,
+          "vocab": cfg.vocab, "dtype": str(cfg.dtype), "data": s["data"],
+          "rows": b, "prompt": p, "gen": s["gen"], "prefill_ms": prefill_ms,
+          "cross_cache_ms": cross_ms, "decode_ms_per_step": decode_ms,
+          "tokens_per_s_device": b * 1e3 / decode_ms,
+          "row_independent": True, "consistency": consistency,
+          "dtoh": dtoh, "peak_memory": torch.cuda.max_memory_allocated(),
+          "checks": "(a) row 0's ids unchanged with the other rows "
+                    "replaced; (b) decode logits vs the longer prefill "
+                    "within SERVE_REL_BOUND x max |logit|, greedy ids equal "
+                    "where the margin clears it, an empty-cache decode "
+                    "outside it; (c) ids < vocab; (d) one DtoH copy of "
+                    "rows x 4 bytes a decode step", "launches": launches})
+    return launches
 
 
 def phase_soak_train(torch):
@@ -3267,16 +3786,21 @@ def banded_call(torch, args, kwargs, calls):
     return out
 
 
-def train_merge_steps(phase: str, merge: str, scaled: bool) -> int:
-    """How many steps of train phase ``phase`` run ``merge`` (with the int8
-    wire's scales or without); the repeat's count."""
-    return TRAIN_PHASE_STEPS[phase] * sum(
-        1 for sync, m, wire in TRAIN_RUNS[phase]
-        if sync == "sparse" and m == merge
-        and (wire == "delta+int8ef") == scaled)
+def note_merge_steps(merge: str, wire: str, n: int) -> None:
+    """Count ``n`` sparse steps of the current phase that ran ``merge``
+    on ``wire`` (a train phase's syncs, a serve phase's dispatch)."""
+    key = (PHASE["name"], merge, wire == "delta+int8ef")
+    MERGE_STEPS[key] = MERGE_STEPS.get(key, 0) + n
 
 
-def train_scatter_shapes(torch, rec, name, banded, launches):
+def merge_steps(phase: str, merge: str, scaled: bool) -> int:
+    """The sparse steps of ``phase`` that ran ``merge`` (with the int8
+    wire's scales or without), its repeat included."""
+    return MERGE_STEPS.get((phase, merge, scaled), 0)
+
+
+def train_scatter_shapes(torch, rec, name, banded, launches,
+                         phases=TRAIN_PHASES):
     """A scatter kernel at every shape the train phases handed it (one per
     phase and butterfly layer; ``val`` [M, k * cap, w] float32 rows of the
     embedding gradient, w = 1,024, 1,536 or 2,048, or int8 + scale): bit for bit against its plain
@@ -3292,13 +3816,12 @@ def train_scatter_shapes(torch, rec, name, banded, launches):
                                                     onehot_scatter_add)
     fn = banded_onehot_scatter_add if banded else onehot_scatter_add
     scaled = name.endswith("_scaled")
-    keys = sorted((k for k in rec.args if k[0] in TRAIN_RUNS
+    keys = sorted((k for k in rec.args if k[0] in phases
                    and (k[1] == "scaled") == scaled),
                   key=lambda k: (ROW_PHASES.index(k[0]), k[-1][1]))
     out = []
     for key in keys:
-        n_steps = train_merge_steps(key[0], "banded" if banded else "fused",
-                                    scaled)
+        n_steps = merge_steps(key[0], "banded" if banded else "fused", scaled)
         args, kwargs = rec.args[key]
         pos, val, num_rows = args
         scale = kwargs.get("scale")
@@ -3350,7 +3873,7 @@ def banded_rows(torch, rec, launches, train_launches):
     for name, kinds in (("banded_onehot_scatter_add", ("f32", "bf16")),
                         ("banded_onehot_scatter_add_scaled", ("scaled",))):
         keys = sorted((k for k in rec.args if k[1] in kinds
-                       and k[0] not in TRAIN_RUNS),
+                       and k[0] not in TRAIN_PHASES),
                       key=lambda k: (ROW_PHASES.index(k[0]), k[2][1],
                                      kinds.index(k[1])))
         shapes = [dict(banded_call(torch, *rec.args[k], rec.calls[k]),
@@ -3531,11 +4054,13 @@ def rank_shapes(rec, kind):
     return [(rec.args[key][0][0], rec.calls[key], key[0]) for key in keys]
 
 
-def kernel_rows(torch, rec, launches, parts, train_launches):
+def kernel_rows(torch, rec, launches, parts, train_launches,
+                serve_launches):
     """Every kernel on its recorded main-path inputs vs its plain version,
     in the order of the TPU kernel table; ``train_launches`` are the train
     phases' own counts, summed (their shapes are checked on general
-    floats)."""
+    floats), and ``serve_launches`` the serve phases' (the dispatch's
+    tail unions: the dense scatters' ``serve`` entries)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.onehot_scatter import onehot_scatter_add
     scat = rec["scatter"].args
@@ -3543,9 +4068,9 @@ def kernel_rows(torch, rec, launches, parts, train_launches):
                      launches) for kind in ("dense", "banded")]
     for row, merge in zip(rows, ("fused", "banded")):
         for e in row["shapes"]:
-            if e["phase"] in TRAIN_RUNS:
-                n_steps = train_merge_steps(e["phase"], merge, False) \
-                    + train_merge_steps(e["phase"], merge, True)
+            n_steps = merge_steps(e["phase"], merge, False) \
+                + merge_steps(e["phase"], merge, True)
+            if n_steps:
                 e["launches_per_step"] = e["launches"] / n_steps
     args, kwargs = scat[("union", "f32")]
     row = scatter_row(torch, "onehot_scatter_add", onehot_scatter_add, args,
@@ -3586,6 +4111,9 @@ def kernel_rows(torch, rec, launches, parts, train_launches):
     row["train"] = train_scatter_shapes(torch, rec["scatter"],
                                         "onehot_scatter_add", False,
                                         train_launches)
+    row["serve"] = train_scatter_shapes(torch, rec["scatter"],
+                                        "onehot_scatter_add", False,
+                                        serve_launches, SERVE_PHASES)
     rows.append(row)
     args, kwargs = scat[("union_wire", "scaled")]
     row = scatter_row(torch, "onehot_scatter_add_scaled", onehot_scatter_add,
@@ -3595,6 +4123,9 @@ def kernel_rows(torch, rec, launches, parts, train_launches):
     row["train"] = train_scatter_shapes(torch, rec["scatter"],
                                         "onehot_scatter_add_scaled", False,
                                         train_launches)
+    row["serve"] = train_scatter_shapes(torch, rec["scatter"],
+                                        "onehot_scatter_add_scaled", False,
+                                        serve_launches, SERVE_PHASES)
     rows.append(row)
     rows.extend(banded_rows(torch, rec["banded"], launches, train_launches))
     csr_args = rec["spmv"].args[("pagerank", "first")][0]
@@ -3649,7 +4180,7 @@ def smoke(torch) -> int:
            "spmv": Recorder(engine, "spmv_csr",
                             lambda a, kw: (PHASE["name"], "first"))}
 
-    seconds = {}
+    seconds, parked = {}, {}
 
     def run(name, fn, *args):
         PHASE["name"] = name
@@ -3657,6 +4188,10 @@ def smoke(torch) -> int:
         t0 = time.perf_counter()
         out = fn(torch, *args)
         seconds[name] = time.perf_counter() - t0
+        # the phase's recorded inputs wait on the host until the rows
+        t0 = time.perf_counter()
+        moved = sum(r.move("cpu") for r in rec.values())
+        parked[name] = {"bytes": moved, "s": time.perf_counter() - t0}
         return out
 
     per_phase = {"planned": run("planned", phase_planned, parts),
@@ -3698,6 +4233,10 @@ def smoke(torch) -> int:
     per_phase["train_ssm"] = run("train_ssm", phase_train_ssm)
     per_phase["train_encdec"] = run("train_encdec", phase_train_encdec)
     per_phase["train_vlm"] = run("train_vlm", phase_train_vlm)
+    per_phase["serve"] = run("serve", phase_serve)
+    per_phase["serve_moe"] = run("serve_moe", phase_serve_moe)
+    per_phase["serve_ssm"] = run("serve_ssm", phase_serve_ssm)
+    per_phase["serve_encdec"] = run("serve_encdec", phase_serve_encdec)
     torch.cuda.synchronize()
     launches = {k: sum(p.get(k, 0) for p in per_phase.values())
                 for k in _build.LAUNCHES}
@@ -3721,14 +4260,21 @@ def smoke(torch) -> int:
 
     reserved = torch.cuda.memory_reserved()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    unparked = sum(r.move(DEVICE) for r in rec.values())
     emit({"phase": "kernels_start", "memory_allocated":
           torch.cuda.memory_allocated(), "memory_reserved_before": reserved,
-          "memory_reserved": torch.cuda.memory_reserved()})
+          "memory_reserved": torch.cuda.memory_reserved(),
+          "recorded_inputs": {"parked": parked, "back_bytes": unparked,
+                              "back_s": time.perf_counter() - t0}})
     train_launches = {k: sum(per_phase.get(p, {}).get(k, 0)
-                             for p in TRAIN_RUNS) for k in launches}
+                             for p in TRAIN_PHASES) for k in launches}
+    serve_launches = {k: sum(per_phase.get(p, {}).get(k, 0)
+                             for p in SERVE_PHASES) for k in launches}
     t0 = time.perf_counter()
     with fresh_profiler():
-        rows = kernel_rows(torch, rec, launches, parts, train_launches)
+        rows = kernel_rows(torch, rec, launches, parts, train_launches,
+                           serve_launches)
     emit({"phase": "profiler", "process": "fresh", "calls": FRESH["calls"],
           "traces": FRESH["traces"],
           "in_process_traces": PROFILER["traces"]})

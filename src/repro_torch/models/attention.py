@@ -28,7 +28,20 @@ tokens and more: the same projections and rotation, then each chunk of
 of the mask, built from the positions (never a [T, T] mask), with a full
 softmax row per chunk.  A chunk's float32 scores, not the sequence's,
 are alive at a time in the forward; the function is ``attn_train``'s.
-Decode is not ported yet (ROADMAP Queue 1 item 14).
+
+Serving: the prefill's ``return_kv=True`` returns the rotated keys and
+values in the cache's head layout (:func:`kv_global`), and
+``attn_decode`` is the reference's one-token step against a [..., S,
+KVg, hd] cache: rotate q and k at ``pos``, write k / v at ``pos`` (in
+place), score the query against every cache slot in the activation
+dtype under the mask ``slot <= pos`` (and the window), softmax in
+float32, then the weighted values and ``wo``.  The cache holds the
+reference's global kv heads at the mesh's tp: ``kv_local(tp) * tp`` of
+them, model position m's being block m (when ``n_kv < tp``, kv head ``(m
+* n_kv) // tp`` repeated per position, as the reference's
+``_localize_attn`` takes it).  The split-KV decode over a
+sequence-sharded cache and the 2D weight-stationary decode are the
+dry-run tooling's (ROADMAP Queue 1 item 15).
 """
 from __future__ import annotations
 
@@ -86,11 +99,7 @@ def _kv_tp(k: torch.Tensor, cfg: ModelConfig, tp: int) -> torch.Tensor:
     """kv heads [M, ..., S, KV, hd] as each position's [M, tp, ..., S,
     kv_local, hd]: split when ``n_kv >= tp``, else head ``(m * n_kv) //
     tp`` for position m (the reference's ``_localize_attn``)."""
-    if cfg.n_kv >= tp:
-        return _heads_tp(k, tp)
-    idx = torch.tensor([(m * cfg.n_kv) // tp for m in range(tp)],
-                       device=k.device)
-    return k.index_select(-2, idx).unsqueeze(-2).movedim(-3, 1)
+    return _heads_tp(kv_global(k, cfg, tp), tp)
 
 
 def _merge_pos(t: torch.Tensor) -> torch.Tensor:
@@ -176,22 +185,43 @@ def _rotated_qkv(p, x: torch.Tensor, cfg: ModelConfig,
             rope(k, positions, cfg.rope_theta), v)
 
 
+def kv_global(k: torch.Tensor, cfg: ModelConfig, tp: int) -> torch.Tensor:
+    """kv heads [..., S, KV, hd] in the cache's layout [..., S,
+    kv_local(tp) * tp, hd]: as they are when ``n_kv >= tp`` (the model
+    positions' blocks in order), else position m's head ``(m * n_kv) //
+    tp`` for each m."""
+    if cfg.n_kv >= tp:
+        return k
+    idx = torch.tensor([(m * cfg.n_kv) // tp for m in range(tp)],
+                       device=k.device)
+    return k.index_select(-2, idx)
+
+
+def _with_kv(y, k, v, cfg: ModelConfig, tp: int, return_kv: bool):
+    """``y``, or ``(y, (k, v))`` in the cache's layout."""
+    if not return_kv:
+        return y
+    return y, (kv_global(k, cfg, tp), kv_global(v, cfg, tp))
+
+
 def attn_train(p, x: torch.Tensor, cfg: ModelConfig, tp: int, window: int,
                positions: Optional[torch.Tensor] = None,
-               causal: bool = True) -> torch.Tensor:
+               causal: bool = True, return_kv: bool = False):
     """Full-sequence attention of x [B, T, d] (position-stacked: [M, B, T,
     d] with stacked weights); ``window`` 0 = full; ``positions`` [T] or
     broadcastable to the leading dims + [T].  At tp > 1 (position-stacked)
-    each model position's heads."""
+    each model position's heads.  ``return_kv``: also the rotated keys
+    and values, [..., T, KVg, hd] (:func:`kv_global`)."""
     t = x.shape[-2]
     q, k, v = _rotated_qkv(p, x, cfg, positions)
     mask = attn_mask(t, int(window), causal, device=x.device)
-    return linear(_heads_out(q, k, v, mask, cfg, tp), p["wo"])
+    return _with_kv(linear(_heads_out(q, k, v, mask, cfg, tp), p["wo"]),
+                    k, v, cfg, tp, return_kv)
 
 
 def attn_train_blocked(p, x: torch.Tensor, cfg: ModelConfig, tp: int,
                        window: int, positions: Optional[torch.Tensor] = None,
-                       causal: bool = True) -> torch.Tensor:
+                       causal: bool = True, return_kv: bool = False):
     """:func:`attn_train` in chunks of ``Q_CHUNK`` queries (the reference's
     query-chunked attention for long sequences): project and rotate as
     ``attn_train``, then score each chunk against the whole key sequence,
@@ -199,32 +229,64 @@ def attn_train_blocked(p, x: torch.Tensor, cfg: ModelConfig, tp: int,
     window mask (built from the positions), softmax each full row, attend,
     and lay the chunks end to end for one ``wo`` product.  T must be a
     multiple of ``Q_CHUNK``.  At tp > 1 each chunk takes each model
-    position's heads."""
+    position's heads.  ``return_kv`` as :func:`attn_train`'s."""
     t = x.shape[-2]
     if t % Q_CHUNK:
         raise ValueError(f"attn_train_blocked: sequence length {t} is not a "
                          f"multiple of Q_CHUNK={Q_CHUNK}")
-    q, k, v = _rotated_qkv(p, x, cfg, positions)
-    if tp > 1:
-        k, v = _kv_tp(k, cfg, tp), _kv_tp(v, cfg, tp)
+    q, k0, v0 = _rotated_qkv(p, x, cfg, positions)
+    k, v = (_kv_tp(k0, cfg, tp), _kv_tp(v0, cfg, tp)) if tp > 1 else (k0, v0)
     outs = []
     for lo in range(0, t, Q_CHUNK):
         rows = range(lo, lo + Q_CHUNK)
         mask = attn_mask(t, int(window), causal, device=x.device, rows=rows)
         outs.append(_heads_out(q[..., lo:lo + Q_CHUNK, :, :], k, v, mask,
                                cfg, tp))
-    return linear(torch.cat(outs, dim=-2), p["wo"])
+    return _with_kv(linear(torch.cat(outs, dim=-2), p["wo"]), k0, v0, cfg,
+                    tp, return_kv)
 
 
 def attn_train_any(p, x: torch.Tensor, cfg: ModelConfig, tp: int,
                    window: int, positions: Optional[torch.Tensor] = None,
-                   causal: bool = True) -> torch.Tensor:
+                   causal: bool = True, return_kv: bool = False):
     """The block forward's dispatch (the reference's ``_attn_any``):
     :func:`attn_train_blocked` for sequences of ``BLOCKED_ATTN_THRESHOLD``
     tokens and more, else :func:`attn_train`."""
     fn = attn_train_blocked if x.shape[-2] >= BLOCKED_ATTN_THRESHOLD \
         else attn_train
-    return fn(p, x, cfg, tp, window, positions=positions, causal=causal)
+    return fn(p, x, cfg, tp, window, positions=positions, causal=causal,
+              return_kv=return_kv)
+
+
+def attn_decode(p, x: torch.Tensor, cache_k: torch.Tensor,
+                cache_v: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig,
+                tp: int, window: int) -> torch.Tensor:
+    """One new token x [..., 1, d] against the cache [..., S, KVg, hd]
+    (``pos`` [...]: the token's position, the length written so far):
+    its rotated k / v are written at ``pos`` in place (one slot a row, an
+    ``index_put_`` of distinct rows), then the query attends to the slots
+    ``<= pos`` (within ``window`` when it is > 0).  Returns [..., 1, d].
+    At tp > 1 (position-stacked) each model position's heads against its
+    block of the cache's heads, then one ``wo`` product."""
+    s = cache_k.shape[-3]
+    q, k, v = _rotated_qkv(p, x, cfg, pos.unsqueeze(-1))
+    rows = torch.arange(pos.numel(), device=x.device)
+    flat = pos.reshape(-1)
+    kvg, hd = cache_k.shape[-2:]
+    ck, cv = cache_k.view(-1, s, kvg, hd), cache_v.view(-1, s, kvg, hd)
+    ck[rows, flat] = kv_global(k, cfg, tp).reshape(-1, kvg, hd).to(ck.dtype)
+    cv[rows, flat] = kv_global(v, cfg, tp).reshape(-1, kvg, hd).to(cv.dtype)
+    si = torch.arange(s, device=x.device)
+    w_eff = int(window) if window > 0 else s + 1
+    rel = pos.unsqueeze(-1) - si                       # [..., S]
+    mask = ((rel >= 0) & (rel < w_eff)).unsqueeze(-2)  # [..., 1, S]
+    kk, vv = cache_k.to(q.dtype), cache_v.to(q.dtype)
+    if tp > 1:
+        kk, vv = _heads_tp(kk, tp), _heads_tp(vv, tp)
+        mask = mask.unsqueeze(1).expand((mask.shape[0], tp)
+                                        + tuple(mask.shape[1:]))
+    mask = mask.reshape((-1,) + tuple(mask.shape[-2:]))
+    return linear(_heads_out(q, kk, vv, mask, cfg, tp), p["wo"])
 
 
 def cross_attn(p, x: torch.Tensor, enc_k: torch.Tensor, enc_v: torch.Tensor,

@@ -1,4 +1,4 @@
-"""SSM blocks, the training half: Mamba (jamba) and xLSTM's mLSTM / sLSTM (reference: ``repro.models.ssm``).
+"""SSM blocks: Mamba (jamba) and xLSTM's mLSTM / sLSTM, training and serving (reference: ``repro.models.ssm``).
 
 * Mamba's selective scan h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t runs
   in chunks of ``SCAN_CHUNK`` steps, as the reference's does: within a
@@ -22,9 +22,17 @@ function in one program: mamba's channels and the reference's ``psum``
 after ``out`` are one product over every channel, and sLSTM is
 replicated.  mLSTM computes the tp = 1 function too; the reference's
 does not (it splits ``wv``'s columns contiguously while its heads take
-``dk / tp`` each; ROADMAP Queue 3 lists it).  The decode halves
-(``*_decode``, ``*_init_state``) and ``return_state`` are for serving
-(ROADMAP Queue 1 item 14).
+``dk / tp`` each; ROADMAP Queue 3 lists it).
+
+Serving: ``return_state=True`` on a ``*_train`` hands the prompt's final
+state to the decode cache, and ``*_decode`` advances it one token; the
+state leaves are batch-major, as the reference's cache holds them --
+mamba ``{"h": [..., dil, n] float32, "conv": [..., K - 1, dil]}`` (the
+last K - 1 pre-conv inputs, in the model dtype), mLSTM ``{"S": [..., H,
+dk, dv], "N": [..., H, dk], "m": [..., H]}`` float32 (the prefill's
+``m`` is zeros, the reference's), sLSTM the tuple ``(c, n, h, m)`` of
+[..., H, dh] float32 -- where ``...`` is the activations' leading dims
+([B] or [M, B]).  ``*_init_state`` gives the zero state.
 """
 from __future__ import annotations
 
@@ -122,8 +130,10 @@ def _chunked_selective_scan(dt: torch.Tensor, xi: torch.Tensor,
 
 
 def mamba_train(p: Dict, x: torch.Tensor, cfg: ModelConfig,
-                tp: int = 1) -> torch.Tensor:
-    """Mamba block of x [B, T, d] (position-stacked [M, B, T, d])."""
+                tp: int = 1, return_state: bool = False):
+    """Mamba block of x [B, T, d] (position-stacked [M, B, T, d]); with
+    ``return_state``, ``(out, state)``: the scan's final ``h`` and the
+    last K - 1 pre-conv inputs as ``conv`` (the prefill's cache)."""
     xi_pre = linear(x, p["in_x"])                     # [..., T, dil]
     z = linear(x, p["in_z"])
     xi = F.silu(_causal_conv(xi_pre, p["conv"]))
@@ -131,10 +141,50 @@ def mamba_train(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     bm = linear(x, p["w_B"]).to(torch.float32)
     cm = linear(x, p["w_C"]).to(torch.float32)
     a_mat = _mat(-torch.exp(p["A_log"]), x)
-    ys, _ = _chunked_selective_scan(dt, xi.to(torch.float32), bm, cm, a_mat)
+    ys, h_fin = _chunked_selective_scan(dt, xi.to(torch.float32), bm, cm,
+                                        a_mat)
     y = ys.to(x.dtype) + xi * vec(p["D"], xi).to(x.dtype)
     y = y * F.silu(z)
-    return linear(y, p["out"])
+    out = linear(y, p["out"])
+    if not return_state:
+        return out
+    k = p["conv"].shape[-2]
+    return out, {"h": h_fin, "conv": xi_pre[..., x.shape[-2] - (k - 1):, :]}
+
+
+def mamba_decode(p: Dict, x: torch.Tensor, state: Dict, cfg: ModelConfig,
+                 tp: int = 1) -> Tuple[torch.Tensor, Dict]:
+    """One token x [..., 1, d] against ``state`` {"h": [..., dil, n],
+    "conv": [..., K - 1, dil]}: ``(out [..., 1, d], new state)``.  The
+    conv tap products are summed in float32 (the reference's einsum)."""
+    xi = linear(x, p["in_x"])[..., 0, :]              # [..., dil]
+    z = linear(x, p["in_z"])[..., 0, :]
+    hist = torch.cat([state["conv"], xi.unsqueeze(-2).to(
+        state["conv"].dtype)], dim=-2)                # [..., K, dil]
+    w = _mat(p["conv"], hist)
+    xi = F.silu(torch.sum(hist.to(torch.float32) * w.to(torch.float32),
+                          dim=-2).to(x.dtype))
+    dt = F.softplus(linear(x, p["w_dt"]).to(torch.float32))[..., 0, :]
+    bm = linear(x, p["w_B"]).to(torch.float32)[..., 0, :]
+    cm = linear(x, p["w_C"]).to(torch.float32)[..., 0, :]
+    a_mat = _mat(-torch.exp(p["A_log"]), hist)        # [(M, 1,) dil, n]
+    h = state["h"] * torch.exp(dt[..., None] * a_mat) \
+        + (dt * xi.to(torch.float32))[..., None] * bm[..., None, :]
+    y = torch.einsum("...cn,...n->...c", h, cm).to(x.dtype) \
+        + xi * vec(p["D"], xi).to(x.dtype)
+    y = y * F.silu(z)
+    return linear(y.unsqueeze(-2), p["out"]), {"h": h, "conv": hist[..., 1:, :]}
+
+
+def mamba_init_state(lead: Tuple[int, ...], cfg: ModelConfig, tp: int,
+                     dtype, device=None) -> Dict:
+    """The zero mamba state for leading dims ``lead`` ([B] or [M, B]) at
+    the global width (``mamba_inner(cfg, tp) * tp`` channels)."""
+    dil = mamba_inner(cfg, tp) * tp
+    return {"h": torch.zeros(tuple(lead) + (dil, cfg.ssm_state),
+                             dtype=torch.float32, device=device),
+            "conv": torch.zeros(tuple(lead) + (cfg.ssm_conv - 1, dil),
+                                dtype=dtype, device=device)}
 
 
 # ---------------------------------------------------------------------------
@@ -149,9 +199,10 @@ def mlstm_dims(cfg: ModelConfig, tp: int) -> Tuple[int, int, int]:
 
 
 def mlstm_train(p: Dict, x: torch.Tensor, cfg: ModelConfig,
-                tp: int = 1) -> torch.Tensor:
+                tp: int = 1, return_state: bool = False):
     """mLSTM block of x [B, T, d] (position-stacked [M, B, T, d]): the tp
-    = 1 function at any ``tp``."""
+    = 1 function at any ``tp``; with ``return_state``, ``(out, state)``,
+    the state after the last chunk with ``m`` zeros (the reference's)."""
     lead, t = x.shape[:-2], x.shape[-2]
     h, dk, dvl = mlstm_dims(cfg, 1)
     c = min(CHUNK, t)
@@ -207,7 +258,54 @@ def mlstm_train(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     nq = torch.sum((n_intra + n_inter) * qf, dim=-1)          # [b,nc,c,h]
     denom = torch.maximum(torch.abs(nq), torch.exp(-mstab))[..., None]
     y = (num / denom).reshape(lead + (t, h * dvl)).to(x.dtype)
-    return linear(y, p["out"])
+    out = linear(y, p["out"])
+    if not return_state:
+        return out
+    return out, {"S": s_st.reshape(lead + s_st.shape[1:]),
+                 "N": n_st.reshape(lead + n_st.shape[1:]),
+                 "m": torch.zeros(lead + (h,), dtype=f32, device=x.device)}
+
+
+def mlstm_decode(p: Dict, x: torch.Tensor, state: Dict, cfg: ModelConfig,
+                 tp: int = 1) -> Tuple[torch.Tensor, Dict]:
+    """One token x [..., 1, d] against ``state`` {"S", "N", "m"}: the
+    exponential-gated recurrent step, ``(out [..., 1, d], new state)``;
+    the tp = 1 function at any ``tp``."""
+    lead = x.shape[:-2]
+    h, dk, dv = mlstm_dims(cfg, 1)
+    f32 = torch.float32
+    q = linear(x, p["wq"])[..., 0, :].reshape(lead + (h, dk)).to(f32)
+    k = (linear(x, p["wk"])[..., 0, :].reshape(lead + (h, dk))
+         / torch.sqrt(torch.tensor(float(dk), dtype=f32)).to(x.dtype)
+         ).to(f32)
+    v = linear(x, p["wv"])[..., 0, :].reshape(lead + (h, dv)).to(f32)
+    x32 = x.to(f32)
+    lf = F.logsigmoid(linear(x32, p["wf"])[..., 0, :])       # [..., H]
+    li = linear(x32, p["wi"])[..., 0, :]
+    m_new = torch.maximum(state["m"] + lf, li)
+    sc_old = torch.exp(state["m"] + lf - m_new)
+    sc_in = torch.exp(li - m_new)
+    s_new = state["S"] * sc_old[..., None, None] \
+        + torch.einsum("...hd,...hv->...hdv", k, v) * sc_in[..., None, None]
+    n_new = state["N"] * sc_old[..., None] + k * sc_in[..., None]
+    num = torch.einsum("...hd,...hdv->...hv", q, s_new)
+    nq = torch.sum(n_new * q, dim=-1)
+    denom = torch.maximum(torch.abs(nq), torch.exp(-m_new))[..., None]
+    y = (num / denom).reshape(lead + (h * dv,)).to(x.dtype)
+    return (linear(y.unsqueeze(-2), p["out"]),
+            {"S": s_new, "N": n_new, "m": m_new})
+
+
+def mlstm_init_state(lead: Tuple[int, ...], cfg: ModelConfig, tp: int = 1,
+                     device=None) -> Dict:
+    """The zero mLSTM state for leading dims ``lead`` (the tp = 1 dims at
+    any tp: the reference's global [H, dk, dvl * tp])."""
+    h, dk, dv = mlstm_dims(cfg, 1)
+    z = dict(dtype=torch.float32, device=device)
+    lead = tuple(lead)
+    return {"S": torch.zeros(lead + (h, dk, dv), **z),
+            "N": torch.zeros(lead + (h, dk), **z),
+            "m": torch.zeros(lead + (h,), **z)}
 
 
 # ---------------------------------------------------------------------------
@@ -234,12 +332,10 @@ def _slstm_cell(zx_t: torch.Tensor, wr: torch.Tensor, state, dtype):
     return (c, n, hnew, m_new), hnew
 
 
-def slstm_train(p: Dict, x: torch.Tensor, cfg: ModelConfig,
-                tp: int = 1) -> torch.Tensor:
-    """sLSTM block of x [B, T, d] (position-stacked [M, B, T, d]): a loop
-    over the T steps, the state held head-major ([P, H, b, dh]) so a step
-    needs no transposes.  The bias joins the input projection before the
-    loop (the reference adds it after the recurrent term)."""
+def _slstm_inputs(p: Dict, x: torch.Tensor, cfg: ModelConfig):
+    """``(stacked, xs, zx [T, P, H, b, 4 dh], wr [P * H, dh, 4 dh])``:
+    the input projection of every step plus the bias, head-major, and one
+    copy of the (broadcast) recurrent weights a call."""
     stacked = p["wr"].ndim == 4
     xs = x if stacked else x.unsqueeze(0)
     pp, t, d = xs.shape[0], xs.shape[-2], xs.shape[-1]
@@ -248,21 +344,72 @@ def slstm_train(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     xb = xs.reshape(pp, -1, t, d)
     b = xb.shape[1]
     wx = p["wx"] if stacked else p["wx"].unsqueeze(0)
-    # one copy of the (broadcast) recurrent weights a call, viewed [P*H]
     wr = (p["wr"] if stacked else p["wr"].unsqueeze(0)).contiguous() \
         .reshape(pp * h_heads, dh, 4 * dh)
     bias = (p["bias"] if stacked else p["bias"].unsqueeze(0)).reshape(
         pp, 1, 1, h_heads, 4 * dh)
     zx = linear(xb, wx).to(torch.float32).reshape(pp, b, t, h_heads, 4 * dh)
     zx = (zx + bias).permute(2, 0, 3, 1, 4).contiguous()    # [T,P,H,b,4dh]
-    zeros = torch.zeros((pp, h_heads, b, dh), dtype=torch.float32,
-                        device=x.device)
-    state = (zeros, zeros, zeros, zeros)
-    hs = []
-    for step in range(t):
-        state, hnew = _slstm_cell(zx[step], wr, state, x.dtype)
-        hs.append(hnew)
-    y = torch.stack(hs, 3).permute(0, 2, 3, 1, 4)           # [P,b,T,H,dh]
-    y = y.reshape(xs.shape).to(x.dtype)
+    return stacked, xs, zx, wr
+
+
+def _slstm_out(p: Dict, hs: torch.Tensor, xs: torch.Tensor, stacked: bool,
+               dtype) -> torch.Tensor:
+    """The output projection of the steps' h [P, H, b, T, dh]."""
+    y = hs.permute(0, 2, 3, 1, 4).reshape(xs.shape).to(dtype)
     out = linear(y, p["out"] if stacked else p["out"].unsqueeze(0))
     return out if stacked else out[0]
+
+
+def _state_to_heads(state, pp: int):
+    """Batch-major (c, n, h, m), each [..., H, dh], as [P, H, b, dh]."""
+    return tuple(s.reshape((pp, -1) + tuple(s.shape[-2:])).transpose(1, 2)
+                 for s in state)
+
+
+def _state_from_heads(state, lead):
+    """[P, H, b, dh] states back to batch-major [*lead, H, dh]."""
+    return tuple(s.transpose(1, 2).reshape(tuple(lead) + tuple(s.shape[1:2])
+                                           + tuple(s.shape[-1:]))
+                 for s in state)
+
+
+def slstm_train(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+                tp: int = 1, return_state: bool = False):
+    """sLSTM block of x [B, T, d] (position-stacked [M, B, T, d]): a loop
+    over the T steps, the state held head-major ([P, H, b, dh]) so a step
+    needs no transposes.  The bias joins the input projection before the
+    loop (the reference adds it after the recurrent term).  With
+    ``return_state``, ``(out, (c, n, h, m))`` after the last step."""
+    stacked, xs, zx, wr = _slstm_inputs(p, x, cfg)
+    pp, b = zx.shape[1], zx.shape[3]
+    zeros = torch.zeros((pp, cfg.n_heads, b, zx.shape[-1] // 4),
+                        dtype=torch.float32, device=x.device)
+    state = (zeros, zeros, zeros, zeros)
+    hs = []
+    for step in range(zx.shape[0]):
+        state, hnew = _slstm_cell(zx[step], wr, state, x.dtype)
+        hs.append(hnew)
+    out = _slstm_out(p, torch.stack(hs, 3), xs, stacked, x.dtype)
+    if not return_state:
+        return out
+    return out, _state_from_heads(state, x.shape[:-2])
+
+
+def slstm_decode(p: Dict, x: torch.Tensor, state, cfg: ModelConfig,
+                 tp: int = 1):
+    """One token x [..., 1, d] against ``state`` (c, n, h, m), each [...,
+    H, dh]: one cell step, ``(out [..., 1, d], new state)``."""
+    stacked, xs, zx, wr = _slstm_inputs(p, x, cfg)
+    new, hnew = _slstm_cell(zx[0], wr, _state_to_heads(state, zx.shape[1]),
+                            x.dtype)
+    return (_slstm_out(p, hnew.unsqueeze(3), xs, stacked, x.dtype),
+            _state_from_heads(new, x.shape[:-2]))
+
+
+def slstm_init_state(lead: Tuple[int, ...], cfg: ModelConfig, device=None):
+    """The zero sLSTM state (c, n, h, m) for leading dims ``lead``."""
+    dh = cfg.d_model // cfg.n_heads
+    z = torch.zeros(tuple(lead) + (cfg.n_heads, dh), dtype=torch.float32,
+                    device=device)
+    return (z, z.clone(), z.clone(), z.clone())

@@ -41,11 +41,13 @@ at any tp.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
+from torch.utils.weak import WeakIdKeyDictionary
 
 from . import attention as A
 from . import moe as MOE
@@ -328,6 +330,25 @@ def _period_views(blocks: Params, n: int, dim=0):
             for i in range(n)]
 
 
+def _decoder_periods(params: Params, cfg: ModelConfig, ax: AxisCtx):
+    """``(blocks, cross)``: each decoder period's block tree (under FSDP
+    its FSDP leaves gathered, :func:`fsdp_gather`) and its cross
+    attention leaves (``None`` without an encoder), as per-period views
+    of the period-stacked leaves (position-stacked or not)."""
+    stacked = params["emb"].ndim == 3
+    held = fsdp_block_paths(cfg, ax.tp) if ax.fsdp_axes else frozenset()
+    period_dim = (lambda path: 0 if path in held else 1) if stacked else 0
+    views = _period_views(params["blocks"], cfg.n_periods, dim=period_dim)
+    if ax.fsdp_axes:
+        spec = period_spec(cfg, ax.tp)
+        views = [fsdp_gather(pp, spec, ax.fsdp_transport) for pp in views]
+    cross = [None] * cfg.n_periods
+    if cfg.enc_layers:
+        cross = _period_views(params["cross"], cfg.n_periods,
+                              dim=1 if stacked else 0)
+    return views, cross
+
+
 def encoder_fwd(params: Params, frames: torch.Tensor, cfg: ModelConfig,
                 ax: Optional[AxisCtx] = None) -> torch.Tensor:
     """The encoder over stub frame embeddings [B, S, d] (position-stacked:
@@ -391,17 +412,10 @@ def forward_loss(params: Params, tokens: torch.Tensor, labels: torch.Tensor,
     aux = torch.zeros((x.shape[:1] if stacked else ())
                       + ((ax.tp,) if ax.tp > 1 else ()), dtype=torch.float32,
                       device=x.device)
-    held = fsdp_block_paths(cfg, ax.tp) if ax.fsdp_axes else frozenset()
-    period_dim = (lambda path: 0 if path in held else 1) if stacked else 0
-    views = _period_views(params["blocks"], cfg.n_periods, dim=period_dim)
-    cross = [None] * cfg.n_periods
+    views, cross = _decoder_periods(params, cfg, ax)
     if cfg.enc_layers:
         enc_out = encoder_fwd(params, enc_frames.to(cfg.dtype), cfg, ax)
-        cross = _period_views(params["cross"], cfg.n_periods,
-                              dim=1 if stacked else 0)
     for pp, cp in zip(views, cross):
-        if ax.fsdp_axes:
-            pp = fsdp_gather(pp, period_spec(cfg, ax.tp), ax.fsdp_transport)
         if cp is None:
             x, a = _period_fwd(pp, x, cfg, ax, positions)
         else:
@@ -414,3 +428,219 @@ def forward_loss(params: Params, tokens: torch.Tensor, labels: torch.Tensor,
         else params["head"]
     loss = lm_head_loss(x, head, labels, mask)
     return loss, aux
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill / decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, b: int, max_seq: int, tp: int = 1,
+               device=None) -> Params:
+    """The zero decode cache of ``b`` batch rows, every leaf stacked over
+    the periods ([n_periods, b, ...]), at the reference's global shapes
+    for ``tp`` (its ``init_cache_global``): attention ``{"k", "v"}``
+    [n_periods, b, max_seq, kv_local(tp) * tp, hd] in the model dtype,
+    and each SSM block's state (``models.ssm``)."""
+    from repro_torch.core.transport import resolve_device
+    device = resolve_device(device)
+    npd, kvg = cfg.n_periods, cfg.kv_local(tp) * tp
+    lead = (npd, b)
+    per = {}
+    for j, blk in enumerate(cfg.pattern):
+        if blk == "attn":
+            shape = lead + (max_seq, kvg, cfg.hd)
+            per[f"b{j}"] = {
+                "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+        elif blk == "mamba":
+            per[f"b{j}"] = SSM.mamba_init_state(lead, cfg, tp, cfg.dtype,
+                                                device)
+        elif blk == "mlstm":
+            per[f"b{j}"] = SSM.mlstm_init_state(lead, cfg, tp, device)
+        elif blk == "slstm":
+            per[f"b{j}"] = SSM.slstm_init_state(lead, cfg, device)
+    return per
+
+
+def cache_leaves(cache):
+    """``[(path, leaf)]`` of a cache tree (the sLSTM state a tuple)."""
+    out = []
+    for key in sorted(cache):
+        c = cache[key]
+        if isinstance(c, tuple):
+            out.extend(((key, str(i)), t) for i, t in enumerate(c))
+        else:
+            out.extend(((key, k), c[k]) for k in sorted(c))
+    return out
+
+
+def _period_slot(leaf: torch.Tensor, i: int, lead) -> torch.Tensor:
+    """Period ``i`` of a cache leaf [n_periods, B, ...] as a view with
+    the batch dim split as ``lead`` ([B] or [M, B / M])."""
+    return leaf[i].view(tuple(lead) + tuple(leaf.shape[2:]))
+
+
+def head_f32(params: Params, cfg: ModelConfig) -> torch.Tensor:
+    """The float32 head [d, V_pad] of held-once parameters (tied:
+    ``emb.T``), for :func:`forward_prefill` / :func:`forward_decode`'s
+    ``head32``.  The cast is kept per head tensor and redone only when the
+    tensor is modified in place, so every step serving one parameter set
+    shares one copy; it goes when the head tensor does (a float32 head is
+    used as it is)."""
+    src = params["emb"] if cfg.tie_embeddings else params["head"]
+    head = src.transpose(0, 1) if cfg.tie_embeddings else src
+    if head.dtype == torch.float32:
+        return head
+    hit = _HEAD32.get(src)
+    if hit is None or hit[0] != src._version:
+        with torch.no_grad():
+            hit = (src._version, head.to(torch.float32))
+        _HEAD32[src] = hit
+    return hit[1]
+
+
+# head tensor -> (its version when cast, float32 head)
+_HEAD32 = WeakIdKeyDictionary()
+
+
+def _ffn_out(e: Params, x: torch.Tensor, cfg: ModelConfig,
+             ax: AxisCtx) -> torch.Tensor:
+    """The FFN sub-block's residual add (dense, MoE or both)."""
+    h2 = rmsnorm(x, e["ln2"], cfg.norm_eps)
+    y2 = ffn_fwd(e["ffn"], h2, cfg) if "ffn" in e else None
+    if "moe" in e:
+        ym, _, _ = MOE.moe_ffn(e["moe"], h2, cfg, ax.tp,
+                               capacity_factor=cfg.moe_capacity,
+                               model=ax.model)
+        y2 = ym if y2 is None else y2 + ym
+    return x + y2
+
+
+@torch.no_grad()
+def forward_prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+                    ax: Optional[AxisCtx] = None, max_seq: int = 0,
+                    enc_frames=None, extra_embeds=None, *,
+                    head32: torch.Tensor):
+    """The prompt forward (the reference's ``forward_prefill``): tokens
+    [B, T] (position-stacked: [M, B / M, T] with stacked parameters, as
+    :func:`forward_loss` takes them) -> ``(logits, cache)``: the last
+    position's float32 logits [..., V_pad] and the cache of the B rows
+    (:func:`init_cache` at ``max_seq``, the prompt's keys and values in
+    slots [0, T), each SSM block's final state).  ``extra_embeds`` (VLM)
+    come before the tokens, so T counts them; ``enc_frames``
+    (encoder-decoder) feed each period's cross attention; ``head32`` is
+    the float32 head (:func:`head_f32`).  No gradient is kept."""
+    ax = ax or AxisCtx()
+    check_ported(cfg, ax.tp)
+    x = embed(params["emb"], tokens).to(cfg.dtype)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(cfg.dtype), x], dim=-2)
+    lead, t = x.shape[:-2], x.shape[-2]
+    if max_seq < t:
+        raise ValueError(f"max_seq {max_seq} < prompt length {t}")
+    positions = torch.arange(t, dtype=torch.int64, device=x.device)
+    cache = init_cache(cfg, math.prod(lead), max_seq, ax.tp, x.device)
+    views, cross = _decoder_periods(params, cfg, ax)
+    if cfg.enc_layers:
+        enc_out = encoder_fwd(params, enc_frames.to(cfg.dtype), cfg, ax)
+    for i, (pp, cp) in enumerate(zip(views, cross)):
+        for j, (blk, ffn) in enumerate(zip(cfg.pattern, cfg.ffn_pattern)):
+            e, c = pp[f"b{j}"], cache[f"b{j}"]
+            h = rmsnorm(x, e["ln1"], cfg.norm_eps)
+            w = cfg.window_pattern[j] if cfg.window_pattern else cfg.window
+            if blk == "attn":
+                y, (k, v) = A.attn_train_any(e[blk], h, cfg, ax.tp, w,
+                                             positions=positions,
+                                             return_kv=True)
+                _period_slot(c["k"], i, lead)[..., :t, :, :] = k
+                _period_slot(c["v"], i, lead)[..., :t, :, :] = v
+            else:
+                y, st = getattr(SSM, f"{blk}_train")(e[blk], h, cfg, ax.tp,
+                                                     return_state=True)
+                items = zip(c, st) if blk == "slstm" else \
+                    ((c[k], st[k]) for k in c)
+                for leaf, val in items:
+                    _period_slot(leaf, i, lead).copy_(val)
+            x = x + y
+            if cp is not None and blk == "attn":
+                ck, cv = A.encode_kv(cp, enc_out, cfg, ax.tp)
+                x = _cross_block(cp, params["ln_cross"], ck, cv, x, cfg,
+                                 ax.tp)
+            if ffn != "none":
+                x = _ffn_out(e, x, cfg, ax)
+    x = rmsnorm(x[..., -1, :], params["final_ln"], cfg.norm_eps)
+    return torch.matmul(x.to(torch.float32), head32), cache
+
+
+@torch.no_grad()
+def forward_decode(params: Params, token: torch.Tensor, pos: torch.Tensor,
+                   cache: Params, cfg: ModelConfig,
+                   ax: Optional[AxisCtx] = None, cross_cache=None, *,
+                   head32: torch.Tensor):
+    """One decode step (the reference's ``forward_decode`` with a
+    batch-sharded cache): token ids and positions [B] (position-stacked:
+    [M, B / M]) -> ``(logits [..., V_pad] float32, cache)``.  The cache
+    is updated in place (each attention block's k / v written at ``pos``,
+    each SSM state replaced) and returned.  ``cross_cache`` (the
+    encoder-decoder's ``(k, v)``, :func:`build_cross_cache`) feeds the
+    cross attention; ``head32`` is the float32 head (:func:`head_f32`).
+    Under FSDP each period's leaves are gathered as in training.  No
+    gradient is kept."""
+    ax = ax or AxisCtx()
+    check_ported(cfg, ax.tp)
+    x = embed(params["emb"], token.unsqueeze(-1)).to(cfg.dtype)
+    lead = x.shape[:-2]
+    views, cross = _decoder_periods(params, cfg, ax)
+    for i, (pp, cp) in enumerate(zip(views, cross)):
+        for j, (blk, ffn) in enumerate(zip(cfg.pattern, cfg.ffn_pattern)):
+            e, c = pp[f"b{j}"], cache[f"b{j}"]
+            h = rmsnorm(x, e["ln1"], cfg.norm_eps)
+            w = cfg.window_pattern[j] if cfg.window_pattern else cfg.window
+            if blk == "attn":
+                y = A.attn_decode(e[blk], h, _period_slot(c["k"], i, lead),
+                                  _period_slot(c["v"], i, lead), pos, cfg,
+                                  ax.tp, w)
+            elif blk == "slstm":
+                y, st = SSM.slstm_decode(
+                    e[blk], h, tuple(_period_slot(leaf, i, lead)
+                                     for leaf in c), cfg, ax.tp)
+                for leaf, val in zip(c, st):
+                    _period_slot(leaf, i, lead).copy_(val)
+            else:
+                views_i = {k: _period_slot(c[k], i, lead) for k in c}
+                y, st = getattr(SSM, f"{blk}_decode")(e[blk], h, views_i,
+                                                      cfg, ax.tp)
+                for k in c:
+                    views_i[k].copy_(st[k])
+            x = x + y
+            if cp is not None and blk == "attn":
+                ck, cv = (_period_slot(t, i, lead) for t in cross_cache)
+                if ax.tp > 1:
+                    ck, cv = A._heads_tp(ck, ax.tp), A._heads_tp(cv, ax.tp)
+                x = _cross_block(cp, params["ln_cross"], ck, cv, x, cfg,
+                                 ax.tp)
+            if ffn != "none":
+                x = _ffn_out(e, x, cfg, ax)
+    x = rmsnorm(x[..., 0, :], params["final_ln"], cfg.norm_eps)
+    return torch.matmul(x.to(torch.float32), head32), cache
+
+
+@torch.no_grad()
+def build_cross_cache(params: Params, enc_frames: torch.Tensor,
+                      cfg: ModelConfig, ax: Optional[AxisCtx] = None):
+    """The encoder-decoder's cross cache: the encoder forward of the
+    frames [B, S, d] (position-stacked [M, B / M, S, d]), then each
+    period's cross-attention keys and values, ``(k, v)`` each
+    [n_periods, B, S, kv_local(tp) * tp, hd] (the cache's head layout)."""
+    ax = ax or AxisCtx()
+    enc_out = encoder_fwd(params, enc_frames.to(cfg.dtype), cfg, ax)
+    _, cross = _decoder_periods(params, cfg, ax)
+    ks, vs = [], []
+    for cp in cross:
+        k, v = A.encode_kv(cp, enc_out, cfg, 1)
+        ks.append(A.kv_global(k, cfg, ax.tp))
+        vs.append(A.kv_global(v, cfg, ax.tp))
+    b = math.prod(enc_out.shape[:-2])
+    return tuple(torch.stack(t).reshape((cfg.n_periods, b)
+                                        + tuple(t[0].shape[-3:]))
+                 for t in (ks, vs))

@@ -75,6 +75,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -924,4 +925,148 @@ def make_train_step(cfg: ModelConfig, mc: MeshCtx, *, sync: str = "ring",
         return new_params, new_opt, metrics
 
     specs = {"params": full_model_spec_tuples(cfg, mc.tp)}
+    return step, specs
+
+
+# ---------------------------------------------------------------------------
+# Serving steps (prefill, decode, greedy)
+# ---------------------------------------------------------------------------
+
+def init_cache_global(cfg: ModelConfig, mc: MeshCtx, b: int, max_seq: int,
+                      seq_sharded: bool = False):
+    """The decode cache of ``b`` rows at the reference's global shapes
+    (``models.transformer.init_cache``), on the mesh's device; row r
+    belongs to data position r // (b / M), as the reference's ``P(dp)``
+    shards it.  ``seq_sharded`` is the split-KV layout of the dry-run
+    tooling (ROADMAP Queue 1 item 15) and raises."""
+    _check_serve_layout(seq_sharded, False)
+    return T.init_cache(cfg, b, max_seq, mc.tp, mc.device)
+
+
+def _check_serve_layout(seq_sharded: bool, serve2d: bool) -> None:
+    """The decode layouts only the dry-run tooling reaches raise."""
+    if seq_sharded or serve2d:
+        raise NotImplementedError(
+            "split-KV decode over a sequence-sharded cache (seq_sharded) "
+            "and 2D weight-stationary decode (serve2d) are the dry-run "
+            "tooling's, not ported yet (ROADMAP Queue 1 item 15)")
+
+
+def serving_tree(params, cfg: ModelConfig, mc: MeshCtx):
+    """The held-once parameters as the serving forwards take them on the
+    mesh: each leaf a broadcast [M, ...] view, an FSDP block leaf held
+    once (gathered per period)."""
+    held = fsdp_block_paths(cfg)
+    return T.tree_from_leaves(params, [
+        (p, t if p[0] == "blocks" and p[1:] in held else
+         t.unsqueeze(0).expand((mc.dp,) + tuple(t.shape)))
+        for p, t in T.tree_leaves(params)])
+
+
+def _serving_params(cfg: ModelConfig, mc: MeshCtx):
+    """``view(params) -> (tree, head32)``: :func:`serving_tree` of the last
+    parameter set passed (rebuilt when another set comes or its head
+    tensor is replaced) and its float32 head, ``T.head_f32`` (one cast
+    shared by every step serving that set)."""
+    memo = {}
+
+    def view(params):
+        head = params["emb"] if cfg.tie_embeddings else params["head"]
+        key = (id(params), id(head))
+        if memo.get("key") != key:
+            memo.clear()
+            memo.update(key=key, params=params,
+                        tree=serving_tree(params, cfg, mc))
+        return memo["tree"], T.head_f32(params, cfg)
+    return view
+
+
+def _greedy_ids(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Greedy ids of float logits [..., V_pad]: the padded columns
+    (``vocab <= j < V_pad``; exactly zero under tied embeddings, which
+    can beat all-negative real logits) are set to ``-inf`` before the
+    argmax (the first maximum on ties).  int32 [...]."""
+    cols = torch.arange(logits.shape[-1], device=logits.device)
+    masked = logits.to(torch.float32).masked_fill(cols >= vocab, -math.inf)
+    return torch.argmax(masked, dim=-1).to(torch.int32)
+
+
+def _serve_batch(batch, mc: MeshCtx):
+    """A serving batch's tokens and extras as [M, B / M, ...] rows."""
+    tokens = _stack_tokens(batch["tokens"], mc)
+    extras = {k: _stack_tokens(batch[k], mc, dtype=None)
+              for k in EXTRA_KEYS if batch.get(k) is not None}
+    return tokens, extras
+
+
+def make_prefill_step(cfg: ModelConfig, mc: MeshCtx, max_seq: int):
+    """``(step, specs)``: ``step(params, batch) -> (logits [B, V_pad]
+    float32, cache)``, the prompt forward of ``batch["tokens"]`` [B, T]
+    (and a VLM's ``img_embeds`` / an encoder-decoder's ``enc_frames``)
+    with B split over the M data positions in contiguous blocks;
+    ``params`` are the held-once global leaves, as the train step takes
+    them.  The cache is :func:`init_cache_global`'s at ``max_seq``."""
+    check_ported(cfg, mc.tp)
+    ax = mc.axis_ctx(cfg)
+    view = _serving_params(cfg, mc)
+
+    def step(params, batch):
+        tree, head32 = view(params)
+        tokens, extras = _serve_batch(batch, mc)
+        logits, cache = T.forward_prefill(
+            tree, tokens, cfg, ax, max_seq,
+            enc_frames=extras.get("enc_frames"),
+            extra_embeds=extras.get("img_embeds"), head32=head32)
+        return logits.reshape(-1, logits.shape[-1]), cache
+    return step, {"params": full_model_spec_tuples(cfg, mc.tp)}
+
+
+def make_decode_step(cfg: ModelConfig, mc: MeshCtx, *,
+                     seq_sharded: bool = False, seq_shards: int = 1,
+                     serve2d: bool = False):
+    """``(step, specs)``: ``step(params, token, pos, cache[, cross_cache])
+    -> (logits [B, V_pad] float32, cache)``, one decode step of B rows
+    (ids and positions [B], numpy or tensors) split over the M data
+    positions in contiguous blocks; the cache is updated in place and
+    returned.  ``seq_sharded`` / ``serve2d`` raise (ROADMAP Queue 1 item
+    15)."""
+    _check_serve_layout(seq_sharded, serve2d)
+    check_ported(cfg, mc.tp)
+    ax = mc.axis_ctx(cfg)
+    view = _serving_params(cfg, mc)
+
+    def step(params, token, pos, cache, *cross):
+        tree, head32 = view(params)
+        logits, cache = T.forward_decode(
+            tree, _stack_tokens(token, mc), _stack_tokens(pos, mc), cache,
+            cfg, ax, cross_cache=cross[0] if cross else None, head32=head32)
+        return logits.reshape(-1, logits.shape[-1]), cache
+    return step, {"params": full_model_spec_tuples(cfg, mc.tp)}
+
+
+def make_prefill_greedy_step(cfg: ModelConfig, mc: MeshCtx, max_seq: int):
+    """:func:`make_prefill_step` with :func:`_greedy_ids` fused: ``step(
+    params, batch) -> (ids int32 [B], cache)``, ids on the device (the
+    vocab-sized logits never leave it)."""
+    prefill, specs = make_prefill_step(cfg, mc, max_seq)
+
+    def step(params, batch):
+        logits, cache = prefill(params, batch)
+        return _greedy_ids(logits, cfg.vocab), cache
+    return step, specs
+
+
+def make_decode_greedy_step(cfg: ModelConfig, mc: MeshCtx, *,
+                            seq_sharded: bool = False, seq_shards: int = 1,
+                            serve2d: bool = False):
+    """:func:`make_decode_step` with :func:`_greedy_ids` fused: ``step(
+    params, token, pos, cache[, cross_cache]) -> (ids int32 [B], cache)``,
+    the continuous-batching scheduler's step; its one output a caller
+    reads on the host is the ids."""
+    decode, specs = make_decode_step(cfg, mc, seq_sharded=seq_sharded,
+                                     seq_shards=seq_shards, serve2d=serve2d)
+
+    def step(params, token, pos, cache, *cross):
+        logits, cache = decode(params, token, pos, cache, *cross)
+        return _greedy_ids(logits, cfg.vocab), cache
     return step, specs

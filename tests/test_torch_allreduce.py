@@ -34,6 +34,10 @@ from repro_torch.core.sparse_vec import HashPerm
 from repro_torch.core.topology import ButterflyPlan
 from repro_torch.core.transport import StackedTransport
 
+# one intra-op thread a test process: pytest-xdist runs several workers
+# at once, and their OpenMP threads would oversubscribe the cores
+torch.set_num_threads(1)
+
 M, C, R = 8, 64, 4096
 UNION_DEGREES = [(4, 2), (2, 2, 2), (8,), (2, 4)]
 PLANNED_DEGREES = [(4, 2), (8,)]

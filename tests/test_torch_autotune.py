@@ -35,6 +35,10 @@ from repro_torch.core.netmodel import EC2_2013, Fabric
 from repro_torch.core.topology import ButterflyPlan
 from repro_torch.kernels import costmodel as cost
 
+# one intra-op thread a test process: pytest-xdist runs several workers
+# at once, and their OpenMP threads would oversubscribe the cores
+torch.set_num_threads(1)
+
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 GT = dict(name="gt", beta_bytes_per_s=2e8, alpha_s=5e-3, gamma_s=2e-4)
 

@@ -38,6 +38,10 @@ from repro_torch.kernels.onehot_scatter import (band_inner_tiles,
 from repro_torch.kernels.rank_merge import (merge_ranks, rank_counts,
                                             rank_tile_stats)
 
+# one intra-op thread a test process: pytest-xdist runs several workers
+# at once, and their OpenMP threads would oversubscribe the cores
+torch.set_num_threads(1)
+
 SENT = 0xFFFFFFFF
 
 

@@ -24,6 +24,10 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.onehot_scatter import BANDED_ROWS, banded_windows
 
+# one intra-op thread a test process: pytest-xdist runs several workers
+# at once, and their OpenMP threads would oversubscribe the cores
+torch.set_num_threads(1)
+
 CASES = ("random", "leading", "empty_tiles", "parked", "dense")
 
 

@@ -30,6 +30,10 @@ from repro_torch.configs import get_config
 from repro_torch.models import attention as A
 from repro_torch.models import transformer as T
 
+# one intra-op thread a test process: pytest-xdist runs several workers
+# at once, and their OpenMP threads would oversubscribe the cores
+torch.set_num_threads(1)
+
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 SEQ, WINDOW = 2048, 300
 CASES = {"causal": (1, 0), "window": (1, WINDOW), "tp2": (2, 0)}

@@ -28,6 +28,10 @@ from repro_torch.graph.pagerank import (LazyTables, build_partitions,
 from repro_torch.kernels.spmv_csr import (CSR_BIN_NNZ, CSR_BIN_ROWS,
                                           CSR_LONG, csr_bins, spmv_csr)
 
+# one intra-op thread a test process: pytest-xdist runs several workers
+# at once, and their OpenMP threads would oversubscribe the cores
+torch.set_num_threads(1)
+
 
 def _coo(rng, n_rows, n_cols, nnz, hub=0, dyadic=False):
     """COO triplets with rows clustered low (rows >= n_rows // 2 empty but

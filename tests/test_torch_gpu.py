@@ -30,7 +30,11 @@ spectral), the kernels a profiler trace of n replays holds are n times
 those its capture enqueued, and a replay calls no kernel wrapper;
 the bucketed sync and the pod mesh equal their plain counterparts bit
 for bit on the card; the query-chunked attention at T = 8,192 is within
-bfloat16 rounding of the unchunked one.
+bfloat16 rounding of the unchunked one.  Serving: continuous batching
+equals the sequential oracle on the card (dense, tp = 2, MoE at 2 x 2,
+xLSTM, jamba), the prefill and decode steps equal their CPU run within
+rtol 1e-4 and repeat bit for bit, the dispatch's tail unions launch the
+merge kernels, and the serve launcher takes the card by default.
 """
 import json
 import os
@@ -50,6 +54,10 @@ from repro_torch.kernels.onehot_scatter import (BANDED_ROWS,
 from repro_torch.kernels.rank_merge import merge_ranks, rank_counts
 from repro_torch.kernels.spmv_csr import spmv_csr
 from repro_torch.kernels.spmv_ell import spmv_ell
+
+# one intra-op thread a test process: pytest-xdist runs several workers
+# at once, and their OpenMP threads would oversubscribe the cores
+torch.set_num_threads(1)
 
 SENT = 0xFFFFFFFF
 
@@ -1227,3 +1235,150 @@ def test_blocked_attention_at_8192_on_gpu(cuda):
     gap = float((got.float() - want.float()).abs().max())
     assert gap <= 2.0 ** -7 * float(want.float().abs().max()), gap
     assert torch.isfinite(gx).all()
+
+
+def _serve_case(arch, device, data, tp, slots, dispatch=None):
+    """Reduced ``arch`` (seed-0 weights drawn on the CPU, copied over)
+    served on ``device`` at (data, tp) with ``slots`` slots: the batched
+    ids and the sequential oracle's of one Zipf stream."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import (ContinuousBatchingScheduler,
+                                   DecodeService, zipf_request_stream)
+    from repro_torch.serve.dispatch import SparseServeDispatch
+    from repro_torch.serve.service import run_sequential_oracle
+    from repro_torch.train.step import mesh_ctx
+    cfg = get_config(arch).reduced()
+    params = T.init_params(cfg, tp, seed=0, device="cpu")
+    params = T.tree_from_leaves(params, [(p, t.to(device)) for p, t
+                                         in T.tree_leaves(params)])
+    mc = mesh_ctx(data, tp, device=device)
+
+    def stream():
+        return zipf_request_stream(7, cfg.vocab, prompt_lens=(8, 16),
+                                   max_new=(1, 6), arrival_rate=0.7, seed=3)
+    disp = None
+    if dispatch is not None:
+        disp = SparseServeDispatch(data, vocab=cfg.vocab, merge=dispatch[0],
+                                   wire=dispatch[1], seed=5, device=device)
+        disp.fit_hot_set(np.concatenate([r.prompt for r in stream()]),
+                         head_size=8)
+    sched = ContinuousBatchingScheduler(cfg, mc, params, slots=slots,
+                                        max_seq=24, dispatch=disp)
+    reqs = stream()
+    report = DecodeService(sched).run(reqs)
+    batched = [list(r.tokens) for r in sorted(report.completed,
+                                              key=lambda r: r.rid)]
+    sched.reset()
+    sched.dispatch = None
+    return cfg, batched, run_sequential_oracle(sched, stream()), disp
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,data,tp,slots", [
+    ("qwen1.5-0.5b", 2, 1, 4), ("qwen1.5-0.5b", 2, 2, 8),
+    ("granite-moe-3b-a800m", 2, 2, 4), ("xlstm-1.3b", 2, 1, 4),
+    ("jamba-1.5-large-398b", 1, 1, 2)])
+def test_continuous_batching_equals_oracle_on_gpu(cuda, arch, data, tp,
+                                                  slots):
+    """Reduced float32 models served on the card: continuous batching
+    returns the sequential oracle's ids token for token (the decode rows
+    independent of the other slots on the card too), every id below the
+    vocab."""
+    cfg, batched, oracle, _ = _serve_case(arch, cuda, data, tp, slots)
+    assert batched == oracle
+    assert all(0 <= t < cfg.vocab for ids in batched for t in ids)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "granite-moe-3b-a800m",
+                                  "xlstm-1.3b", "jamba-1.5-large-398b",
+                                  "whisper-base"])
+def test_serving_steps_on_gpu_equal_cpu(cuda, arch):
+    """The prefill and three decode steps of a reduced float32 model on
+    the card against the same steps on the CPU: logits and every cache
+    leaf within rtol 1e-4 + 1e-5 x max (float32 sums in another order),
+    with an SSM block + 1e-4 x max (``tests/test_torch_serve.py``'s SSM
+    bound: the stack amplifies the rounding; xlstm's logits part by 5.5e-5
+    x max); a second card run bit-identical."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import _cross_cache
+    from repro_torch.models import transformer as T
+    from repro_torch.train.step import (make_decode_step, make_prefill_step,
+                                        mesh_ctx)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config(arch).reduced()
+    host = T.init_params(cfg, 1, seed=0, device="cpu")
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, cfg.vocab, (2, 19)).astype(np.int32)
+    batch = {"tokens": toks[:, :16]}
+    if cfg.enc_layers:
+        batch["enc_frames"] = rng.randn(2, cfg.enc_seq,
+                                        cfg.d_model).astype(np.float32)
+    runs = []
+    for dev in ("cpu", cuda, cuda):
+        params = T.tree_from_leaves(host, [(p, t.to(dev)) for p, t
+                                           in T.tree_leaves(host)])
+        mc = mesh_ctx(2, device=dev)
+        pre, _ = make_prefill_step(cfg, mc, 24)
+        dec, _ = make_decode_step(cfg, mc)
+        cross = () if not cfg.enc_layers else (
+            _cross_cache(cfg, mc, params, batch["enc_frames"]),)
+        logits, cache = pre(params, batch)
+        # copies: the decode steps write the cache in place
+        out = [logits.cpu()] + [t.to("cpu", copy=True)
+                                for _, t in T.cache_leaves(cache)]
+        for i in range(3):
+            logits, cache = dec(params, toks[:, 16 + i], np.full(2, 16 + i),
+                                cache, *cross)
+            out.append(logits.cpu())
+        runs.append(out)
+    want, got, again = runs
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    atol = 1e-4 if any(b != "attn" for b in cfg.pattern) else 1e-5
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=atol * float(b.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("merge,wire", [("fused", "raw"), ("banded", "raw"),
+                                        ("fused", "delta+int8ef"),
+                                        ("banded", "delta+int8ef")])
+def test_serve_dispatch_kernels_on_gpu(cuda, merge, wire):
+    """The sparse dispatch over 2 data positions on the card: its tail
+    unions launch the merge-rank and scatter kernels of ``merge`` /
+    ``wire``, the ids equal the run without dispatch, and each step's
+    head + tail counts equal the bincount of the shards' ids."""
+    from repro_torch.kernels import _build
+    _build.reset_launches()
+    cfg, batched, oracle, disp = _serve_case("qwen1.5-0.5b", cuda, 2, 1, 4,
+                                             (merge, wire))
+    assert batched == oracle and disp.steps > 0
+    rank = "rank_counts" if merge == "fused" else "rank_counts_banded"
+    scatter = ("onehot_scatter_add" if merge == "fused"
+               else "banded_onehot_scatter_add") \
+        + ("_scaled" if wire == "delta+int8ef" else "")
+    assert _build.LAUNCHES[rank] >= disp.steps
+    assert _build.LAUNCHES[scatter] >= disp.steps
+    ex = disp.last
+    assert ex.overflow == 0 and float(ex.head_counts.sum()
+                                      + ex.tail_counts.sum()) > 0
+
+
+@pytest.mark.gpu
+def test_serve_launcher_takes_the_card_by_default(cuda, tmp_path,
+                                                  monkeypatch):
+    """``python -m repro_torch.launch.serve`` without ``--device`` serves
+    on the current CUDA device (reduced qwen with the dispatch, and
+    whisper's fixed batch)."""
+    from repro_torch.launch import serve as launch_serve
+    monkeypatch.setenv("REPRO_PLAN_CACHE", str(tmp_path / "plans"))
+    gen = launch_serve.main(["--arch", "qwen1.5-0.5b", "--reduced",
+                             "--requests", "4", "--prompt-len", "8",
+                             "--gen", "4", "--sparse-dispatch",
+                             "--data-axis", "2"])
+    assert gen.shape == (4, 4) and int(gen.max()) < 512
+    gen = launch_serve.main(["--arch", "whisper-base", "--reduced",
+                             "--gen", "4"])
+    assert gen.shape == (4, 4)

@@ -28,6 +28,10 @@ from repro_torch.graph.pagerank import (assemble_pagerank_scores,
                                         make_pagerank_engine, pagerank,
                                         pagerank_dense_reference)
 
+# one intra-op thread a test process: pytest-xdist runs several workers
+# at once, and their OpenMP threads would oversubscribe the cores
+torch.set_num_threads(1)
+
 N, E = 500, 3000
 CONFIGS = [(8, (4, 2), False), (4, (2, 2), True), (8, (2, 2, 2), False)]
 _ENV = dict(os.environ,

@@ -33,6 +33,10 @@ from repro_torch.graph import hadi as thadi
 from repro_torch.graph import spectral as tspec
 from repro_torch.graph.engine import build_csr, csr_matvec_wide, stack_csr
 
+# one intra-op thread a test process: pytest-xdist runs several workers
+# at once, and their OpenMP threads would oversubscribe the cores
+torch.set_num_threads(1)
+
 N, E = 500, 3000
 CONFIGS = [(4, (4,)), (8, (4, 2))]
 SPECTRAL_ITERS = 20

@@ -39,6 +39,10 @@ from repro_torch.core.sparse_vec import (HashPerm, merge_add_np,
 from repro_torch.data.pipeline import powerlaw_graph, random_edge_partition
 from repro_torch.graph.engine import build_ell
 
+# one intra-op thread a test process: pytest-xdist runs several workers
+# at once, and their OpenMP threads would oversubscribe the cores
+torch.set_num_threads(1)
+
 ROOT = os.path.normpath(os.path.join(os.path.dirname(__file__), ".."))
 
 PLANS = [(8, (4, 2)), (8, (2, 2, 2)), (8, (8,)), (12, (3, 2, 2)),

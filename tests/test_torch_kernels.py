@@ -32,6 +32,10 @@ from repro_torch.kernels.onehot_scatter import onehot_scatter_add
 from repro_torch.kernels.rank_merge import merge_ranks, rank_counts
 from repro_torch.kernels.spmv_ell import spmv_ell
 
+# one intra-op thread a test process: pytest-xdist runs several workers
+# at once, and their OpenMP threads would oversubscribe the cores
+torch.set_num_threads(1)
+
 SENT = 0xFFFFFFFF
 
 

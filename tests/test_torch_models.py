@@ -37,6 +37,10 @@ from repro_torch.models import common as C
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import AdamW
 
+# one intra-op thread a test process: pytest-xdist runs several workers
+# at once, and their OpenMP threads would oversubscribe the cores
+torch.set_num_threads(1)
+
 ARCH_NAMES = ["qwen1.5-0.5b", "starcoder2-15b", "gemma3-12b"]
 B, S = 2, 32
 

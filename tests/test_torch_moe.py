@@ -41,6 +41,10 @@ from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import AdamW
 from repro_torch.train import step as S
 
+# one intra-op thread a test process: pytest-xdist runs several workers
+# at once, and their OpenMP threads would oversubscribe the cores
+torch.set_num_threads(1)
+
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 B, SEQ = 2, 32
 M, BATCH, STEPS = 4, 8, 3

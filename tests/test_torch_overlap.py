@@ -38,6 +38,10 @@ from repro_torch.launch import train as launch_train
 from repro_torch.models import transformer as T
 from repro_torch.train import step as S
 
+# one intra-op thread a test process: pytest-xdist runs several workers
+# at once, and their OpenMP threads would oversubscribe the cores
+torch.set_num_threads(1)
+
 SIZES = st.lists(st.integers(min_value=0, max_value=5000), min_size=0,
                  max_size=40)
 

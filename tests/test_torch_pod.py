@@ -38,6 +38,10 @@ from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import AdamW
 from repro_torch.train import step as S
 
+# one intra-op thread a test process: pytest-xdist runs several workers
+# at once, and their OpenMP threads would oversubscribe the cores
+torch.set_num_threads(1)
+
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 POD, DATA, BATCH, SEQ = 2, 2, 8, 32
 M = POD * DATA

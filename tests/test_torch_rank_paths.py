@@ -34,6 +34,10 @@ from repro.kernels.rank_merge import rank_tile_stats as j_tile_stats
 from repro_torch.kernels import ref
 from repro_torch.kernels.rank_merge import merge_ranks, merge_tile_stats
 
+# one intra-op thread a test process: pytest-xdist runs several workers
+# at once, and their OpenMP threads would oversubscribe the cores
+torch.set_num_threads(1)
+
 SENT = 0xFFFFFFFF
 
 

@@ -39,6 +39,10 @@ from repro_torch.core.simulator import SimSparseAllreduce
 from repro_torch.core.sparse_vec import HashPerm
 from repro_torch.core.topology import ButterflyPlan
 
+# one intra-op thread a test process: pytest-xdist runs several workers
+# at once, and their OpenMP threads would oversubscribe the cores
+torch.set_num_threads(1)
+
 DEGREES = [(4,), (2, 2), (4, 2)]
 R_IDX, C = 400, 24
 _ENV = dict(os.environ,

@@ -40,6 +40,10 @@ from repro_torch.resilience import (GROUP_LOST, NO_FAULT, QUORUM_LOST,
                                     SupervisedEngineLoop, classify,
                                     retry_until_alive)
 
+# one intra-op thread a test process: pytest-xdist runs several workers
+# at once, and their OpenMP threads would oversubscribe the cores
+torch.set_num_threads(1)
+
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 _ENV = dict(os.environ,
             XLA_FLAGS="--xla_force_host_platform_device_count=16",

@@ -21,6 +21,10 @@ from repro.kernels.ref import onehot_scatter_add_ref as j_scatter_ref
 from repro_torch.kernels import ref
 from repro_torch.kernels.onehot_scatter import onehot_scatter_add, row_order
 
+# one intra-op thread a test process: pytest-xdist runs several workers
+# at once, and their OpenMP threads would oversubscribe the cores
+torch.set_num_threads(1)
+
 
 def _pos(rng, kind, shape, rows):
     if kind == "random":

@@ -40,6 +40,10 @@ from repro_torch.configs import get_config
 from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
 
+# one intra-op thread a test process: pytest-xdist runs several workers
+# at once, and their OpenMP threads would oversubscribe the cores
+torch.set_num_threads(1)
+
 B = 2
 
 

@@ -69,6 +69,10 @@ from repro_torch.models.sharding import full_model_spec_tuples
 from repro_torch.optim.adamw import AdamW
 from repro_torch.train import step as S
 
+# one intra-op thread a test process: pytest-xdist runs several workers
+# at once, and their OpenMP threads would oversubscribe the cores
+torch.set_num_threads(1)
+
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SRC = os.path.join(ROOT, "src")
 SEQ = 32
@@ -393,9 +397,18 @@ def test_tp2_steps_track_reference_at_tp1(ref, name, arch, cut):
                 atol=1e-5 * float(np.abs(want).max()), err_msg=f"{i} {path}")
 
 
-TP_KINDS = {"qwen1.5-0.5b": {}, "gemma3-12b": {},
+# gemma and jamba cut to one period of two blocks that keep each block
+# kind of their pattern (a sliding-window and a global attention layer;
+# mamba and attention, a dense and an MoE FFN): the tp = 2 / tp = 1
+# equality is block by block, so more blocks of the same kinds add no case
+TP_KINDS = {"qwen1.5-0.5b": {},
+            "gemma3-12b": {"n_layers": 2, "pattern": ("attn", "attn"),
+                           "ffn_pattern": ("dense", "dense"),
+                           "window_pattern": (16, 0)},
             "granite-moe-3b-a800m": {"moe_capacity": 8.0},
-            "jamba-1.5-large-398b": {"moe_capacity": 8.0},
+            "jamba-1.5-large-398b": {"moe_capacity": 8.0, "n_layers": 2,
+                                     "pattern": ("mamba", "attn"),
+                                     "ffn_pattern": ("dense", "moe")},
             "xlstm-1.3b": {}, "whisper-base": {},
             "internvl2-26b": {"fsdp": True}}
 # atol multiples of max|leaf|: the SSM test's bound where the stack

@@ -33,6 +33,10 @@ from repro_torch.core.sparse_vec import HashPerm
 from repro_torch.core.transport import StackedTransport
 from repro_torch.kernels import wirecodec as wc
 
+# one intra-op thread a test process: pytest-xdist runs several workers
+# at once, and their OpenMP threads would oversubscribe the cores
+torch.set_num_threads(1)
+
 SENT = 0xFFFFFFFF
 M, C, R = 8, 64, 4096
 DEGREES = [(4, 2), (2, 4), (8,)]
