@@ -192,7 +192,22 @@ line each, after the ``nvidia-smi`` name/power-limit line):
    (profiler trace, the dispatch outside it); prefill ms, decode ms a
    step, the kernels' device ms of a step, tokens/s, peak memory and the
    dispatch's plan hit rate;
-24. kernels -- each kernel on the inputs it got on the main path (phases
+24. serve_splitkv -- split-KV decode (``make_decode_step(...,
+   seq_sharded=True)``) of qwen1.5-0.5b's swa variant on 4 data
+   positions, one row of a 524,288-slot cache across the shard boundary,
+   then the base variant at 32,768 slots, 4 rows; serve_2d -- the 2D
+   weight-stationary decode (``serve2d=True``) of internvl2-26b at all 48
+   layers at (2, 2); serve_2d_moe -- arctic-480b at 1 layer, float32;
+   serve_2d_hybrid -- reduced jamba against a CPU copy.  Each step's
+   logits within SERVE_REL_BOUND of the gather twin's, greedy ids equal
+   where the margin clears it; ms a step, busy share and peak memory of
+   both; no MoE copy dropped;
+25. audit -- ``python -m repro_torch.analysis --audit``'s sweep on the
+   card, every report clean (off the main path);
+26. dryrun -- two 16 x 16 production-mesh pairs traced on meta tensors
+   (``repro_torch.launch.dryrun``) and the memory model beside
+   serve_2d's measured peak (host only);
+27. kernels -- each kernel on the inputs it got on the main path (phases
    2-23, layer 0 / first round; the two merge-rank kernels at every shape
    the main path handed them, the replica stage's [64, 2, C] and the
    survivors' flat [62, 31, C] included, the dense scatter also at the
@@ -295,6 +310,32 @@ REP_UNION_NODES, REP_UNION_DEGREES = 32, (8, 4)
 # supervised PageRank and the soak: M partitions over a pool of POOL
 # positions, a rack of RACK positions lost from round FAULT_AT on
 POOL, RACK, FAULT_AT, CKPT_EVERY = 80, 5, 3, 2
+# the decode layouts: DECODE_STEPS greedy steps each.  serve_splitkv:
+# qwen1.5-0.5b's swa variant on 4 data positions, one row of a 524,288-slot
+# cache from pos 131,064 (the shard boundary at 131,072), then the base
+# variant at 32,768 slots, 4 rows; serve_2d: internvl2-26b at (2, 2);
+# serve_2d_moe: arctic-480b at 1 of its 35 layers at (2, 2)
+DECODE_STEPS = 16
+# "drop": the control's zeroed slots -- the window before the first token
+# (shard 0's share of it), and shard 1 of 4; "fill": the cache's (k, v)
+# scales, 0.3 (tools/splitkv_fill_probe.py: at the reference test's 0.1 a
+# zeroed shard reads barely over SERVE_REL_BOUND, at 1.0 the layouts'
+# bf16 difference comes near it)
+SPLITKV = {"variant": "swa", "data": 4, "rows": 1, "slots": 524288,
+           "pos": [131064], "drop": (131064 - 4095, 131064),
+           "fill": (0.3, 0.3)}
+SPLITKV_BASE = {"variant": "base", "data": 4, "rows": 4, "slots": 32768,
+                "pos": [32744, 32736, 32728, 32720], "drop": (8192, 16384),
+                "fill": (0.3, 0.3)}
+SERVE2D = {"arch": "internvl2-26b", "data": 2, "tp": 2, "rows": 4,
+           "prompt": 64, "max_seq": 2048}
+SERVE2D_MOE = {"arch": "arctic-480b", "data": 2, "tp": 2, "rows": 4,
+               "prompt": 64, "max_seq": 256, "layers": 1}
+# serve_2d's measured peak, which the dryrun phase prints beside the model
+LAYOUT_PEAKS = {}
+# the dryrun phase's production-mesh pairs: (arch, shape, serve2d)
+DRYRUN_PAIRS = (("qwen1.5-0.5b", "decode_32k", False),
+                ("command-r-plus-104b", "decode_32k", True))
 # the phases whose recorded kernel inputs make up the shapes of a row, in
 # the order the rows list them
 ROW_PHASES = ("union_wire", "replicated_union", "resilient_union", "union",
@@ -443,6 +484,9 @@ SERVE_PRINTOUTS = {SSM_ARCH: (("prefill", None), ("cpu", None))}
 # the largest bf16 / float32 reading on an H100 (1.5e-2, qwen at (2, 2)),
 # ~25x below the smallest reading of a decode from an empty cache (1.3)
 SERVE_REL_BOUND = 5e-2
+# the least share of (step, row) pairs whose tokens a bf16 MoE layout and
+# its gather twin route alike (layout_pair's ``routes``)
+ROUTE_SHARE = 0.75
 # serve_moe's (b) prompt: the longer prefill's 8 tokens a data position
 # drop nothing, as the decode does not (at 32 tokens and more the Zipf
 # prompt's repeated tokens overflow an expert, and the prefill is another
@@ -3341,6 +3385,497 @@ def phase_serve_encdec(torch):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The decode layouts: split-KV and 2D weight-stationary (serve2d)
+# ---------------------------------------------------------------------------
+
+def fill_cache(torch, cache, seed: int, fill) -> None:
+    """Every cache leaf, one period at a time, set to a seeded float32
+    normal draw on the card times ``fill`` = (k scale, v scale), cast to
+    the leaf's dtype.  The reference's test fills 0.1 x both; against
+    keys that small a query's scores are nearly equal, the attention
+    averages the noise away and the cache moves the logits little, so a
+    shard dropped or masked wrongly hardly shows (:func:`layout_pair`'s
+    control reads how much it does; ``tools/splitkv_fill_probe.py``
+    compares fills)."""
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    for path, leaf in T.cache_leaves(cache):
+        scale = fill[0] if path[-1] == "k" else fill[1]
+        for i in range(leaf.shape[0]):
+            leaf[i].copy_(torch.randn(leaf[i].shape, generator=gen,
+                                      device=DEVICE) * scale)
+
+
+def attn_leaves(cache):
+    """The cache's leaves, every one an attention block's k or v
+    [n_periods, B, S, KVg, hd] (so in every layout configuration)."""
+    from repro_torch.models import transformer as T
+    leaves = list(T.cache_leaves(cache))
+    assert all(p[-1] in ("k", "v") for p, _ in leaves), [p for p, _ in
+                                                         leaves]
+    return [t for _, t in leaves]
+
+
+def slots_at(torch, leaves, pos):
+    """Every leaf's slot at ``pos`` [B] of each row, float32 [leaves,
+    n_periods, B, KVg, hd]."""
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    return torch.stack([t[:, rows, pos].float() for t in leaves])
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| / max |b|."""
+    return float((a - b).abs().max()) / float(b.abs().max())
+
+
+def routed(torch, fn, rows: int, on: bool):
+    """``(fn(), routes)``: ``routes`` [MoE layers, rows, top_k] the sorted
+    experts each row's token went to, recorded from
+    ``models.moe.router_topk`` (both decode paths route through it) while
+    ``fn`` runs; None unless ``on``."""
+    if not on:
+        return fn(), None
+    from repro_torch.models import moe as MOE
+    orig, seen = MOE.router_topk, []
+
+    def record(logits, cfg):
+        out = orig(logits, cfg)
+        seen.append(out[2].reshape(-1, rows, cfg.top_k)[0].sort(-1).values)
+        return out
+    MOE.router_topk = record
+    try:
+        res = fn()
+    finally:
+        MOE.router_topk = orig
+    return res, torch.stack(seen)
+
+
+def drop_control(torch, params, twin, tok, pos, cache, leaves, span,
+                 written):
+    """The negative control: the twin's logits with the slots [lo, hi) =
+    ``span`` of every attention leaf zeroed.  Afterwards the slots and
+    each row's slot at ``pos`` (``written``, the twin's own write) are
+    put back."""
+    lo, hi = span
+    saved = [t[:, :, lo:hi].clone() for t in leaves]
+    for t in leaves:
+        t[:, :, lo:hi] = 0
+    lc, _ = twin(params, tok, pos, cache)
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    for t, v, w in zip(leaves, saved, written):
+        t[:, :, lo:hi] = v
+        t[:, rows, pos] = w.to(t.dtype)
+    return lc
+
+
+def layout_pair(torch, cfg, params, layout, twin, tok, pos, cache, steps,
+                drop, routes: bool = False, check: bool = True):
+    """``steps`` greedy decode steps of ``layout`` from ids ``tok`` at
+    ``pos``, each step's logits held against ``twin``'s (the gather-path
+    decode) on the same cache and weights: both write the step's k / v at
+    ``pos`` (the twin's last), the next token is the layout's greedy id.
+    Per step: max |logit difference| / max |twin logit| within
+    SERVE_REL_BOUND, and the greedy ids equal on every row whose twin
+    top-two margin clears it.  The writes: the k / v the layout wrote at
+    ``pos`` within the bound of the twin's (max over the slots, relative
+    to the twin's), and the slot's content before the step outside it, so
+    a write that missed its slot shows.  The control, at the first step:
+    the twin with the cache slots ``drop`` = (lo, hi) zeroed
+    (:func:`drop_control`) must read outside the bound against the
+    layout, so the check sees a shard lost.  ``routes`` (an MoE in bf16,
+    where two correct paths may route a token to other experts now and
+    then): the logits and ids are held only on the rows whose top-k
+    experts the two paths chose alike in every MoE layer (:func:`routed`),
+    which must be at least ROUTE_SHARE of the rows.  ``check=False``
+    reads without asserting.  Returns the readings and the state after
+    the last step."""
+    tok = torch.as_tensor(tok, device=DEVICE)
+    pos = torch.as_tensor(pos, device=DEVICE)
+    rows = int(tok.shape[0])
+    leaves = attn_leaves(cache)
+    tol, rels, decided, agree, margins = SERVE_REL_BOUND, [], 0, 0, []
+    writes, unwritten, kept, control = [], [], [], None
+    for i in range(steps):
+        before = slots_at(torch, leaves, pos)
+        (la, cache), ra = routed(torch, lambda: layout(
+            params, tok, pos, cache), rows, routes)
+        wrote = slots_at(torch, leaves, pos)
+        (lb, cache), rb = routed(torch, lambda: twin(
+            params, tok, pos, cache), rows, routes)
+        written = slots_at(torch, leaves, pos)
+        writes.append(rel_err(wrote, written))
+        unwritten.append(rel_err(before, written))
+        if i == 0:
+            lc = drop_control(torch, params, twin, tok, pos, cache, leaves,
+                              drop, written)
+            control = rel_err(la[:, :cfg.vocab].float(),
+                              lc[:, :cfg.vocab].float())
+        la, lb = la[:, :cfg.vocab].float(), lb[:, :cfg.vocab].float()
+        scale = float(lb.abs().max())
+        same = torch.ones(rows, dtype=torch.bool, device=DEVICE) \
+            if ra is None else (ra == rb).all(-1).all(0)
+        kept.append(int(same.sum()))
+        if kept[-1]:
+            rels.append(float((la - lb).abs().amax(-1)[same].max()) / scale)
+        top2 = lb.topk(2, dim=-1).values
+        m = ((top2[:, 0] - top2[:, 1]) / scale)
+        margins.append(float(m.min()))
+        sure = (m > tol) & same
+        decided += int(sure.sum())
+        agree += int(((la.argmax(-1) == lb.argmax(-1)) & sure).sum())
+        tok, pos = la.argmax(-1), pos + 1
+    readings = {
+        "steps": steps, "rel_err_max": max(rels, default=None),
+        "rel_err": rels, "bound": tol, "decided_ids": decided,
+        "ids_equal": agree, "min_margin": min(margins),
+        "write_err_max": max(writes), "unwritten_min": min(unwritten),
+        "control_slots": list(drop), "control_rel_err": control,
+        "rows_routed_alike": kept if routes else None}
+    if not check:
+        return readings, (tok, pos, cache)
+    assert sum(kept) >= ROUTE_SHARE * steps * rows, (
+        "rows routed alike", cfg.name, kept)
+    assert max(rels) <= tol, ("layout vs gather decode", cfg.name, rels, tol)
+    assert agree == decided, ("greedy ids vs gather decode", cfg.name,
+                              agree, decided)
+    assert max(writes) <= tol < min(unwritten), (
+        "layout's k / v writes vs the twin's", cfg.name, writes, unwritten)
+    assert control > tol, ("control inside the bound", cfg.name, control)
+    return readings, (tok, pos, cache)
+
+
+def layout_timing(torch, cfg, params, steps, tok, pos, cache, rows):
+    """ms a decode step (CUDA events), peak memory of one step above what
+    is held, and the device-busy share (the kernels' summed device ms of
+    a traced greedy step over its CUDA-event ms, :func:`dtoh_check`, which
+    also asserts one DtoH copy of the ids, ``rows`` x 4 bytes) for each
+    ``(name, raw step, greedy step)`` of ``steps``."""
+    out = {}
+    for name, raw, greedy in steps:
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        raw(params, tok, pos, cache)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        ms = cuda_ms(lambda: greedy(params, tok, pos, cache), reps=5)
+        dtoh = dtoh_check(torch, lambda: greedy(params, tok, pos,
+                                                cache)[0].cpu(), rows * 4)
+        out[name] = {"ms_per_step": ms, "peak_memory": peak,
+                     "peak_above_held": peak - held,
+                     "busy_share": dtoh["kernel_ms_per_step"] / ms,
+                     "dtoh": dtoh}
+    return out
+
+
+def phase_serve_splitkv(torch):
+    """Split-KV decode (the long_500k policy): qwen1.5-0.5b's ``swa``
+    variant as published (window 4,096, tied, 24 layers, bf16) on
+    SPLITKV["data"] data positions, one row, a cache of SPLITKV["slots"]
+    slots (51.5 GB, each leaf a seeded normal draw x SPLITKV["fill"]),
+    DECODE_STEPS greedy steps from SPLITKV["pos"], crossing the shard
+    boundary at slots / data; then the base variant (no window) at SPLITKV_BASE's
+    slots and rows, every shard in every row's reach.  Each step's logits
+    against the batch-sharded decode of a one-position mesh on the same
+    cache and weights, the writes and the control of zeroed slots
+    SPLITKV["drop"] (:func:`layout_pair`); ms a step, peak memory and
+    busy share of both (:func:`layout_timing`); the greedy split-KV step
+    audited: integer ids out, no host read or DtoH copy inside."""
+    from repro_torch.analysis import audit_serve_decode
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.train.step import (init_cache_global, make_decode_step,
+                                        make_decode_greedy_step, mesh_ctx)
+    torch.cuda.empty_cache()
+    runs, launches = [], {}
+    for spec in (SPLITKV, SPLITKV_BASE):
+        cfg = get_config(SERVE_ARCH, spec["variant"])
+        mc, one = mesh_ctx(spec["data"], device=DEVICE), mesh_ctx(1, device=DEVICE)
+        params = T.init_params(cfg, 1, seed=0, device=DEVICE)
+        rows, slots = spec["rows"], spec["slots"]
+        cache = init_cache_global(cfg, mc, rows, slots, seq_sharded=True)
+        fill_cache(torch, cache, 1, spec["fill"])
+        tok = np.random.RandomState(2).randint(0, cfg.vocab, rows)
+        pos = np.asarray(spec["pos"], np.int64)
+        kw = dict(seq_sharded=True)
+        layout = make_decode_step(cfg, mc, **kw)[0]
+        twin = make_decode_step(cfg, one)[0]
+        (readings, state), ran = main_path(lambda: layout_pair(
+            torch, cfg, params, layout, twin, tok, pos, cache, DECODE_STEPS,
+            spec["drop"]))
+        launches = {k: launches.get(k, 0) + v for k, v in ran.items()}
+        tok, pos, cache = state
+        greedy = make_decode_greedy_step(cfg, mc, **kw)[0]
+        timing = layout_timing(torch, cfg, params, (
+            ("splitkv", layout, greedy),
+            ("gather_one_position", twin,
+             make_decode_greedy_step(cfg, one)[0])), tok, pos, cache, rows)
+        audit = audit_serve_decode("splitkv_greedy", greedy, params, tok,
+                                   pos, cache, vocab=cfg.vocab)
+        assert audit.ok, audit.to_dict()
+        runs.append({"variant": spec["variant"], "window": cfg.window,
+                     "data": mc.data, "rows": rows, "slots": slots,
+                     "cache_bytes": sum(t.numel() * t.element_size()
+                                        for _, t in T.cache_leaves(cache)),
+                     "first_pos": np.asarray(spec["pos"]).tolist(),
+                     "shard_slots": slots // mc.data, "check": readings,
+                     "timing": timing, "audit_ok": True})
+        del params, cache, state, layout, twin, greedy
+        torch.cuda.empty_cache()
+    emit({"phase": "serve_splitkv", "ok": True, "arch": SERVE_ARCH,
+          "layers": cfg.n_layers, "runs": runs,
+          "checks": "each step's logits within SERVE_REL_BOUND x max |logit| "
+                    "of the one-position batch-sharded decode on the same "
+                    "cache, greedy ids equal where the margin clears it; "
+                    "each step's k / v written at pos within the bound of "
+                    "the twin's, the slot before outside it; the twin with "
+                    "the slots 'drop' zeroed outside it; "
+                    "the greedy step's audit (int32 ids, no vocab-sized "
+                    "float output, no host read or DtoH copy inside); one "
+                    "DtoH copy of rows x 4 bytes a step",
+          "launches": launches})
+    return launches
+
+
+def serve2d_prefill(torch, cfg, mc, params, rows, prompt, max_seq):
+    """The prefill of ``rows`` seeded rows of ``prompt`` tokens (and a
+    VLM's seeded 0.02 x normal image embeddings) on ``mc``: ``(greedy
+    ids, cache, first decode position)``."""
+    from repro_torch.train.step import make_prefill_greedy_step
+    rng = np.random.RandomState(3)
+    batch = {"tokens": rng.randint(0, cfg.vocab, (rows, prompt))}
+    if cfg.img_tokens:
+        gen = torch.Generator(device=DEVICE).manual_seed(3)
+        batch["img_embeds"] = (torch.randn(
+            (rows, cfg.img_tokens, cfg.d_model), generator=gen,
+            device=DEVICE) * 0.02).to(cfg.dtype)
+    pre = make_prefill_greedy_step(cfg, mc, max_seq)[0]
+    ids, cache = pre(params, batch)
+    return ids, cache, np.full(rows, prompt + cfg.img_tokens)
+
+
+def serve2d_run(torch, phase, cfg, spec, twin_mesh=None,
+                routes: bool = False):
+    """serve2d at (data, model) = spec's against the gather-path decode on
+    ``twin_mesh`` (default the same mesh), from the prefill cache of
+    ``spec["rows"]`` rows (built on the twin's mesh): the phase's
+    readings (:func:`layout_pair`, its control an empty cache: the prompt's
+    slots zeroed; ``routes`` as there; :func:`layout_timing`), the MoE's
+    dropped copies, launches."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.scheduler import moe_decode_drops_nothing
+    from repro_torch.train.step import (make_decode_greedy_step,
+                                        make_decode_step, mesh_ctx)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mc = mesh_ctx(spec["data"], spec["tp"], device=DEVICE)
+    tm = twin_mesh or mc
+    params = T.init_params(cfg, mc.tp, seed=0, device=DEVICE)
+    weights = sum(t.numel() * t.element_size() for _, t in
+                  T.tree_leaves(params))
+    rows = spec["rows"]
+    tok, cache, pos = serve2d_prefill(torch, cfg, tm, params, rows,
+                                      spec["prompt"], spec["max_seq"])
+    layout = make_decode_step(cfg, mc, serve2d=True)[0]
+    twin = make_decode_step(cfg, tm)[0]
+    (readings, state), launches = main_path(lambda: layout_pair(
+        torch, cfg, params, layout, twin, tok, pos, cache, DECODE_STEPS,
+        (0, int(pos.min())), routes=routes))
+    drops = [float(d.max()) for d in layout.capture["moe_dropped"]]
+    assert not drops or max(drops) == 0.0, ("serve2d MoE drops", drops)
+    if cfg.n_experts:
+        assert moe_decode_drops_nothing(cfg, -(-rows // tm.dp), tm.tp)
+    tok, pos, cache = state
+    peak = torch.cuda.max_memory_allocated()
+    timing = layout_timing(torch, cfg, params, (
+        ("serve2d", layout, make_decode_greedy_step(cfg, mc,
+                                                     serve2d=True)[0]),
+        ("gather", twin, make_decode_greedy_step(cfg, tm)[0])),
+        tok, pos, cache, rows)
+    line = {"phase": phase, "ok": True, "arch": cfg.name,
+            "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "dtype": str(cfg.dtype), "data": mc.data, "tp": mc.tp,
+            "twin_mesh": [tm.data, tm.tp], "rows": rows,
+            "prompt": spec["prompt"] + cfg.img_tokens,
+            "max_seq": spec["max_seq"], "weight_bytes": weights,
+            "check": readings, "timing": timing,
+            "moe_dropped_max": max(drops) if drops else None,
+            "peak_memory_prefill_and_steps": peak, "launches": launches}
+    del params, cache, state, layout, twin
+    torch.cuda.empty_cache()
+    return line
+
+
+def phase_serve_2d(torch):
+    """serve2d of internvl2-26b as published (tied, 48 layers, d 6,144,
+    FSDP, bf16; about 38.6 GB of weights) at (data, model) = SERVE2D's,
+    4 rows of 1,024 stub image + 64 text tokens, DECODE_STEPS greedy
+    steps against the gather-path decode of the same mesh
+    (:func:`serve2d_run`)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(SERVE2D["arch"])
+    line = serve2d_run(torch, "serve_2d", cfg, SERVE2D)
+    LAYOUT_PEAKS["serve_2d"] = line["peak_memory_prefill_and_steps"]
+    emit(line)
+    return line["launches"]
+
+
+def phase_serve_2d_moe(torch):
+    """serve2d of arctic-480b as published (tied, d 7,168, 128 experts
+    top-2 beside a dense FFN, FSDP) at SERVE2D_MOE["layers"] of its 35
+    layers (26.8 GB of bf16 experts a layer), (data, model) = (2, 2), 4
+    rows of 64 tokens, against the gather-path decode of a one-position
+    mesh on the same cache (the (2, 2) gather path's ``torch.matmul`` of
+    the broadcast expert leaves copies them per position, 2 x 26.8 GB,
+    which does not fit beside them); the decode drops no copy.  Held in
+    float32 (53.6 GB of experts), as serve_ssm holds xlstm: in bf16 the
+    two paths' activations part by about 1 % and flip a row's top-2 of
+    128 experts now and then (a run on an NVIDIA H100 80GB HBM3 at
+    700.00 W read 0.36 and 0.45 of max |logit| at 2 of 16 steps, about
+    0.012 at the others).  Then the same in bf16, as arctic is published
+    (line ``serve_2d_moe_bf16``), held on the rows both paths route
+    alike (``layout_pair``'s ``routes``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.train.step import mesh_ctx
+    s = SERVE2D_MOE
+    cfg, reduced = cut_depth(get_config(s["arch"]), s["layers"])
+    one = mesh_ctx(1, 1, device=DEVICE)
+    line = serve2d_run(torch, "serve_2d_moe", dataclasses.replace(
+        cfg, dtype=torch.float32), s, twin_mesh=one)
+    line["reduced"] = reduced + ["dtype bfloat16 -> float32"]
+    emit(line)
+    bf16 = serve2d_run(torch, "serve_2d_moe_bf16", cfg, s, twin_mesh=one,
+                       routes=True)
+    bf16["reduced"] = reduced
+    emit(bf16)
+    return {k: line["launches"].get(k, 0) + bf16["launches"].get(k, 0)
+            for k in set(line["launches"]) | set(bf16["launches"])}
+
+
+# reduced jamba's serve2d decode on the card against a CPU copy: the mamba
+# block's bound in tests/test_torch_ssm.py (rtol 1e-4, atol 1e-5 x max)
+HYBRID_2D_LIMITS = (1e-4, 1e-5)
+
+
+def phase_serve_2d_hybrid(torch):
+    """serve2d of reduced jamba-1.5-large-398b with ``fsdp=True`` (float32;
+    ``mamba_decode_2d``, ``moe_ffn_2d``, ``attn_decode_2d`` and
+    ``ffn_2d``) at (data, model) = (2, 2), 4 rows of 12 tokens, three
+    teacher-forced decode steps on the card and on a CPU copy of its
+    weights and prefill cache: every step's logits within
+    HYBRID_2D_LIMITS (``excess`` <= 1), no MoE copy dropped."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.train.step import make_decode_step, mesh_ctx
+    cfg = get_config(HYBRID_ARCH).reduced(fsdp=True)
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        mc = mesh_ctx(2, 2, device=dev)
+        if dev == DEVICE:
+            params = T.init_params(cfg, 2, seed=0, device=DEVICE)
+            tok, cache, pos = serve2d_prefill(torch, cfg, mc, params, 4, 12,
+                                              16)
+            start = (params, tok, cache)
+        else:
+            params, tok, cache = (T.tree_from_leaves(
+                t, [(k, v.cpu()) for k, v in T.tree_leaves(t)])
+                if isinstance(t, dict) else t.cpu() for t in start)
+        step = make_decode_step(cfg, mc, serve2d=True)[0]
+        logits = []
+
+        def run():
+            nonlocal cache
+            for i in range(3):
+                lg, cache = step(params, tok, pos + i, cache)
+                logits.append(lg.cpu())
+        if dev == DEVICE:
+            start = tuple(T.tree_from_leaves(t, [(k, v.clone()) for k, v in
+                                                 T.tree_leaves(t)])
+                          if isinstance(t, dict) else t.clone()
+                          for t in start)
+            _, launches = main_path(run)
+            drops = [float(d.max()) for d in step.capture["moe_dropped"]]
+        else:
+            run()
+        out[dev] = logits
+    ex = max(excess(torch, a, b, HYBRID_2D_LIMITS)
+             for a, b in zip(out[DEVICE], out["cpu"]))
+    assert ex <= 1.0 and max(drops) == 0.0, (ex, drops)
+    emit({"phase": "serve_2d_hybrid", "ok": True, "arch": cfg.name,
+          "reduced": "ModelConfig.reduced(fsdp=True), float32",
+          "data": 2, "tp": 2, "rows": 4, "steps": 3, "excess": ex,
+          "limits": HYBRID_2D_LIMITS, "moe_dropped_max": max(drops),
+          "check": "card vs CPU copy, every step's logits", "launches":
+              launches})
+    return launches
+
+
+def phase_dryrun(torch):
+    """The production-mesh dry run on meta tensors (``repro_torch.launch.
+    dryrun``, 16 x 16 positions) of DRYRUN_PAIRS: every key, finite
+    terms, the modeled memory within 80 GB; and the memory model's total
+    for serve_2d's own shape (one position of its (2, 2) mesh) beside
+    that phase's measured peak on the card (which holds the weights
+    once, not a shard a position).  Host work only."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch.dryrun import run_pair
+    from repro_torch.launch.memmodel import modeled_memory
+    from repro_torch.train.step import mesh_ctx
+    keys = ("mesh", "chips", "trace_s", "traced_flops", "traced_matmul_flops",
+            "unfused_op_bytes", "collective_bytes", "exchanges",
+            "t_compute_s", "t_memory_s", "t_collective_s", "bottleneck",
+            "model_flops_per_chip", "useful_compute_ratio", "fits_hbm")
+    pairs = []
+    for arch, shape, serve2d in DRYRUN_PAIRS:
+        r = run_pair(arch, shape, False, "ring", None, serve2d=serve2d)
+        assert r["fits_hbm"] and r["traced_flops"] > 0 and all(
+            np.isfinite(r[k]) for k in ("t_compute_s", "t_memory_s",
+                                        "t_collective_s")), r
+        pairs.append(dict({k: r[k] for k in keys}, arch=arch, shape=shape,
+                          serve2d=serve2d,
+                          modeled_total=r["modeled_memory"]["total"]))
+    s = SERVE2D
+    mm = modeled_memory(get_config(s["arch"]), InputShape(
+        "serve_2d", s["max_seq"], s["rows"], "decode"),
+        mesh_ctx(s["data"], s["tp"], device="meta"))
+    emit({"phase": "dryrun", "ok": True, "pairs": pairs,
+          "serve_2d_memory": {"modeled_per_position": mm,
+                              "positions": s["data"] * s["tp"],
+                              "measured_peak": LAYOUT_PEAKS.get("serve_2d")},
+          "constants": "H100 data sheet (core.netmodel): 989e12 bf16 "
+                       "FLOP/s, 3.35e12 B/s HBM, 80e9 B, NVLink 450e9 B/s "
+                       "each way"})
+    return {}
+
+
+def phase_audit(torch):
+    """The dispatch audit sweep (``python -m repro_torch.analysis
+    --audit``) on the card: every report clean; each engine run is one
+    CUDA graph replay (``graph_launches`` + 1); the greedy decode step
+    makes no host read or DtoH copy inside it.  Off the main path: the
+    kernel launches it makes (the engines' SpMV at capture) are reported
+    here, not in the kernels line."""
+    from repro_torch.analysis.cli import audit_sweep
+    from repro_torch.kernels import _build
+    before = dict(_build.LAUNCHES)
+    t0 = time.perf_counter()
+    reports = audit_sweep(DEVICE)
+    bad = [r.to_dict() for r in reports if not r.ok]
+    assert not bad, bad
+    engines = [r for r in reports if r.target.startswith("GraphEngine")]
+    assert engines and all(r.check("one_scan_dispatch").actual == 1
+                           for r in engines)
+    emit({"phase": "audit", "ok": True, "audits": [
+        {"target": r.target, "checks": {c.check_id: c.actual
+                                        for c in r.checks}}
+        for r in reports], "seconds": time.perf_counter() - t0,
+        "launches_off_main_path": {k: v - before.get(k, 0) for k, v in
+                                   _build.LAUNCHES.items()
+                                   if v != before.get(k, 0)}})
+    return {}
+
+
 def phase_soak_train(torch):
     """``python -m repro_torch.launch.soak --job train --reduced --dp 4
     --replication 2`` in subprocesses: a fault-free baseline, a run under
@@ -4237,6 +4772,13 @@ def smoke(torch) -> int:
     per_phase["serve_moe"] = run("serve_moe", phase_serve_moe)
     per_phase["serve_ssm"] = run("serve_ssm", phase_serve_ssm)
     per_phase["serve_encdec"] = run("serve_encdec", phase_serve_encdec)
+    per_phase["serve_splitkv"] = run("serve_splitkv", phase_serve_splitkv)
+    per_phase["serve_2d"] = run("serve_2d", phase_serve_2d)
+    per_phase["serve_2d_moe"] = run("serve_2d_moe", phase_serve_2d_moe)
+    per_phase["serve_2d_hybrid"] = run("serve_2d_hybrid",
+                                       phase_serve_2d_hybrid)
+    per_phase["audit"] = run("audit", phase_audit)
+    per_phase["dryrun"] = run("dryrun", phase_dryrun)
     torch.cuda.synchronize()
     launches = {k: sum(p.get(k, 0) for p in per_phase.values())
                 for k in _build.LAUNCHES}

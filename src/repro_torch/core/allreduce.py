@@ -276,7 +276,7 @@ def sparse_allreduce_union(chunk: SparseChunk, plan: DevicePlan,
                 r_val = _wc.dequant8_rows(r_val, r_scale)
             cat = concat_sorted_groups(r_idx, r_val.to(compute_dtype))
             overflow = overflow + compact_overflow(cat, st.merged_capacity)
-            chunk = segment_compact(cat, st.merged_capacity)
+            chunk = segment_compact(cat, st.merged_capacity, max_depth=k)
 
     # ---- up: allgather back through the same nodes (nested) ---------------
     for li in range(len(plan.stages) - 1, -1, -1):

@@ -9,7 +9,9 @@ floor plus a per-fanout congestion term:
 
 Only the paper's own fabric (EC2, 2013) ships here.  The port carries no
 accelerator-fabric preset: a GPU fabric is calibrated from the port's own
-transport timings by the autotuner slice, not guessed.
+transport timings by the autotuner slice, not guessed.  The H100's data
+sheet figures at the end are the dry run's roofline constants
+(``repro_torch.launch.dryrun``), not a fitted fabric.
 """
 from __future__ import annotations
 
@@ -101,3 +103,14 @@ EC2_2013 = Fabric(name="ec2-2013", beta_bytes_per_s=2e9 / 8, alpha_s=8e-3,
                   floor_bytes=0.0)
 
 FABRICS = {f.name: f for f in (EC2_2013,)}
+
+# NVIDIA H100 80GB HBM3 (SXM5), NVIDIA's data sheet, dense rates without
+# sparsity, at the full 700 W power limit: the bf16 tensor-core peak, HBM3's
+# rate and capacity, and NVLink 4's 900 GB/s both ways, 450 GB/s each way.
+# The dry run's roofline terms divide by these.  On the port's stacked mesh
+# an exchange is a copy in one card's HBM; NVLINK_BYTES_PER_S is what a job
+# of that mesh with one card a position would pay for it, each way.
+PEAK_FLOPS_BF16 = 989e12
+HBM_BYTES_PER_S = 3.35e12
+HBM_BYTES = 80e9
+NVLINK_BYTES_PER_S = 450e9

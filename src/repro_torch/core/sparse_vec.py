@@ -242,7 +242,8 @@ def sort_chunk(idx: torch.Tensor, val: torch.Tensor) -> SparseChunk:
 
 
 def segment_compact(chunk: SparseChunk, out_capacity: Optional[int] = None,
-                    use_kernel: bool = False) -> SparseChunk:
+                    use_kernel: bool = False,
+                    max_depth: Optional[int] = None) -> SparseChunk:
     """Coalesce duplicate indices of a *sorted* chunk; pad to out_capacity.
 
     Plain torch path (the sort path's oracle); ``use_kernel`` switches to
@@ -251,7 +252,10 @@ def segment_compact(chunk: SparseChunk, out_capacity: Optional[int] = None,
     v1) + ...``, with gathers and no float atomics, so the result has the
     same bits on every run and on every device, and the same as the kernel
     merges wherever they sum the same rows in the same order.  The loop
-    runs once per duplicate depth (the largest group, read back once).
+    runs once per duplicate depth (the largest group, read back once; on
+    meta tensors, which hold no values, ``max_depth`` times -- a bound the
+    caller knows, such as the number of unique runs concatenated -- else
+    once per row).
     """
     if use_kernel:
         from repro_torch.kernels import ops as _kops
@@ -276,7 +280,10 @@ def segment_compact(chunk: SparseChunk, out_capacity: Optional[int] = None,
                        device=idx.device).scatter_add_(
         -1, pos, valid.to(torch.int64))
     first, size = first[..., :-1], size[..., :-1]
-    depth = int(size.max()) if size.numel() else 0
+    if size.is_meta:
+        depth = c if max_depth is None else max_depth
+    else:
+        depth = int(size.max()) if size.numel() else 0
     out_val = torch.zeros(lead + (out_capacity,) + val.shape[idx.ndim:],
                           dtype=val.dtype, device=val.device)
     for j in range(depth):

@@ -33,7 +33,9 @@ every node, so repeats give the same bits on any device.  It is counted
 in ``sums``, apart from ``calls``, so a reduce still costs exactly ``2 *
 depth`` exchanges.  Over a mesh of several data axes (``pod``, then
 ``data``) it sums one axis after another, as the reference's ``psum``
-per axis does.
+per axis does.  :meth:`StackedTransport.pmax` is the reference's
+``lax.pmax`` by the same tree (the split-KV decode's softmax maximum),
+counted in ``maxes``.
 
 The model axis is a second stacked axis.  On a (data, model) mesh of dp x
 tp positions, position n = d * tp + m (the device order of
@@ -87,6 +89,7 @@ class StackedTransport:
         self.device = resolve_device(device)
         self.calls = 0
         self.sums = 0
+        self.maxes = 0
         tp = self.columns
         m = plan.num_nodes * tp
         col = np.arange(m, dtype=np.int64) % tp
@@ -164,19 +167,36 @@ class StackedTransport:
         tree within its groups, as the reference's ``psum`` over each
         data axis in turn; each axis counts one sum.  (A whole-mesh sum:
         a transport with ``columns`` > 1 has none.)"""
+        self.sums += len(self._axes(x, axes))
+        return self._tree(x, axes, torch.add)
+
+    def pmax(self, x: torch.Tensor, axes: Optional[Tuple[int, ...]] = None
+             ) -> torch.Tensor:
+        """Whole-mesh maximum of a per-node ``[M, ...]`` tensor (the
+        reference's ``lax.pmax``), broadcast back: the tree and axis order
+        of :meth:`psum`, each axis counted in ``maxes``."""
+        self.maxes += len(self._axes(x, axes))
+        return self._tree(x, axes, torch.maximum)
+
+    def _axes(self, x: torch.Tensor, axes) -> Tuple[int, ...]:
         sizes = (self.num_nodes,) if axes is None else tuple(axes)
         if self.columns != 1 or x.shape[0] != self.num_nodes \
                 or int(np.prod(sizes)) != self.num_nodes:
             raise ValueError(f"psum: expected {self.num_nodes} nodes of one "
                              f"column over axes {sizes}, got {x.shape[0]} "
                              f"of {self.columns}")
+        return sizes
+
+    def _tree(self, x: torch.Tensor, axes, op) -> torch.Tensor:
+        """``op`` over the node axis pairwise in the fixed tree order of
+        :meth:`psum`, one axis of ``axes`` after another."""
+        sizes = self._axes(x, axes)
         s = x.reshape(sizes + tuple(x.shape[1:]))
         for a in range(len(sizes)):
-            self.sums += 1
             s = s.movedim(a, 0)
             while s.shape[0] > 1:
                 n = s.shape[0]
-                pair = s[0:n - 1:2] + s[1:n:2]
+                pair = op(s[0:n - 1:2], s[1:n:2])
                 s = torch.cat([pair, s[n - 1:]]) if n % 2 else pair
             s = s.movedim(0, a)
         return s.reshape((1,) + tuple(x.shape[1:])).expand(

@@ -48,6 +48,7 @@ device tensors, so the host never holds the whole stack.
 from __future__ import annotations
 
 import dataclasses
+import gc
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -356,8 +357,17 @@ class _GraphRun:
         del warm
         launches, calls, sums = dict(_build.LAUNCHES), tr.calls, tr.sums
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            s_out = self.eager(s_state, extras)
+        # no cyclic collection inside the capture: an engine dropped
+        # earlier is a cycle (it and its runner) holding its graph, and
+        # freeing that graph is a CUDA call a capture forbids
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                s_out = self.eager(s_state, extras)
+        finally:
+            if collecting:
+                gc.enable()
         self.launches = {k: v - launches[k] for k, v in _build.LAUNCHES.items()
                          if v != launches[k]}
         # the exchanges ran nowhere yet: each replay counts them

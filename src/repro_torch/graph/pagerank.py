@@ -186,15 +186,18 @@ def pagerank_state(parts: List[Partition], n_vertices: int,
 def make_pagerank_engine(parts: List[Partition], n_vertices: int,
                          degrees=(4, 2), damping: float = 0.85,
                          use_kernel: bool = False, seed: int = 0,
-                         fabric: Fabric = EC2_2013, device=None):
+                         fabric: Fabric = EC2_2013, device=None,
+                         plan_cache=True):
     """Build the device-resident PageRank engine (config once, reuse per
     ``run``): returns ``(engine, extras, p0)`` — everything
     ``engine.run(k, p0, extras)`` needs.  ``use_kernel`` is kept for
-    signature parity, as in :func:`make_pagerank_app`."""
+    signature parity, as in :func:`make_pagerank_app`; ``plan_cache``
+    forwards to the engine."""
     from . import engine as eng
     app, out_sets, in_sets = make_pagerank_app(parts, n_vertices, damping)
     engine = eng.GraphEngine(out_sets, in_sets, app, degrees=degrees,
-                             device=device, seed=seed, fabric=fabric)
+                             device=device, seed=seed, fabric=fabric,
+                             plan_cache=plan_cache)
     extras, p0 = pagerank_state(parts, n_vertices, engine.u_cap,
                                 engine.uin_cap, device=engine.device)
     return engine, extras, p0

@@ -174,6 +174,17 @@ class ModelConfig:
             total += self.enc_layers * (attn + dense_ffn)
         return total
 
+    def active_param_count(self) -> float:
+        """Active parameters a token (MoE: top_k of n_experts; the
+        reference's formula)."""
+        if not self.n_experts:
+            return self.param_count()
+        moe_total = self.n_periods * sum(
+            self.n_experts * 3 * self.d_model * self.expert_d_ff
+            for f in self.ffn_pattern if f in ("moe", "moe+dense"))
+        return self.param_count() - moe_total \
+            + moe_total * self.top_k / self.n_experts
+
 
 # ---------------------------------------------------------------------------
 # Elementwise pieces
@@ -329,10 +340,13 @@ def lm_head_logits(x: torch.Tensor, head_local: torch.Tensor) -> torch.Tensor:
 # Init helpers
 # ---------------------------------------------------------------------------
 
-def dense_init(gen: torch.Generator, shape, scale_axis: int = 0,
+def dense_init(gen: Optional[torch.Generator], shape, scale_axis: int = 0,
                dtype=torch.float32) -> torch.Tensor:
     """Normal / sqrt(fan_in) drawn in float32 on ``gen``'s device, cast
-    to ``dtype``."""
+    to ``dtype``; with no generator, a meta tensor of the shape and dtype
+    (the dry run's stand-in: nothing is drawn or allocated)."""
+    if gen is None:
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     fan_in = shape[scale_axis]
     return (torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                         device=gen.device) / math.sqrt(fan_in)).to(dtype)

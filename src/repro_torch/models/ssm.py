@@ -157,23 +157,34 @@ def mamba_decode(p: Dict, x: torch.Tensor, state: Dict, cfg: ModelConfig,
     """One token x [..., 1, d] against ``state`` {"h": [..., dil, n],
     "conv": [..., K - 1, dil]}: ``(out [..., 1, d], new state)``.  The
     conv tap products are summed in float32 (the reference's einsum)."""
-    xi = linear(x, p["in_x"])[..., 0, :]              # [..., dil]
-    z = linear(x, p["in_z"])[..., 0, :]
+    y, st = mamba_cell(p, linear(x, p["in_x"])[..., 0, :],
+                       linear(x, p["in_z"])[..., 0, :],
+                       linear(x, p["w_dt"])[..., 0, :],
+                       linear(x, p["w_B"])[..., 0, :],
+                       linear(x, p["w_C"])[..., 0, :], state, x.dtype)
+    return linear(y.unsqueeze(-2), p["out"]), st
+
+
+def mamba_cell(p: Dict, xi: torch.Tensor, z: torch.Tensor, dt: torch.Tensor,
+               bm: torch.Tensor, cm: torch.Tensor, state: Dict, dtype
+               ) -> Tuple[torch.Tensor, Dict]:
+    """The decode step after the input projections (shared with the 2D
+    decode, ``models.serve2d``): the projected xi / z / dt [..., dil]
+    and B / C [..., n] -> ``(y [..., dil] before the out projection, new
+    state)``; ``dtype`` the activations'."""
     hist = torch.cat([state["conv"], xi.unsqueeze(-2).to(
         state["conv"].dtype)], dim=-2)                # [..., K, dil]
     w = _mat(p["conv"], hist)
     xi = F.silu(torch.sum(hist.to(torch.float32) * w.to(torch.float32),
-                          dim=-2).to(x.dtype))
-    dt = F.softplus(linear(x, p["w_dt"]).to(torch.float32))[..., 0, :]
-    bm = linear(x, p["w_B"]).to(torch.float32)[..., 0, :]
-    cm = linear(x, p["w_C"]).to(torch.float32)[..., 0, :]
+                          dim=-2).to(dtype))
+    dt = F.softplus(dt.to(torch.float32))
+    bm, cm = bm.to(torch.float32), cm.to(torch.float32)
     a_mat = _mat(-torch.exp(p["A_log"]), hist)        # [(M, 1,) dil, n]
     h = state["h"] * torch.exp(dt[..., None] * a_mat) \
         + (dt * xi.to(torch.float32))[..., None] * bm[..., None, :]
-    y = torch.einsum("...cn,...n->...c", h, cm).to(x.dtype) \
-        + xi * vec(p["D"], xi).to(x.dtype)
-    y = y * F.silu(z)
-    return linear(y.unsqueeze(-2), p["out"]), {"h": h, "conv": hist[..., 1:, :]}
+    y = torch.einsum("...cn,...n->...c", h, cm).to(dtype) \
+        + xi * vec(p["D"], xi).to(dtype)
+    return y * F.silu(z), {"h": h, "conv": hist[..., 1:, :]}
 
 
 def mamba_init_state(lead: Tuple[int, ...], cfg: ModelConfig, tp: int,

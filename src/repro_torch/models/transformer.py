@@ -34,9 +34,13 @@ each model position's heads, and the MoE dispatches over the model axis
 position's own, on its token slice (as the reference's), so at tp > 1
 the aux is [M, tp]; the train objective of a data row is its loss plus
 the aux weight times their mean over the model positions
-(``train.step``).  :func:`params_from_jax` and
-:func:`params_to_numpy` copy weights between the two packages exactly,
-at any tp.
+(``train.step``).  :func:`forward_decode` also runs the reference's two
+other decode layouts: split-KV over a cache whose sequence axis is split
+over the data positions (``seq_axis``: the batch replicated, the
+held-once parameters) and the 2D weight-stationary decode (``serve2d``:
+FSDP leaves used in place, no gather), each block's module saying how.
+:func:`params_from_jax` and :func:`params_to_numpy` copy weights between
+the two packages exactly, at any tp.
 """
 from __future__ import annotations
 
@@ -51,6 +55,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from . import attention as A
 from . import moe as MOE
+from . import serve2d as S2D
 from . import ssm as SSM
 from .common import (ModelConfig, act_fn, dense_init, embed, linear,
                      lm_head_loss, rmsnorm)
@@ -136,11 +141,14 @@ def init_params(cfg: ModelConfig, tp: int = 1, seed: int = 0,
     by block in pattern order, then the embedding, the head, and an
     encoder-decoder's encoder blocks and cross attention; norms, biases
     and ``A_log`` start at 0 and mamba's ``D`` at 1, as in the
-    reference.  The router and the mLSTM gates are float32."""
+    reference.  The router and the mLSTM gates are float32.  On the meta
+    device every leaf is a stand-in of its shape and dtype (the dry
+    run's: nothing is drawn)."""
     from repro_torch.core.transport import resolve_device
     check_ported(cfg, tp)
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(int(seed))
+    gen = None if device.type == "meta" else \
+        torch.Generator(device=device).manual_seed(int(seed))
     d = cfg.d_model
     dt = cfg.dtype
     vp = padded_vocab(cfg, tp)
@@ -330,16 +338,18 @@ def _period_views(blocks: Params, n: int, dim=0):
             for i in range(n)]
 
 
-def _decoder_periods(params: Params, cfg: ModelConfig, ax: AxisCtx):
+def _decoder_periods(params: Params, cfg: ModelConfig, ax: AxisCtx,
+                     gather: bool = True):
     """``(blocks, cross)``: each decoder period's block tree (under FSDP
-    its FSDP leaves gathered, :func:`fsdp_gather`) and its cross
+    its FSDP leaves gathered, :func:`fsdp_gather`, unless ``gather`` is
+    false: then held once, as the 2D decode uses them) and its cross
     attention leaves (``None`` without an encoder), as per-period views
     of the period-stacked leaves (position-stacked or not)."""
     stacked = params["emb"].ndim == 3
     held = fsdp_block_paths(cfg, ax.tp) if ax.fsdp_axes else frozenset()
     period_dim = (lambda path: 0 if path in held else 1) if stacked else 0
     views = _period_views(params["blocks"], cfg.n_periods, dim=period_dim)
-    if ax.fsdp_axes:
+    if ax.fsdp_axes and gather:
         spec = period_spec(cfg, ax.tp)
         views = [fsdp_gather(pp, spec, ax.fsdp_transport) for pp in views]
     cross = [None] * cfg.n_periods
@@ -435,14 +445,19 @@ def forward_loss(params: Params, tokens: torch.Tensor, labels: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, b: int, max_seq: int, tp: int = 1,
-               device=None) -> Params:
+               device=None, seq_shards: int = 1) -> Params:
     """The zero decode cache of ``b`` batch rows, every leaf stacked over
     the periods ([n_periods, b, ...]), at the reference's global shapes
     for ``tp`` (its ``init_cache_global``): attention ``{"k", "v"}``
     [n_periods, b, max_seq, kv_local(tp) * tp, hd] in the model dtype,
-    and each SSM block's state (``models.ssm``)."""
+    and each SSM block's state (``models.ssm``).  ``seq_shards``: the
+    split-KV layout's data positions, each owning a block of max_seq /
+    seq_shards slots of the same global tensor (``max_seq`` must split)."""
     from repro_torch.core.transport import resolve_device
     device = resolve_device(device)
+    if max_seq % seq_shards:
+        raise ValueError(f"max_seq {max_seq} does not split over "
+                         f"{seq_shards} sequence shards")
     npd, kvg = cfg.n_periods, cfg.kv_local(tp) * tp
     lead = (npd, b)
     per = {}
@@ -504,14 +519,17 @@ _HEAD32 = WeakIdKeyDictionary()
 
 
 def _ffn_out(e: Params, x: torch.Tensor, cfg: ModelConfig,
-             ax: AxisCtx) -> torch.Tensor:
-    """The FFN sub-block's residual add (dense, MoE or both)."""
+             ax: AxisCtx, drops: Optional[list] = None) -> torch.Tensor:
+    """The FFN sub-block's residual add (dense, MoE or both); each MoE
+    block's dropped fractions are appended to ``drops`` when given."""
     h2 = rmsnorm(x, e["ln2"], cfg.norm_eps)
     y2 = ffn_fwd(e["ffn"], h2, cfg) if "ffn" in e else None
     if "moe" in e:
-        ym, _, _ = MOE.moe_ffn(e["moe"], h2, cfg, ax.tp,
-                               capacity_factor=cfg.moe_capacity,
-                               model=ax.model)
+        ym, _, dropped = MOE.moe_ffn(e["moe"], h2, cfg, ax.tp,
+                                     capacity_factor=cfg.moe_capacity,
+                                     model=ax.model)
+        if drops is not None:
+            drops.append(dropped)
         y2 = ym if y2 is None else y2 + ym
     return x + y2
 
@@ -572,34 +590,75 @@ def forward_prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     return torch.matmul(x.to(torch.float32), head32), cache
 
 
+def _check_decode_layout(cfg: ModelConfig, seq_axis, serve2d: bool) -> None:
+    """The reference's preconditions of its two decode layouts, as
+    ``ValueError``: serve2d takes FSDP configs of attention and mamba
+    blocks only; the split-KV layout serves decoder-only configs (the
+    cross cache is batch-sharded)."""
+    if serve2d and not cfg.fsdp:
+        raise ValueError("serve2d: fsdp archs only")
+    if serve2d and not all(b in ("attn", "mamba") for b in cfg.pattern):
+        raise ValueError("serve2d: attn/mamba blocks (mlstm/slstm archs are "
+                         "not fsdp)")
+    if seq_axis is not None and cfg.enc_layers:
+        raise ValueError("split-KV decode (seq_axis): decoder-only configs; "
+                         "the cross cache is batch-sharded")
+
+
 @torch.no_grad()
 def forward_decode(params: Params, token: torch.Tensor, pos: torch.Tensor,
                    cache: Params, cfg: ModelConfig,
                    ax: Optional[AxisCtx] = None, cross_cache=None, *,
-                   head32: torch.Tensor):
-    """One decode step (the reference's ``forward_decode`` with a
-    batch-sharded cache): token ids and positions [B] (position-stacked:
-    [M, B / M]) -> ``(logits [..., V_pad] float32, cache)``.  The cache
-    is updated in place (each attention block's k / v written at ``pos``,
-    each SSM state replaced) and returned.  ``cross_cache`` (the
-    encoder-decoder's ``(k, v)``, :func:`build_cross_cache`) feeds the
-    cross attention; ``head32`` is the float32 head (:func:`head_f32`).
-    Under FSDP each period's leaves are gathered as in training.  No
-    gradient is kept."""
+                   head32: torch.Tensor, seq_axis=None,
+                   serve2d: bool = False, mesh_sizes=None,
+                   capture: Optional[dict] = None):
+    """One decode step (the reference's ``forward_decode``): token ids and
+    positions [B] (position-stacked: [M, B / M]) -> ``(logits [...,
+    V_pad] float32, cache)``.  The cache is updated in place (each
+    attention block's k / v written at ``pos``, each SSM state replaced)
+    and returned.  ``cross_cache`` (the encoder-decoder's ``(k, v)``,
+    :func:`build_cross_cache`) feeds the cross attention; ``head32`` is
+    the float32 head (:func:`head_f32`).  Under FSDP each period's leaves
+    are gathered as in training.  No gradient is kept.
+
+    ``seq_axis`` (the split-KV layout): the stacked transport of the data
+    positions over which the cache's sequence axis is split; the batch
+    is replicated, so ``params`` are the held-once leaves, token / pos
+    [B] and the cache the global [n_periods, B, S, ...]; each attention
+    block is :func:`attention.attn_decode_splitkv`.  ``serve2d``: the 2D
+    weight-stationary decode (FSDP configs of attention and mamba
+    blocks): the held-once FSDP leaves are used in place, no gather, by
+    ``attention.attn_decode_2d`` / ``ffn_2d`` and ``serve2d``'s MoE and
+    mamba blocks, through ``ax.fsdp_transport``; ``mesh_sizes`` (the
+    mesh's axis sizes) orders its sums over the data axes.  ``capture``
+    (a dict) receives ``"moe_dropped"``: the MoE blocks' dropped
+    fractions of this step, one tensor a block."""
     ax = ax or AxisCtx()
     check_ported(cfg, ax.tp)
+    _check_decode_layout(cfg, seq_axis, serve2d)
+    axes = None if mesh_sizes is None or not ax.fsdp_axes else \
+        tuple(mesh_sizes[a] for a in ax.fsdp_axes)
     x = embed(params["emb"], token.unsqueeze(-1)).to(cfg.dtype)
     lead = x.shape[:-2]
-    views, cross = _decoder_periods(params, cfg, ax)
+    views, cross = _decoder_periods(params, cfg, ax,
+                                    gather=not serve2d and seq_axis is None)
+    drops = []
     for i, (pp, cp) in enumerate(zip(views, cross)):
         for j, (blk, ffn) in enumerate(zip(cfg.pattern, cfg.ffn_pattern)):
             e, c = pp[f"b{j}"], cache[f"b{j}"]
             h = rmsnorm(x, e["ln1"], cfg.norm_eps)
             w = cfg.window_pattern[j] if cfg.window_pattern else cfg.window
             if blk == "attn":
-                y = A.attn_decode(e[blk], h, _period_slot(c["k"], i, lead),
-                                  _period_slot(c["v"], i, lead), pos, cfg,
-                                  ax.tp, w)
+                ck, cv = (_period_slot(c[n], i, lead) for n in ("k", "v"))
+                if serve2d:
+                    y = A.attn_decode_2d(e[blk], h, ck, cv, pos, cfg, ax.tp,
+                                         w, ax.fsdp_transport, axes,
+                                         seq_axis=seq_axis)
+                elif seq_axis is not None:
+                    y = A.attn_decode_splitkv(e[blk], h, ck, cv, pos, cfg,
+                                              ax.tp, w, seq_axis)
+                else:
+                    y = A.attn_decode(e[blk], h, ck, cv, pos, cfg, ax.tp, w)
             elif blk == "slstm":
                 y, st = SSM.slstm_decode(
                     e[blk], h, tuple(_period_slot(leaf, i, lead)
@@ -608,8 +667,13 @@ def forward_decode(params: Params, token: torch.Tensor, pos: torch.Tensor,
                     _period_slot(leaf, i, lead).copy_(val)
             else:
                 views_i = {k: _period_slot(c[k], i, lead) for k in c}
-                y, st = getattr(SSM, f"{blk}_decode")(e[blk], h, views_i,
-                                                      cfg, ax.tp)
+                if serve2d:
+                    y, st = S2D.mamba_decode_2d(
+                        e[blk], h, views_i, cfg, ax.tp, ax.fsdp_transport,
+                        axes, batch_replicated=seq_axis is not None)
+                else:
+                    y, st = getattr(SSM, f"{blk}_decode")(e[blk], h, views_i,
+                                                          cfg, ax.tp)
                 for k in c:
                     views_i[k].copy_(st[k])
             x = x + y
@@ -619,10 +683,33 @@ def forward_decode(params: Params, token: torch.Tensor, pos: torch.Tensor,
                     ck, cv = A._heads_tp(ck, ax.tp), A._heads_tp(cv, ax.tp)
                 x = _cross_block(cp, params["ln_cross"], ck, cv, x, cfg,
                                  ax.tp)
-            if ffn != "none":
-                x = _ffn_out(e, x, cfg, ax)
+            if ffn == "none":
+                continue
+            if serve2d:
+                x = _ffn_2d_out(e, x, cfg, ax, axes, seq_axis is not None,
+                                drops)
+            else:
+                x = _ffn_out(e, x, cfg, ax, drops)
+    if capture is not None:
+        capture["moe_dropped"] = drops
     x = rmsnorm(x[..., 0, :], params["final_ln"], cfg.norm_eps)
     return torch.matmul(x.to(torch.float32), head32), cache
+
+
+def _ffn_2d_out(e: Params, x: torch.Tensor, cfg: ModelConfig, ax: AxisCtx,
+                axes, replicated: bool, drops: list) -> torch.Tensor:
+    """The FFN sub-block's residual add under serve2d (dense, MoE or
+    both), each MoE block's dropped fractions appended to ``drops``."""
+    h2 = rmsnorm(x, e["ln2"], cfg.norm_eps)
+    y2 = A.ffn_2d(e["ffn"], h2, cfg, ax.fsdp_transport, axes,
+                  batch_replicated=replicated) if "ffn" in e else None
+    if "moe" in e:
+        ym, dropped = S2D.moe_ffn_2d(e["moe"], h2, cfg, ax.tp,
+                                     ax.fsdp_transport, axes, model=ax.model,
+                                     batch_replicated=replicated)
+        drops.append(dropped)
+        y2 = ym if y2 is None else y2 + ym
+    return x + y2
 
 
 @torch.no_grad()

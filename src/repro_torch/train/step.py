@@ -937,19 +937,18 @@ def init_cache_global(cfg: ModelConfig, mc: MeshCtx, b: int, max_seq: int,
     """The decode cache of ``b`` rows at the reference's global shapes
     (``models.transformer.init_cache``), on the mesh's device; row r
     belongs to data position r // (b / M), as the reference's ``P(dp)``
-    shards it.  ``seq_sharded`` is the split-KV layout of the dry-run
-    tooling (ROADMAP Queue 1 item 15) and raises."""
-    _check_serve_layout(seq_sharded, False)
-    return T.init_cache(cfg, b, max_seq, mc.tp, mc.device)
+    shards it.  ``seq_sharded``: the split-KV layout, the same global
+    tensors with every row replicated and the sequence axis split over
+    the ``data`` positions (slots [d * S / data, (d + 1) * S / data) on
+    data position d)."""
+    return T.init_cache(cfg, b, max_seq, mc.tp, mc.device,
+                        seq_shards=mc.data if seq_sharded else 1)
 
 
-def _check_serve_layout(seq_sharded: bool, serve2d: bool) -> None:
-    """The decode layouts only the dry-run tooling reaches raise."""
-    if seq_sharded or serve2d:
-        raise NotImplementedError(
-            "split-KV decode over a sequence-sharded cache (seq_sharded) "
-            "and 2D weight-stationary decode (serve2d) are the dry-run "
-            "tooling's, not ported yet (ROADMAP Queue 1 item 15)")
+def seq_transport(mc: MeshCtx) -> StackedTransport:
+    """The split-KV layout's transport: one stage of degree ``data`` over
+    the data positions (a pod's replicas hold the same split)."""
+    return StackedTransport(ButterflyPlan(mc.data, (mc.data,)), mc.device)
 
 
 def serving_tree(params, cfg: ModelConfig, mc: MeshCtx):
@@ -963,11 +962,12 @@ def serving_tree(params, cfg: ModelConfig, mc: MeshCtx):
         for p, t in T.tree_leaves(params)])
 
 
-def _serving_params(cfg: ModelConfig, mc: MeshCtx):
+def _serving_params(cfg: ModelConfig, mc: MeshCtx, replicated: bool = False):
     """``view(params) -> (tree, head32)``: :func:`serving_tree` of the last
     parameter set passed (rebuilt when another set comes or its head
-    tensor is replaced) and its float32 head, ``T.head_f32`` (one cast
-    shared by every step serving that set)."""
+    tensor is replaced), or the held-once set itself when the batch is
+    ``replicated`` (the split-KV layout), and its float32 head,
+    ``T.head_f32`` (one cast shared by every step serving that set)."""
     memo = {}
 
     def view(params):
@@ -976,7 +976,8 @@ def _serving_params(cfg: ModelConfig, mc: MeshCtx):
         if memo.get("key") != key:
             memo.clear()
             memo.update(key=key, params=params,
-                        tree=serving_tree(params, cfg, mc))
+                        tree=params if replicated
+                        else serving_tree(params, cfg, mc))
         return memo["tree"], T.head_f32(params, cfg)
     return view
 
@@ -1021,26 +1022,47 @@ def make_prefill_step(cfg: ModelConfig, mc: MeshCtx, max_seq: int):
     return step, {"params": full_model_spec_tuples(cfg, mc.tp)}
 
 
+def _replicated_tokens(x, mc: MeshCtx) -> torch.Tensor:
+    """Replicated ids or positions [B] (the reference's ``P(None)``) as
+    an int64 tensor on the mesh's device."""
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+    return t.to(device=mc.device, dtype=torch.int64)
+
+
 def make_decode_step(cfg: ModelConfig, mc: MeshCtx, *,
-                     seq_sharded: bool = False, seq_shards: int = 1,
-                     serve2d: bool = False):
+                     seq_sharded: bool = False, serve2d: bool = False):
     """``(step, specs)``: ``step(params, token, pos, cache[, cross_cache])
     -> (logits [B, V_pad] float32, cache)``, one decode step of B rows
     (ids and positions [B], numpy or tensors) split over the M data
     positions in contiguous blocks; the cache is updated in place and
-    returned.  ``seq_sharded`` / ``serve2d`` raise (ROADMAP Queue 1 item
-    15)."""
-    _check_serve_layout(seq_sharded, serve2d)
+    returned.
+
+    ``seq_sharded``: the split-KV layout (a context one position's cache
+    cannot hold): the B rows are replicated, the cache is
+    :func:`init_cache_global`'s with ``seq_sharded=True`` and its
+    sequence axis is split over the ``data`` positions
+    (:func:`seq_transport`).  ``serve2d``: the 2D
+    weight-stationary decode of an FSDP config (attention and mamba
+    blocks), either cache layout.  ``step.capture`` (a dict, initially
+    empty) holds the last step's ``"moe_dropped"``."""
     check_ported(cfg, mc.tp)
     ax = mc.axis_ctx(cfg)
-    view = _serving_params(cfg, mc)
+    seq_axis = seq_transport(mc) if seq_sharded else None
+    T._check_decode_layout(cfg, seq_axis, serve2d)
+    view = _serving_params(cfg, mc, replicated=seq_sharded)
+    rows = (lambda x: _replicated_tokens(x, mc)) if seq_sharded \
+        else (lambda x: _stack_tokens(x, mc))
+    capture: dict = {}
 
     def step(params, token, pos, cache, *cross):
         tree, head32 = view(params)
         logits, cache = T.forward_decode(
-            tree, _stack_tokens(token, mc), _stack_tokens(pos, mc), cache,
-            cfg, ax, cross_cache=cross[0] if cross else None, head32=head32)
+            tree, rows(token), rows(pos), cache, cfg, ax,
+            cross_cache=cross[0] if cross else None, head32=head32,
+            seq_axis=seq_axis, serve2d=serve2d,
+            mesh_sizes=mc.shape, capture=capture)
         return logits.reshape(-1, logits.shape[-1]), cache
+    step.capture = capture
     return step, {"params": full_model_spec_tuples(cfg, mc.tp)}
 
 
@@ -1057,16 +1079,16 @@ def make_prefill_greedy_step(cfg: ModelConfig, mc: MeshCtx, max_seq: int):
 
 
 def make_decode_greedy_step(cfg: ModelConfig, mc: MeshCtx, *,
-                            seq_sharded: bool = False, seq_shards: int = 1,
-                            serve2d: bool = False):
+                            seq_sharded: bool = False, serve2d: bool = False):
     """:func:`make_decode_step` with :func:`_greedy_ids` fused: ``step(
     params, token, pos, cache[, cross_cache]) -> (ids int32 [B], cache)``,
     the continuous-batching scheduler's step; its one output a caller
     reads on the host is the ids."""
     decode, specs = make_decode_step(cfg, mc, seq_sharded=seq_sharded,
-                                     seq_shards=seq_shards, serve2d=serve2d)
+                                     serve2d=serve2d)
 
     def step(params, token, pos, cache, *cross):
         logits, cache = decode(params, token, pos, cache, *cross)
         return _greedy_ids(logits, cfg.vocab), cache
+    step.capture = decode.capture
     return step, specs

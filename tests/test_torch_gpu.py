@@ -34,7 +34,11 @@ bfloat16 rounding of the unchunked one.  Serving: continuous batching
 equals the sequential oracle on the card (dense, tp = 2, MoE at 2 x 2,
 xLSTM, jamba), the prefill and decode steps equal their CPU run within
 rtol 1e-4 and repeat bit for bit, the dispatch's tail unions launch the
-merge kernels, and the serve launcher takes the card by default.
+merge kernels, and the serve launcher takes the card by default.  The
+decode layouts: split-KV equals the one-position batch-sharded decode
+and serve2d the gather decode on the card, each as its CPU run; the
+audit sweep is clean on the card (one graph replay an engine run, no
+host read or DtoH copy in the greedy steps).
 """
 import json
 import os
@@ -1382,3 +1386,113 @@ def test_serve_launcher_takes_the_card_by_default(cuda, tmp_path,
     gen = launch_serve.main(["--arch", "whisper-base", "--reduced",
                              "--gen", "4"])
     assert gen.shape == (4, 4)
+
+
+def _decode_runs(cfg, dev, steps_of, toks, positions):
+    """Logits of each step of ``steps_of(dev)``'s decode steps on
+    ``dev``, each from a copy of the cache of a 6-token prefill of 4 rows
+    (32 slots, on a one-position mesh; every layout holds the same
+    global cache): ``{name: [logits a step]}``."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train.step import make_prefill_step, mesh_ctx
+    host = T.init_params(cfg, 2, seed=0, device="cpu")
+    params = T.tree_from_leaves(host, [(p, t.to(dev)) for p, t
+                                       in T.tree_leaves(host)])
+    prompt = np.random.RandomState(3).randint(0, cfg.vocab, (4, 6))
+    _, cache0 = make_prefill_step(cfg, mesh_ctx(1, 1, device=dev), 32)[0](
+        params, {"tokens": prompt})
+    out = {}
+    for name, step in steps_of(dev).items():
+        cache = {k: {kk: t.clone() for kk, t in v.items()}
+                 for k, v in cache0.items()}
+        out[name] = []
+        for p in positions:
+            logits, cache = step(params, toks, np.full(len(toks), p), cache)
+            out[name].append(logits.cpu())
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,kw", [("command-r-plus-104b", {"fsdp": True}),
+                                     ("arctic-480b", {"fsdp": True}),
+                                     ("jamba-1.5-large-398b", {"fsdp": True}),
+                                     ("qwen1.5-0.5b", {})])
+def test_decode_layouts_on_gpu(cuda, arch, kw):
+    """On the card, reduced float32, from a 6-token prefill: the split-KV
+    decode (4 data positions of 8 of the 32 slots; steps at 6 to 9 cross
+    the shard boundary at 8) equals the batch-sharded decode of a
+    one-position mesh, and serve2d at (2, 2) (FSDP configs) equals the
+    gather decode of the same mesh, within rtol 1e-4 + 1e-5 x max (1e-4 x
+    max with an SSM block, as the serving test); each layout equals its
+    CPU run within the same bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.train.step import make_decode_step, mesh_ctx
+    cfg = get_config(arch).reduced(**kw)
+    toks = np.random.RandomState(2).randint(0, cfg.vocab, 4)
+
+    def steps(dev):
+        seq, one = mesh_ctx(4, 1, device=dev), mesh_ctx(1, 1, device=dev)
+        out = {"splitkv": make_decode_step(cfg, seq, seq_sharded=True)[0],
+               "gather1": make_decode_step(cfg, one)[0]}
+        if cfg.fsdp:
+            m22 = mesh_ctx(2, 2, device=dev)
+            out["serve2d"] = make_decode_step(cfg, m22, serve2d=True)[0]
+            out["gather22"] = make_decode_step(cfg, m22)[0]
+        return out
+    runs = {dev: _decode_runs(cfg, dev, steps, toks, (6, 7, 8, 9))
+            for dev in ("cpu", cuda)}
+    atol = 1e-4 if any(b != "attn" for b in cfg.pattern) else 1e-5
+
+    def close(a, b):
+        for x, y in zip(a, b):
+            torch.testing.assert_close(x, y, rtol=1e-4,
+                                       atol=atol * float(y.abs().max()))
+    card = runs[cuda]
+    close(card["splitkv"], card["gather1"])
+    if cfg.fsdp:
+        close(card["serve2d"], card["gather22"])
+    for name in card:
+        close(card[name], runs["cpu"][name])
+
+
+@pytest.mark.gpu
+def test_audits_on_gpu(cuda):
+    """The audit sweep on the card: every report clean, each engine run
+    one CUDA graph replay (``graph_launches`` + 1, the rounds read at
+    capture), and the greedy prefill / decode steps make no host read and
+    no device-to-host copy inside."""
+    from repro_torch.analysis.cli import audit_sweep
+    reports = audit_sweep(cuda)
+    assert all(r.ok for r in reports), [r.to_dict() for r in reports
+                                        if not r.ok]
+    engines = [r for r in reports if r.target.startswith("GraphEngine")]
+    assert len(engines) == 2
+    for r in engines:
+        assert r.check("one_scan_dispatch").actual == 1
+        assert "read at capture" in r.check(
+            "per_round_collectives_equal_plan_depth").detail
+    serve = [r for r in reports if "greedy" in r.target]
+    assert len(serve) == 2 and all(
+        r.check("no_forbidden_primitives").actual == [] for r in serve)
+
+
+@pytest.mark.gpu
+def test_engine_capture_runs_without_cyclic_collection(cuda, monkeypatch):
+    """The cyclic collector is off while an engine captures its graph and
+    on again after: an engine dropped earlier is a cycle holding its CUDA
+    graph, and a collection inside a capture would free that graph there,
+    a CUDA call a capture forbids (the capture then fails)."""
+    import gc
+    from repro_torch.analysis.cli import pagerank_engine
+    from repro_torch.core.transport import StackedTransport
+    seen, orig = [], StackedTransport.all_to_all
+
+    def probe(self, *args, **kwargs):
+        if torch.cuda.is_current_stream_capturing():
+            seen.append(gc.isenabled())
+        return orig(self, *args, **kwargs)
+    monkeypatch.setattr(StackedTransport, "all_to_all", probe)
+    engine, extras, p0 = pagerank_engine(cuda)
+    engine.run(3, p0, extras)
+    assert engine.report["captures"] == 1
+    assert seen and not any(seen) and gc.isenabled()

@@ -10,8 +10,8 @@ a matmul's summation order).
 
 * decode after a prefill of S tokens against the prefill of S + 1 for
   the five decoder families, within the bounds of the reference's
-  ``tests/test_serve_consistency.py``; the decode layouts of the dry-run
-  tooling (split-KV, 2D weight-stationary) raise naming ROADMAP item 15;
+  ``tests/test_serve_consistency.py`` (the split-KV and 2D decode
+  layouts are held to the reference in ``test_torch_decode_layouts.py``);
 * the consistency sweep on reduced qwen at (slots, data positions) =
   (1, 1), (2, 2) and (8, 2), seeded Zipf streams with mixed prompt
   lengths, staggered arrivals and ``max_new`` down to 1; reduced
@@ -266,21 +266,6 @@ def test_decode_matches_longer_prefill(arch, tol):
     assert err < tol, (arch, err)
     if tol < 1e-2:
         assert torch.equal(a.argmax(-1), b.argmax(-1))
-
-
-@pytest.mark.parametrize("kw", [{"seq_sharded": True}, {"serve2d": True}])
-def test_dry_run_decode_layouts_raise_item_15(qwen, kw):
-    """Split-KV decode over a sequence-sharded cache and 2D
-    weight-stationary decode are the dry-run tooling's (ROADMAP Queue 1
-    item 15): the decode steps and the cache refuse them by name."""
-    cfg, _ = qwen
-    mc = S.mesh_ctx(2, device="cpu")
-    for make in (S.make_decode_step, S.make_decode_greedy_step):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            make(cfg, mc, **kw)
-    if "seq_sharded" in kw:
-        with pytest.raises(NotImplementedError, match="item 15"):
-            S.init_cache_global(cfg, mc, 2, 16, seq_sharded=True)
 
 
 class _RecordingDispatch:
