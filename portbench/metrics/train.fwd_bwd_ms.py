@@ -1,0 +1,8 @@
+"""train.fwd_bwd_ms: the median over the traced steps of the step's fwd + bwd stage,
+between CUDA events recorded at the training step's ``mark`` hooks (ms)."""
+import statistics
+
+
+def read(ctx):
+    ms = (ctx.get("spans") or {}).get("fwd_bwd_ms")
+    return statistics.median(ms) if ms else None
