@@ -39,6 +39,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
+
 from .sparse_vec import (SENTINEL, SparseChunk, _drop_last_row, _mask_val,
                          _put_rows, bucket_partition, compact_overflow,
                          concat_sorted_groups, segment_compact)
@@ -99,9 +101,12 @@ class DevicePlan:
                 for l in range(len(self.stages))]
 
     def edges_tensors(self, device) -> List[torch.Tensor]:
-        """:meth:`edges_arrays` as int64 tensors on ``device``."""
+        """:meth:`edges_arrays` as int64 tensors on ``device``: one
+        host-to-device copy a stage, counted in ``union.htod_copies``."""
+        edges = self.edges_arrays()
+        obs.count_htod("union.htod_copies", device, len(edges))
         return [torch.as_tensor(e, dtype=torch.int64, device=device)
-                for e in self.edges_arrays()]
+                for e in edges]
 
 
 def make_device_plan(axes: Sequence[Tuple[str, int]],
@@ -221,7 +226,10 @@ def sparse_allreduce_union(chunk: SparseChunk, plan: DevicePlan,
     layer; indices still flow from every replica and the zeros merge away
     exactly, so the union equals the unreplicated one.
     Returns (union chunk of capacity ``out_capacity`` per node, overflow
-    [M] -- entries dropped to capacity anywhere in the network).
+    [M] -- entries dropped to capacity anywhere in the network).  Spans
+    (:mod:`repro_torch.obs`): ``union.partition``, ``union.exchange`` and
+    ``union.merge`` each layer down, ``union.gather`` each layer up,
+    ``union.trim`` the final compaction.
     """
     check_merge(merge)
     check_wire(wire)
@@ -239,77 +247,91 @@ def sparse_allreduce_union(chunk: SparseChunk, plan: DevicePlan,
     # ---- down: scatter-reduce through the layers --------------------------
     for l, st in enumerate(plan.stages):
         k, e = st.degree, edges[l]
-        buckets, ovf = bucket_partition(chunk, e, k, st.bucket_capacity)
-        overflow = overflow + ovf
-        if wire == "raw":
-            r_idx, r_val = transport.all_to_all(l, buckets.idx, buckets.val)
-            r_scale = None
-        else:
-            # bucket d covers [e[d], e[d+1]): ship offsets from e[d]
-            send_words = _wc.pack_indices(buckets.idx, e[:, :k], widths[l])
-            send_val, scale = buckets.val, None
-            if wire == "delta+bf16":
-                send_val = send_val.to(torch.bfloat16)
-            elif wire == "delta+int8ef":
-                m = send_val.shape[0]
-                q, scale = _wc.quant8_rows(send_val.reshape(
-                    (m * k,) + send_val.shape[2:]))
-                send_val, scale = q.reshape(send_val.shape), scale.reshape(m, k)
-            sent = (send_words, send_val) + (() if scale is None else (scale,))
-            got = transport.all_to_all(l, *sent)
-            r_scale = got[2] if scale is not None else None
-            # every received row is a bucket of this node's own subrange,
-            # whose base is e[j], j = its position in the stage group
-            base = torch.gather(e, 1, transport.position(l).unsqueeze(1))
-            r_idx = _wc.unpack_indices(got[0], base.expand(-1, k),
-                                       st.bucket_capacity, widths[l])
-            r_val = got[1]
-        if merge in ("fused", "banded"):
-            from repro_torch.kernels import ops as _kops
-            chunk, movf = _kops.merge_sorted_runs(
-                r_idx, r_val, st.merged_capacity, mode=merge,
-                row_scale=r_scale,
-                out_dtype=compute_dtype if wire != "raw" else None)
-            overflow = overflow + movf
-        else:
-            if r_scale is not None:
-                r_val = _wc.dequant8_rows(r_val, r_scale)
-            cat = concat_sorted_groups(r_idx, r_val.to(compute_dtype))
-            overflow = overflow + compact_overflow(cat, st.merged_capacity)
-            chunk = segment_compact(cat, st.merged_capacity, max_depth=k)
+        with obs.span("union.partition"):
+            buckets, ovf = bucket_partition(chunk, e, k, st.bucket_capacity)
+            overflow = overflow + ovf
+        with obs.span("union.exchange"):
+            if wire == "raw":
+                r_idx, r_val = transport.all_to_all(l, buckets.idx,
+                                                    buckets.val)
+                r_scale = None
+            else:
+                # bucket d covers [e[d], e[d+1]): ship offsets from e[d]
+                send_words = _wc.pack_indices(buckets.idx, e[:, :k],
+                                              widths[l])
+                send_val, scale = buckets.val, None
+                if wire == "delta+bf16":
+                    send_val = send_val.to(torch.bfloat16)
+                elif wire == "delta+int8ef":
+                    m = send_val.shape[0]
+                    q, scale = _wc.quant8_rows(send_val.reshape(
+                        (m * k,) + send_val.shape[2:]))
+                    send_val, scale = (q.reshape(send_val.shape),
+                                       scale.reshape(m, k))
+                sent = (send_words, send_val) + (() if scale is None
+                                                 else (scale,))
+                got = transport.all_to_all(l, *sent)
+                r_scale = got[2] if scale is not None else None
+                # every received row is a bucket of this node's own
+                # subrange, whose base is e[j], j = its position in the
+                # stage group
+                base = torch.gather(e, 1, transport.position(l).unsqueeze(1))
+                r_idx = _wc.unpack_indices(got[0], base.expand(-1, k),
+                                           st.bucket_capacity, widths[l])
+                r_val = got[1]
+        with obs.span("union.merge"):
+            if merge in ("fused", "banded"):
+                from repro_torch.kernels import ops as _kops
+                chunk, movf = _kops.merge_sorted_runs(
+                    r_idx, r_val, st.merged_capacity, mode=merge,
+                    row_scale=r_scale,
+                    out_dtype=compute_dtype if wire != "raw" else None)
+                overflow = overflow + movf
+            else:
+                if r_scale is not None:
+                    r_val = _wc.dequant8_rows(r_val, r_scale)
+                cat = concat_sorted_groups(r_idx, r_val.to(compute_dtype))
+                overflow = overflow + compact_overflow(cat,
+                                                       st.merged_capacity)
+                chunk = segment_compact(cat, st.merged_capacity, max_depth=k)
 
     # ---- up: allgather back through the same nodes (nested) ---------------
     for li in range(len(plan.stages) - 1, -1, -1):
-        if wire == "raw":
-            idx, val = transport.all_gather(li, chunk.idx, chunk.val)
-            chunk = SparseChunk(idx=idx, val=val)
-            continue
-        # the sender's chunk covers its own subrange [e[j], e[j+1]); after
-        # the gather, row t covers subrange t of the group-shared edges
-        k, e = plan.stages[li].degree, edges[li]
-        m, cap = chunk.idx.shape[0], chunk.capacity
-        base = torch.gather(e, 1, transport.position(li).unsqueeze(1))[:, 0]
-        send_words = _wc.pack_indices(chunk.idx, base, widths[li])
-        if wire == "delta+int8ef":
-            q, scale = _wc.quant8_rows(chunk.val)
-            words, gq, gs = transport.all_gather(li, send_words, q,
-                                                 scale.unsqueeze(1))
-            val = _wc.dequant8_rows(
-                gq.reshape((m, k, cap) + gq.shape[2:]), gs).reshape(gq.shape)
-        else:
-            send_val = chunk.val
-            if wire == "delta+bf16":
-                send_val = send_val.to(torch.bfloat16)
-            words, val = transport.all_gather(li, send_words, send_val)
-        idx = _wc.unpack_indices(words.reshape(m, k, -1), e[:, :k], cap,
-                                 widths[li]).reshape(m, k * cap)
-        chunk = SparseChunk(idx=idx, val=val.to(compute_dtype))
+        with obs.span("union.gather"):
+            if wire == "raw":
+                idx, val = transport.all_gather(li, chunk.idx, chunk.val)
+                chunk = SparseChunk(idx=idx, val=val)
+                continue
+            # the sender's chunk covers its own subrange [e[j], e[j+1]);
+            # after the gather, row t covers subrange t of the group-shared
+            # edges
+            k, e = plan.stages[li].degree, edges[li]
+            m, cap = chunk.idx.shape[0], chunk.capacity
+            base = torch.gather(e, 1,
+                                transport.position(li).unsqueeze(1))[:, 0]
+            send_words = _wc.pack_indices(chunk.idx, base, widths[li])
+            if wire == "delta+int8ef":
+                q, scale = _wc.quant8_rows(chunk.val)
+                words, gq, gs = transport.all_gather(li, send_words, q,
+                                                     scale.unsqueeze(1))
+                val = _wc.dequant8_rows(
+                    gq.reshape((m, k, cap) + gq.shape[2:]),
+                    gs).reshape(gq.shape)
+            else:
+                send_val = chunk.val
+                if wire == "delta+bf16":
+                    send_val = send_val.to(torch.bfloat16)
+                words, val = transport.all_gather(li, send_words, send_val)
+            idx = _wc.unpack_indices(words.reshape(m, k, -1), e[:, :k], cap,
+                                     widths[li]).reshape(m, k * cap)
+            chunk = SparseChunk(idx=idx, val=val.to(compute_dtype))
 
     if chunk.capacity != plan.out_capacity:
         chunk = _trim_sorted(chunk, plan.out_capacity)
     return chunk, overflow
 
 
+@obs.span("union.trim")
 def _trim_sorted(chunk: SparseChunk, cap: int) -> SparseChunk:
     """Keep the first ``cap`` *valid* rows of concat-of-sorted-ranges
     chunks (valid rows compacted to the front, sentinel padding after)."""
@@ -347,6 +369,7 @@ def run_union_allreduce(plan: DevicePlan, idx: torch.Tensor, val: torch.Tensor,
     weight = None
     if plan.replication > 1 or dead:
         from .replication import contribution_weights
+        obs.count_htod("union.htod_copies", idx.device)
         weight = torch.as_tensor(contribution_weights(
             plan.num_nodes, plan.replication, dead), device=idx.device)
     if idx.shape[0] != plan.num_nodes:

@@ -47,6 +47,7 @@ from typing import List, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels.wirecodec import LOSSY_WIRE
 
 from . import autotune
@@ -313,6 +314,7 @@ class SparseAllreduce:
                 for n in range(self.num_nodes)]
 
     # ------------------------------------------------------------------
+    @obs.span("union.reduce")
     def union_reduce(self, idx, val, out_capacity: int):
         """Gather-all union sum with dynamic indices (the paper's
         mini-batch mode) over the stacked mesh, honouring ``merge``.
@@ -335,6 +337,7 @@ class SparseAllreduce:
         """
         r, m_phys = self.replication, self.num_physical
         dev = self._device()
+        obs.count_htod("union.htod_copies", dev, _host_inputs(idx, val))
         idx = as_index_tensor(idx, dev)
         val = torch.as_tensor(val, device=dev)
         if idx.shape[0] != self.num_nodes:
@@ -361,6 +364,7 @@ class SparseAllreduce:
                                           wire=self.wire, transport=transport,
                                           dead=self.dead)
         if r > 1:
+            obs.count_htod("union.htod_copies", dev)
             fa = torch.as_tensor(first_alive_replicas(m_phys, r, self.dead),
                                  device=dev)
             oi, ov, ovf = oi[fa], ov[fa], ovf[fa]
@@ -408,3 +412,10 @@ class SparseAllreduce:
         if self.backend == "sim" and self._sim is not None:
             return getattr(self._sim, "reduce_stats", None)
         return None
+
+
+def _host_inputs(*xs) -> int:
+    """How many of ``xs`` are host arrays or CPU tensors: each is one
+    host-to-device copy onto a card (``union.htod_copies``)."""
+    return sum(not isinstance(x, torch.Tensor) or x.device.type == "cpu"
+               for x in xs)

@@ -54,6 +54,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
+
 from .topology import ButterflyPlan
 
 
@@ -106,6 +108,9 @@ class StackedTransport:
             self._gather.append(torch.as_tensor(members.reshape(-1),
                                                 device=self.device))
             self._position.append(torch.as_tensor(digit, device=self.device))
+        # the tables: three host-to-device copies a layer (a union reduce's
+        # plan-cache miss makes a transport)
+        obs.count_htod("union.htod_copies", self.device, 3 * plan.depth)
 
     @property
     def num_nodes(self) -> int:

@@ -54,6 +54,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.api import SparseAllreduce
 from repro_torch.core.netmodel import EC2_2013, Fabric
 from repro_torch.core.transport import resolve_device
@@ -422,6 +423,8 @@ class GraphEngine:
     ``overlap=True`` runs k >= 2 rounds in the rotated schedule (module
     docstring).  On a CUDA device every ``run`` is one graph replay
     (``report["graph_launches"]``; ``captures`` counts the captures).
+    Spans (:mod:`repro_torch.obs`): ``engine.config`` the ``config``,
+    ``engine.run`` each ``run``.
     """
 
     # eager rounds a capture runs first, on the static inputs
@@ -446,7 +449,8 @@ class GraphEngine:
                                   plan_cache=plan_cache, retune=retune,
                                   nodes=nodes)
         self.nodes = self.ar.nodes
-        self.config_stats = self.ar.config(self.out_sets, self.in_sets)
+        with obs.span("engine.config"):
+            self.config_stats = self.ar.config(self.out_sets, self.in_sets)
         self.config_cache = self.ar.config_cache
         self.planned, self.device = self.ar.planned_parts()
         meta = self.ar.staging_metadata()
@@ -558,6 +562,7 @@ class GraphEngine:
             self.report["step_traces"] += 1
         return fn
 
+    @obs.span("engine.run")
     def run(self, k: int, state, extras=None, *, collect: str = "last"):
         """Execute k rounds on the device.
 

@@ -82,6 +82,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.core.allreduce import (
     MERGE_MODES, DevicePlan, dense_allreduce_hierarchical_bucketed,
     make_device_plan, sparse_allreduce_union)
@@ -536,7 +537,9 @@ def sync_grads(grads, cfg: ModelConfig, mc: MeshCtx, mode: str,
     ``overlap="bucketed"`` defers the dense butterfly's leaves to one
     bucketed pass (:func:`_bucketed_hier_leaves`, ``bucket_bytes`` a
     bucket) after the others; the sparse, FSDP and ring leaves are not
-    bucketed, and every result is that of ``"off"`` bit for bit."""
+    bucketed, and every result is that of ``"off"`` bit for bit.  The
+    embedding's :func:`sparse_sync_rows` is the span ``train.sync.sparse``
+    (:mod:`repro_torch.obs`)."""
     if overlap not in SYNC_OVERLAP_MODES:
         raise ValueError(
             f"overlap must be one of {SYNC_OVERLAP_MODES}, got {overlap!r}")
@@ -564,10 +567,11 @@ def sync_grads(grads, cfg: ModelConfig, mc: MeshCtx, mode: str,
         cap = {} if capture is not None and path == ("emb",) else None
         picked = False                  # r is row ``rows`` already
         if mode == "sparse" and path == ("emb",) and not cfg.tie_embeddings:
-            r, ovf, nef = sparse_sync_rows(
-                g, token_ids, mc, plans.sparse_plan, plans.sparse_edges,
-                plans.sparse, merge=merge, wire=wire, ef=ef, capture=cap,
-                row=rows)
+            with obs.span("train.sync.sparse"):
+                r, ovf, nef = sparse_sync_rows(
+                    g, token_ids, mc, plans.sparse_plan, plans.sparse_edges,
+                    plans.sparse, merge=merge, wire=wire, ef=ef, capture=cap,
+                    row=rows)
             overflow = overflow + ovf
             if nef is not None:
                 new_ef = nef
@@ -810,7 +814,8 @@ def make_train_step(cfg: ModelConfig, mc: MeshCtx, *, sync: str = "ring",
     ``capture["aux"]`` receives them all, [M, tp].
 
     ``step(..., mark=fn)`` calls ``fn("fwd_bwd")``, ``fn("sync")`` and
-    ``fn("update")`` as each stage is enqueued (timing hooks);
+    ``fn("update")`` as each stage is enqueued (timing hooks); a step is
+    the span ``train.step`` (:mod:`repro_torch.obs`);
     ``capture={}`` receives the embedding leaf's float32 sync
     (``capture["emb"]``) and row 0 of every synced leaf
     (``capture["synced"]``).  Updates never write in place.  With
@@ -852,6 +857,7 @@ def make_train_step(cfg: ModelConfig, mc: MeshCtx, *, sync: str = "ring",
         gs = torch.autograd.grad((loss + aux_weight * aux_obj).sum(), ps)
         return gs, loss.detach(), aux.detach()
 
+    @obs.span("train.step")
     def step(params, opt_state, batch, mark: Optional[Callable] = None,
              capture: Optional[dict] = None):
         mark = mark or (lambda stage: None)

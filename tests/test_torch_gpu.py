@@ -38,7 +38,11 @@ merge kernels, and the serve launcher takes the card by default.  The
 decode layouts: split-KV equals the one-position batch-sharded decode
 and serve2d the gather decode on the card, each as its CPU run; the
 audit sweep is clean on the card (one graph replay an engine run, no
-host read or DtoH copy in the greedy steps).
+host read or DtoH copy in the greedy steps).  The spans
+(``repro_torch.obs``): an engine captured and replayed under the
+profiler, each run one ``engine.run`` span with device time, no event
+recorded inside a capture; and the union reduce's kernel launches
+inside its span on the device trace's clock.
 """
 import json
 import os
@@ -1496,3 +1500,97 @@ def test_engine_capture_runs_without_cyclic_collection(cuda, monkeypatch):
     engine.run(3, p0, extras)
     assert engine.report["captures"] == 1
     assert seen and not any(seen) and gc.isenabled()
+
+
+@pytest.mark.gpu
+def test_engine_spans_under_the_profiler_on_gpu(cuda):
+    """A PageRank engine captured and replayed while ``torch.profiler``
+    records: the capture succeeds; each run (the first captures, each
+    replays) is one ``engine.run`` span with positive device ms and no
+    span inside; a span opened inside a graph capture records no event,
+    and its graph replays."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import obs
+    from repro_torch.analysis.cli import pagerank_engine
+    engine, extras, p0 = pagerank_engine(cuda)
+    want = engine.eager_fn(3)(p0, extras)[0]
+    x = torch.arange(8.0, device=cuda)
+    graph = torch.cuda.CUDAGraph()
+    obs.reset()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        outs = [engine.run(3, p0, extras)[0] for _ in range(3)]
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph):
+            with obs.span("t.captured"):
+                y = x * 2
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, 2 * x)
+    assert all(torch.equal(o, want) for o in outs)
+    assert engine.report["captures"] == 1
+    tl = obs.timeline()
+    (captured,) = [s for s in tl if s.name == "t.captured"]
+    assert captured.events is None
+    runs = [s for s in tl if s.name == "engine.run"]
+    assert len(runs) == 3 and len(tl) == 4
+    assert all(run.parent is None and run.device_ms() > 0 for run in runs)
+    obs.reset()
+
+
+@pytest.mark.gpu
+def test_span_stamps_hold_their_launches_on_the_trace_clock_on_gpu(
+        cuda, tmp_path):
+    """The card's Chrome trace has the base ``obs.trace_base_ns`` gives,
+    and at least 99 % of the ``cudaLaunchKernel`` calls of union reduces
+    traced alone fall inside a ``union.reduce`` span once its host stamps
+    are put on the trace's clock; the phases' device ms lie within the
+    reduce's; each reduce's ``union.htod_copies`` (the two stages' edges:
+    the inputs are on the card, the plan cached) is the trace's count of
+    host-to-device copies a reduce."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import obs
+    from repro_torch.core.api import SparseAllreduce
+    rng = np.random.RandomState(5)
+    m, cap = 16, 4096
+    idx = np.stack([np.sort(rng.choice(10**6, cap, replace=False))
+                    for _ in range(m)])
+    idx = torch.as_tensor(idx.astype(np.int64), device=cuda)
+    val = torch.as_tensor(rng.randint(-64, 64, (m, cap)) / 8.0,
+                          dtype=torch.float32, device=cuda)
+    ar = SparseAllreduce(m, (4, 4), backend="device", device=cuda,
+                         merge="fused", plan_cache=False)
+    ar.union_reduce(idx, val, m * cap)
+    torch.cuda.synchronize()
+    obs.reset()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            ar.union_reduce(idx, val, m * cap)
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    reduces = [s for s in obs.timeline() if s.name == "union.reduce"]
+    assert len(reduces) == 5
+    assert int(trace["baseTimeNanoseconds"]) == \
+        obs.trace_base_ns(reduces[0].start_ns)
+    spans_us = [(obs.trace_us(s.start_ns), obs.trace_us(s.end_ns))
+                for s in reduces]
+    launches = [float(e["ts"]) for e in trace["traceEvents"]
+                if e.get("ph") == "X" and e.get("cat") == "cuda_runtime"
+                and str(e.get("name", "")).startswith("cudaLaunchKernel")]
+    inside = sum(any(a <= t <= b for a, b in spans_us) for t in launches)
+    print(f"launches inside union.reduce: {inside} of {len(launches)}")
+    assert launches and inside >= 0.99 * len(launches)
+    htod = [e for e in trace["traceEvents"] if e.get("ph") == "X"
+            and e.get("cat") == "gpu_memcpy" and "HtoD" in str(e.get("name"))]
+    print(f"host-to-device copies traced: {len(htod)}")
+    assert [r.counts.get("union.htod_copies") for r in reduces] == [2] * 5
+    assert len(htod) == 2 * 5
+    for r in reduces:
+        phases = [s.device_ms() for s in obs.timeline()
+                  if s.root == r.id and s.name in (
+                      "union.partition", "union.exchange", "union.merge",
+                      "union.gather", "union.trim")]
+        assert len(phases) == 3 * 2 + 2 + 1
+        assert 0 < sum(phases) <= r.device_ms() * 1.01
+    obs.reset()
