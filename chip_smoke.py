@@ -228,7 +228,12 @@ line each, after the ``nvidia-smi`` name/power-limit line):
    stable argsort; the ELL SpMV rtol 1e-5; the CSR SpMV rtol 1e-5 on
    PageRank's first graph, and on the other graphs within 1e-5 x (|A|
    |x|) of the float64 product and 1e-4 x (|A| |x|) of the plain version,
-   and repeatable; rows 1-6 also at every shape of the train phases --
+   and repeatable; the union path's run compaction (``trim_runs``, no TPU
+   kernel) at every (phase, shape) the main path handed it on the card,
+   union_wire's [64, 64 x 131,072] to 2^22 first, bit for bit against its
+   plain version (the former scan-and-scatter trim) and repeatable, its
+   launches by phase and two CUDA launches a call; rows 1-6 also at
+   every shape of the train phases --
    the rank rows in ``shapes`` with phase ``train``, ``train_tp``,
    ``train_tp_moe``, ``train_pod``, ``train_pod_tp``, ``train_long``
    (capacity 8,192), ``train_moe``, ``train_ssm``, ``train_encdec`` or
@@ -695,6 +700,15 @@ def rank_variant(args, kwargs):
             tuple(args[0].shape))
 
 
+def trim_variant(args, kwargs):
+    """Recorder key of a run-compaction call: the phase, the device type
+    (a CPU call runs the plain version and launches nothing), the index
+    and value shapes, the value dtype, the run length and the capacity."""
+    idx, val, run, cap = args
+    return (PHASE["name"], idx.device.type, tuple(idx.shape),
+            tuple(val.shape), str(val.dtype), run, cap)
+
+
 def phase_planned(torch, parts):
     """Planned reduce on the PageRank index sets vs the float64 sim."""
     from repro_torch.core.api import SparseAllreduce
@@ -893,8 +907,8 @@ def phase_union_wire(torch):
     banded_i8 = next(p["launches"] for p in pairs
                      if p["merge"] == "banded" and p["wire"] == "delta+int8ef")
     assert banded_i8 == {"rank_counts_banded": len(DEGREES),
-                         "banded_onehot_scatter_add_scaled": len(DEGREES)}, \
-        banded_i8
+                         "banded_onehot_scatter_add_scaled": len(DEGREES),
+                         "trim_runs": 1}, banded_i8
     emit({"phase": "union_wire", "ok": True, "union_count": n,
           "out_capacity": out_cap, "in_capacity": WIRE_C,
           "draws_per_node": WIRE_DRAWS,
@@ -4580,6 +4594,87 @@ def spmv_ell_row(torch, parts, row_ptr, cols, wts, x, launches):
     return row
 
 
+def float_bits(torch, t):
+    """The raw bits of a tensor (-0.0 and 0.0 differ)."""
+    if not t.dtype.is_floating_point:
+        return t
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def trim_call(torch, args, calls):
+    """The run compaction on one recorded main-path call (``calls``
+    main-path calls of its shape): bit for bit equal to its plain version
+    (the former scan-and-scatter trim, on the card), two calls
+    identical; the kernel's and the plain version's ms, and the byte
+    bound: each kept row read once and every output slot written once."""
+    from repro_torch.core.sparse_vec import SENTINEL
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.trim_runs import trim_runs
+    idx, val, run, cap = args
+    got = trim_runs(*args)
+    want = ref.trim_runs_ref(*args)
+    assert torch.equal(got[0], want[0]), "trim idx differs from plain"
+    assert torch.equal(float_bits(torch, got[1]),
+                       float_bits(torch, want[1])), "trim values differ"
+    again = trim_runs(*args)
+    assert torch.equal(got[0], again[0]) and torch.equal(
+        float_bits(torch, got[1]), float_bits(torch, again[1])), "repeat"
+    b, c = math.prod(idx.shape[:-1]), idx.shape[-1]
+    counts = (idx.reshape(b, c // run, run) != SENTINEL).sum(-1)
+    kept = int(counts.sum(-1).clamp(max=cap).sum())
+    row_bytes = 8 + val[(0,) * idx.ndim].numel() * val.element_size()
+    del got, want, again
+    reps = min(100, max(5, (1 << 27) // idx.numel()))
+    return {"shape": list(val.shape), "run_length": run, "runs": c // run,
+            "cap": cap, "val_dtype": str(val.dtype), "kept_rows": kept,
+            "launches": calls,
+            "ms": cuda_ms(lambda: trim_runs(*args), reps=reps, warmup=2),
+            "plain_ms": cuda_ms(lambda: ref.trim_runs_ref(*args), reps=3,
+                                warmup=1),
+            "bound_ms": bound_ms((kept + b * cap) * row_bytes),
+            "bound_by": "bytes", "reps": reps}
+
+
+def trim_row(torch, rec, launches):
+    """The run compaction at every (phase, shape) the main path handed it
+    on the card, union_wire's (the mini-batch scale) first; the top-level
+    numbers are that call's, with its CUDA launches and device ms per
+    kernel stage (profiler).  The calls sum to the main path's launches;
+    CPU calls (the plain version, no launch) are counted apart."""
+    keys = [key for key in rec.args if key[1] == "cuda"]
+    keys.sort(key=lambda key: (ROW_PHASES.index(key[0])
+                               if key[0] in ROW_PHASES else len(ROW_PHASES),
+                               key[0], -math.prod(key[3])))
+    shapes = [dict(trim_call(torch, rec.args[key][0], rec.calls[key]),
+                   phase=key[0]) for key in keys]
+    by_phase = {}
+    for e in shapes:
+        by_phase[e["phase"]] = by_phase.get(e["phase"], 0) + e["launches"]
+    assert sum(by_phase.values()) == launches["trim_runs"], \
+        (by_phase, launches["trim_runs"])
+    first = shapes[0]
+    stages = fresh_profile(("repro_torch.kernels.trim_runs", "trim_runs"),
+                           rec.args[keys[0]][0])
+    first["cuda_launches_per_call"] = sum(n for _, n in stages.values())
+    first["stage_ms"] = {name: ms for name, (ms, _) in stages.items()}
+    assert first["cuda_launches_per_call"] == 2, stages
+    return {"name": "trim_runs", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/trim_runs.cu",
+            "replaces": "no TPU kernel: the union path's scan-and-scatter "
+                        "trim (the plain version)",
+            "launches": launches["trim_runs"], "max_abs_err": 0,
+            "check": "bit for bit = plain (the former trim) at every "
+                     "main-path shape, repeat identical",
+            **{k: first[k] for k in ("shape", "val_dtype", "ms", "plain_ms",
+                                     "bound_ms", "bound_by",
+                                     "cuda_launches_per_call", "stage_ms")},
+            "launches_by_phase": by_phase,
+            "cpu_calls": sum(n for key, n in rec.calls.items()
+                             if key[1] != "cuda"),
+            "shapes": shapes}
+
+
 def rank_shapes(rec, kind):
     """[(runs, main-path calls, phase)] of one merge-rank kernel, one per
     (phase, shape): union_wire's first, in butterfly-layer order, then
@@ -4592,10 +4687,11 @@ def rank_shapes(rec, kind):
 def kernel_rows(torch, rec, launches, parts, train_launches,
                 serve_launches):
     """Every kernel on its recorded main-path inputs vs its plain version,
-    in the order of the TPU kernel table; ``train_launches`` are the train
-    phases' own counts, summed (their shapes are checked on general
-    floats), and ``serve_launches`` the serve phases' (the dispatch's
-    tail unions: the dense scatters' ``serve`` entries)."""
+    in the order of the TPU kernel table, then the run compaction;
+    ``train_launches`` are the train phases' own counts, summed (their
+    shapes are checked on general floats), and ``serve_launches`` the
+    serve phases' (the dispatch's tail unions: the dense scatters'
+    ``serve`` entries)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.onehot_scatter import onehot_scatter_add
     scat = rec["scatter"].args
@@ -4666,6 +4762,7 @@ def kernel_rows(torch, rec, launches, parts, train_launches,
     csr_args = rec["spmv"].args[("pagerank", "first")][0]
     rows.append(spmv_ell_row(torch, parts, *csr_args[:4], launches))
     rows.append(spmv_csr_row(torch, rec["spmv"], launches))
+    rows.append(trim_row(torch, rec["trim"], launches))
     return rows
 
 
@@ -4687,6 +4784,7 @@ def smoke(torch) -> int:
     """Every phase, then the kernels line and the last line."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.data.pipeline import powerlaw_graph
+    from repro_torch.core import allreduce
     from repro_torch.graph import engine
     from repro_torch.graph.pagerank import build_partitions
     from repro_torch.kernels import _build, ops
@@ -4713,7 +4811,8 @@ def smoke(torch) -> int:
            "banded": Recorder(ops, "banded_onehot_scatter_add",
                               banded_variant),
            "spmv": Recorder(engine, "spmv_csr",
-                            lambda a, kw: (PHASE["name"], "first"))}
+                            lambda a, kw: (PHASE["name"], "first")),
+           "trim": Recorder(allreduce, "trim_runs", trim_variant)}
 
     seconds, parked = {}, {}
 

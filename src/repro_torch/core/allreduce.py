@@ -41,8 +41,9 @@ import torch
 
 from repro_torch import obs
 
-from .sparse_vec import (SENTINEL, SparseChunk, _drop_last_row, _mask_val,
-                         _put_rows, bucket_partition, compact_overflow,
+from repro_torch.kernels.trim_runs import trim_runs
+
+from .sparse_vec import (SparseChunk, bucket_partition, compact_overflow,
                          concat_sorted_groups, segment_compact)
 from .topology import ButterflyPlan, check_wire
 from .transport import StackedTransport
@@ -327,26 +328,20 @@ def sparse_allreduce_union(chunk: SparseChunk, plan: DevicePlan,
             chunk = SparseChunk(idx=idx, val=val.to(compute_dtype))
 
     if chunk.capacity != plan.out_capacity:
-        chunk = _trim_sorted(chunk, plan.out_capacity)
+        # The up-gathers lay equal copies of the last merged chunk end to
+        # end, so the gathered chunk is runs of that capacity, each sorted
+        # with its valid rows first: every merge (sort, fused, banded)
+        # leaves its chunk so, the delta wires decode padding to SENTINEL,
+        # and an r-way plan's replica stage is one more such layer.  With
+        # no stage the input chunk is one sorted run.
+        run = plan.stages[-1].merged_capacity if plan.stages \
+            else chunk.capacity
+        with obs.span("union.trim"):
+            idx, val = trim_runs(chunk.idx.contiguous(),
+                                 chunk.val.contiguous(), run,
+                                 plan.out_capacity)
+        chunk = SparseChunk(idx=idx, val=val)
     return chunk, overflow
-
-
-@obs.span("union.trim")
-def _trim_sorted(chunk: SparseChunk, cap: int) -> SparseChunk:
-    """Keep the first ``cap`` *valid* rows of concat-of-sorted-ranges
-    chunks (valid rows compacted to the front, sentinel padding after)."""
-    valid = chunk.valid_mask()
-    pos = torch.cumsum(valid, -1) - 1
-    dest = torch.where(valid & (pos < cap), pos, cap)
-    lead = chunk.idx.shape[:-1]
-    out_idx = torch.full(lead + (cap + 1,), SENTINEL, dtype=torch.int64,
-                         device=chunk.idx.device).scatter_(-1, dest, chunk.idx)
-    wshape = chunk.val.shape[chunk.idx.ndim:]
-    out_val = torch.zeros(lead + (cap + 1,) + wshape, dtype=chunk.val.dtype,
-                          device=chunk.val.device)
-    _put_rows(out_val, dest, _mask_val(valid, chunk.val), add=False)
-    return SparseChunk(idx=out_idx[..., :-1],
-                       val=_drop_last_row(out_val, len(wshape) + 1))
 
 
 def run_union_allreduce(plan: DevicePlan, idx: torch.Tensor, val: torch.Tensor,

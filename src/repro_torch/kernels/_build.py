@@ -25,7 +25,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("rank_merge.cu", "rank_merge_banded.cu", "onehot_scatter.cu",
-           "banded_onehot_scatter.cu", "spmv_ell.cu", "spmv_csr.cu")
+           "banded_onehot_scatter.cu", "spmv_ell.cu", "spmv_csr.cu",
+           "trim_runs.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -33,12 +34,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # One entry per TPU kernel (scaled variants apart from their unscaled ones),
 # plus ``row_order``, the dense scatter's layout stages, and
 # ``banded_windows``, the banded scatter's window table, each launched on
-# its own.
+# its own, and ``trim_runs``, the union path's final compaction, which
+# replaces no TPU kernel.
 LAUNCHES: Dict[str, int] = {
     "rank_counts": 0, "rank_counts_banded": 0, "onehot_scatter_add": 0,
     "onehot_scatter_add_scaled": 0, "banded_onehot_scatter_add": 0,
     "banded_onehot_scatter_add_scaled": 0, "spmv_ell": 0, "spmv_csr": 0,
-    "row_order": 0, "banded_windows": 0}
+    "row_order": 0, "banded_windows": 0, "trim_runs": 0}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point -> argtypes (pointers and the stream as c_void_p).
@@ -55,6 +57,7 @@ _SIGNATURES = {
     "repro_spmv_ell": (_P, _P, _P, _P, _LL, _LL, _LL, _LL, _P),
     "repro_spmv_csr": (_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _I,
                        _I, _P),
+    "repro_trim_runs": (_P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _P),
 }
 # C entry points that return a count, not a CUDA error
 _SIZES = {"repro_row_order_scratch": (_LL, _LL),

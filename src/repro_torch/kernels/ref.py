@@ -278,3 +278,30 @@ def spmv_ell_ref(cols: torch.Tensor, weights: torch.Tensor,
     g = g * (cols.reshape(b, r * k) >= 0)
     y = (weights.reshape(b, r * k).to(torch.float32) * g).reshape(b, r, k)
     return y.sum(-1).reshape(lead + (r,))
+
+
+def trim_runs_ref(idx: torch.Tensor, val: torch.Tensor, run_length: int,
+                  cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first ``cap`` valid rows of ``idx`` int64 [..., C] and ``val``
+    [..., C] or [..., C, W...] in order, SENTINEL and zero values after them
+    -> (idx [..., cap], val [..., cap(, W...)]): a cumulative sum of the
+    valid flags places each kept row, one scatter moves the indices and
+    one the values into a drop bin past ``cap``.  It holds for any layout
+    of the valid rows; ``run_length`` (the kernel's S = C / run_length
+    sorted runs) is taken for the wrapper's signature and not used.  The
+    values are copied, never summed."""
+    valid = idx != SENTINEL
+    pos = torch.cumsum(valid, -1) - 1
+    dest = torch.where(valid & (pos < cap), pos, cap)
+    lead = idx.shape[:-1]
+    out_idx = torch.full(lead + (cap + 1,), SENTINEL, dtype=torch.int64,
+                         device=idx.device).scatter_(-1, dest, idx)
+    wshape = val.shape[idx.ndim:]
+    rows = valid.reshape(valid.shape + (1,) * len(wshape))
+    masked = torch.where(rows, val, torch.zeros_like(val))
+    out_val = torch.zeros(lead + (cap + 1,) + wshape, dtype=val.dtype,
+                          device=val.device)
+    d = dest.reshape(dest.shape + (1,) * len(wshape)).expand(masked.shape)
+    out_val.scatter_(idx.ndim - 1, d, masked)
+    return out_idx[..., :cap], out_val[(..., slice(0, cap))
+                                       + (slice(None),) * len(wshape)]

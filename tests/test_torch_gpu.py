@@ -42,7 +42,14 @@ host read or DtoH copy in the greedy steps).  The spans
 (``repro_torch.obs``): an engine captured and replayed under the
 profiler, each run one ``engine.run`` span with device time, no event
 recorded inside a capture; and the union reduce's kernel launches
-inside its span on the device trace's clock.
+inside its span on the device trace's clock.  The union path's run
+compaction (``trim_runs``) equals its plain version bit for bit on every
+layout (the mini-batch shape, 2 to 2,048 runs, empty, full and unaligned
+runs, the cut inside a run, at and past the capacity, W = 1, 3 and 1,536
+in float32 and bfloat16), repeats bit for bit, is no slower than the
+former scan-and-scatter trim at the mini-batch shape and the training
+sync's width, and launches once a union reduce with no scan over the
+gathered slots.
 """
 import json
 import os
@@ -1593,4 +1600,174 @@ def test_span_stamps_hold_their_launches_on_the_trace_clock_on_gpu(
                       "union.gather", "union.trim")]
         assert len(phases) == 3 * 2 + 2 + 1
         assert 0 < sum(phases) <= r.device_ms() * 1.01
+    obs.reset()
+
+
+# ---- the union path's run compaction (csrc/trim_runs.cu) -------------------
+
+def _trim_chunks(cuda, seed, b, s, l, counts, wshape=(), dtype=torch.float32):
+    """Gathered chunks on the card: idx int64 [b, s * l] of s runs, run r of
+    chunk i sorted with ``counts[i, r]`` valid ids first and SENTINEL
+    after; general float values [b, s * l, *wshape], garbage under the
+    padding and signed zeros among them."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    ids = torch.randint(0, SENT, (b, s, l), generator=g, device=cuda,
+                        dtype=torch.int64).sort(-1).values
+    n = torch.as_tensor(np.array(counts), dtype=torch.int64, device=cuda)
+    ids[torch.arange(l, device=cuda) >= n[..., None]] = SENT
+    val = torch.randn((b, s * l) + wshape, generator=g, device=cuda)
+    val.view(-1)[::7] = -0.0
+    return ids.reshape(b, s * l), val.to(dtype)
+
+
+def _bits(t):
+    """Raw bits of a float tensor (-0.0 and 0.0 differ)."""
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def _trim_case(name, rng):
+    """(b, s, l, counts [b, s], cap, wshape, dtype) of a named layout."""
+    if name == "minibatch":          # 64 nodes, 16 x 4: 64 runs of 65,536
+        b, s, l = 64, 64, 65536
+        counts = np.broadcast_to(22500 + rng.randint(-600, 600, s), (b, s))
+        return b, s, l, counts, 2**21, (), torch.float32
+    if name.startswith("train"):     # granite's embedding rows, M = 2
+        b, s, l = 2, 2, 8192
+        counts = rng.randint(3000, 4100, (b, s))
+        dtype = torch.bfloat16 if name.endswith("bf16") else torch.float32
+        return b, s, l, counts, 8192, (1536,), dtype
+    b, l = 8, 700
+    s = int(name.split("_")[-1]) if name.startswith("s_") else 4
+    counts = rng.randint(0, l + 1, (b, s))
+    cap = int(counts.sum(1).max()) + 3
+    wshape, dtype = (), torch.float32
+    if name == "empty_full":
+        counts[:, ::3], counts[:, 1::3], counts[0] = 0, l, 0
+    elif name == "over_cap":         # dropped inside a run
+        cap = int(counts.sum(1).min()) - l // 3
+    elif name == "exact_cap":
+        counts[1:] = counts[0]
+        cap = int(counts[0].sum())
+    elif name.startswith("unaligned"):   # odd counts: every offset odd
+        counts = 2 * rng.randint(0, l // 2, (b, s)) + 1
+        cap = int(counts.sum(1).max()) + 3
+        wshape = (3,) if "w3" in name else ()
+        dtype = torch.bfloat16 if "bf16" in name else torch.float32
+    elif name == "many_runs":        # offsets searched in global memory
+        s, l = 2048, 8
+        counts = rng.randint(0, l + 1, (b, s))
+        cap = int(counts.sum(1).max()) // 2
+    elif name == "cap_past_slots":
+        cap = s * l + 1000
+    return b, s, l, counts, cap, wshape, dtype
+
+
+TRIM_CASES = ("minibatch", "s_2", "s_4", "s_64", "empty_full", "over_cap",
+              "exact_cap", "unaligned", "unaligned_bf16", "unaligned_w3",
+              "unaligned_w3_bf16", "train", "train_bf16", "many_runs",
+              "cap_past_slots")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", TRIM_CASES)
+def test_trim_runs_kernel_matches_plain_on_gpu(cuda, name):
+    """The run compaction equals its plain version bit for bit (on a CPU
+    copy, and on the card at the mini-batch shape), two launches give the
+    same bits, and each call counts one launch."""
+    from repro_torch.kernels.trim_runs import trim_runs
+    rng = np.random.RandomState(TRIM_CASES.index(name))
+    b, s, l, counts, cap, wshape, dtype = _trim_case(name, rng)
+    idx, val = _trim_chunks(cuda, TRIM_CASES.index(name), b, s, l, counts,
+                            wshape, dtype)
+    before = _build.LAUNCHES["trim_runs"]
+    got_idx, got_val = trim_runs(idx, val, l, cap)
+    again_idx, again_val = trim_runs(idx, val, l, cap)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["trim_runs"] - before == 2
+    assert got_idx.shape == (b, cap) and got_val.shape == (b, cap) + wshape
+    if name == "minibatch":
+        want_idx, want_val = ref.trim_runs_ref(idx, val, l, cap)
+    else:
+        want_idx, want_val = ref.trim_runs_ref(idx.cpu(), val.cpu(), l, cap)
+    assert torch.equal(got_idx.cpu(), want_idx.cpu())
+    assert torch.equal(_bits(got_val).cpu(), _bits(want_val).cpu())
+    assert torch.equal(got_idx, again_idx)
+    assert torch.equal(_bits(got_val), _bits(again_val))
+
+
+def _cuda_ms(fn, reps=10):
+    """Mean device ms of ``fn`` over ``reps`` calls after two warm-ups."""
+    for _ in range(2):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["minibatch", "train"])
+def test_trim_runs_not_slower_than_scan_trim_on_gpu(cuda, name):
+    """At the mini-batch shape ([64, 64 x 65,536] to 2^21, float32) and at
+    the training sync's width ([2, 2 x 8,192, 1,536] to 8,192, float32)
+    the kernel is no slower than the union path's former scan-and-scatter
+    trim (the plain version, ``ref.trim_runs_ref``).  Prints both device
+    ms (CUDA events, 10 calls after two) beside the byte bound at 3.35
+    TB/s."""
+    from repro_torch.kernels.trim_runs import trim_runs
+    rng = np.random.RandomState(11)
+    b, s, l, counts, cap, wshape, dtype = _trim_case(name, rng)
+    idx, val = _trim_chunks(cuda, 11, b, s, l, counts, wshape, dtype)
+    kernel_ms = _cuda_ms(lambda: trim_runs(idx, val, l, cap))
+    scan_ms = _cuda_ms(lambda: ref.trim_runs_ref(idx, val, l, cap))
+    row = 8 + val[0, 0].numel() * val.element_size()
+    kept = int(np.minimum(counts.sum(1), cap).sum())
+    bound_ms = (kept + b * cap) * row / 3.35e12 * 1e3
+    print(f"trim_runs {name}: kernel {kernel_ms:.4f} ms, former trim "
+          f"{scan_ms:.4f} ms, bound {bound_ms:.4f} ms, "
+          f"{torch.cuda.get_device_name()}")
+    assert kernel_ms <= scan_ms
+
+
+@pytest.mark.gpu
+def test_union_reduce_launches_trim_runs_once_on_gpu(cuda):
+    """Each union reduce launches the run compaction once (``launch.
+    trim_runs`` in ``obs.snapshot()``), runs no ``cumsum`` over the
+    gathered slots, and returns the CPU run's ids and values (dyadic
+    values: the sums are exact on both)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import obs
+    from repro_torch.core.api import SparseAllreduce
+    rng = np.random.RandomState(12)
+    m, cap = 16, 4096
+    idx = np.stack([np.sort(rng.choice(10**6, cap, replace=False))
+                    for _ in range(m)]).astype(np.int64)
+    val = (rng.randint(-64, 64, (m, cap)) / 8.0).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        ar = SparseAllreduce(m, (4, 4), backend="device", device=dev,
+                             merge="fused", plan_cache=False)
+        args = (torch.as_tensor(idx, device=dev),
+                torch.as_tensor(val, device=dev), m * cap)
+        out[str(dev)] = ar.union_reduce(*args)
+    obs.reset()
+    before = obs.snapshot()["counters"]["launch.trim_runs"]
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        for _ in range(3):
+            ar.union_reduce(*args)
+        torch.cuda.synchronize()
+    assert obs.snapshot()["counters"]["launch.trim_runs"] - before == 3
+    scans = [e.input_shapes for e in prof.events() if e.name == "aten::cumsum"]
+    print(f"cumsum input shapes in three reduces: {scans}")
+    # the merges' scans run over at most k x bucket slots; the gathered
+    # union (16 runs of the last merged capacity) is more than the out
+    # capacity, and no scan covers that many
+    assert all(sh and sh[0] and sh[0][-1] < m * cap for sh in scans)
+    for a, b in zip(out["cpu"], out["cuda"]):
+        assert torch.equal(a, b.cpu())
     obs.reset()
