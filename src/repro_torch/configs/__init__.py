@@ -1,6 +1,8 @@
 """Config registry: the 10 assigned architectures, input shapes and long-context policy (reference: ``repro.configs``).
 
-Copied as data; ``ModelConfig.dtype`` is a torch dtype here.
+Copied as data; ``ModelConfig.dtype`` is a torch dtype here.  The port's
+own configurations, which the reference has no model for, are in
+``PORT_ARCHS`` (``get_config`` finds both).
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from .gemma3_12b import CONFIG as _gemma3
 from .granite_moe_3b import CONFIG as _granite
 from .internvl2_26b import CONFIG as _internvl
 from .jamba_1_5_large import CONFIG as _jamba
+from .moonlight_16b_a3b import CONFIG as _moonlight
 from .qwen1_5_0_5b import CONFIG as _qwen
 from .starcoder2_15b import CONFIG as _starcoder
 from .whisper_base import CONFIG as _whisper
@@ -31,6 +34,12 @@ ARCHS: Dict[str, ModelConfig] = {
     "granite-moe-3b-a800m": _granite,
     "command-r-plus-104b": _commandr,
     "whisper-base": _whisper,
+}
+
+# the port's own configurations, beside the reference's registry (which
+# ``ARCHS`` mirrors field for field): training through the same step
+PORT_ARCHS: Dict[str, ModelConfig] = {
+    "moonlight-16b-a3b": _moonlight,
 }
 
 
@@ -73,7 +82,7 @@ SWA_WINDOW = 4096
 
 
 def get_config(name: str, variant: Optional[str] = None) -> ModelConfig:
-    cfg = ARCHS[name]
+    cfg = ARCHS[name] if name in ARCHS else PORT_ARCHS[name]
     if variant == "swa":
         cfg = dataclasses.replace(
             cfg, window=SWA_WINDOW,

@@ -83,12 +83,13 @@ def _fixed_batch_generate(cfg, mc, params, args) -> np.ndarray:
 
 
 def main(argv=None):
-    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.configs import ARCHS, PORT_ARCHS, get_config
     from repro_torch.models import transformer as T
     from repro_torch.train.step import mesh_ctx
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen1.5-0.5b", choices=list(ARCHS))
+    ap.add_argument("--arch", default="qwen1.5-0.5b",
+                    choices=list(ARCHS) + list(PORT_ARCHS))
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -130,6 +131,7 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    T.check_servable(cfg)
     mc = mesh_ctx(args.data_axis, args.model_axis, device=args.device)
     params = T.init_params(cfg, mc.tp, seed=args.seed, device=mc.device)
 

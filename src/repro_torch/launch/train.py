@@ -25,7 +25,14 @@ bucketed`` (``hier`` / ``sparse``) syncs the dense leaves in
 ``--sync-bucket-kb`` buckets issued stage-major, with the bits of
 ``off``; ``--seq`` of 8,192 and more takes the query-chunked attention.
 ``--replication`` > 1 with an FSDP config raises ``ValueError``, as in
-the reference.
+the reference.  ``--arch moonlight-16b-a3b`` (the port's own
+``PORT_ARCHS``) trains a DeepSeek-V3 decoder, its MoE aux weighed by the
+configuration's ``aux_alpha``; ``--experts-held 8`` holds one of eight
+expert-parallel ranks' experts:
+
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch moonlight-16b-a3b --experts-held 8 --data-axis 2 --batch 2 \\
+        --seq 4096 --sync sparse --merge fused --dp-degrees 2
 """
 from __future__ import annotations
 
@@ -69,13 +76,15 @@ def parse_degrees(text: str):
 def main(argv=None):
     """Run the launcher; returns the last step's loss."""
     from repro_torch.checkpoint.store import save as ckpt_save
-    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.configs import ARCHS, PORT_ARCHS, get_config
     from repro_torch.models import transformer as T
+    from repro_torch.models.common import DeepSeekV3Config
     from repro_torch.optim.adamw import AdamW
     from repro_torch.train.step import make_train_step, mesh_ctx
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen1.5-0.5b", choices=list(ARCHS))
+    ap.add_argument("--arch", default="qwen1.5-0.5b",
+                    choices=list(ARCHS) + list(PORT_ARCHS))
     ap.add_argument("--reduced", action="store_true",
                     help="smoke-scale variant of the arch (CPU-friendly)")
     ap.add_argument("--steps", type=int, default=50)
@@ -120,6 +129,10 @@ def main(argv=None):
                          "position (vocab, heads and experts sharded)")
     ap.add_argument("--untied", action="store_true",
                     help="untie embeddings (sparse sync acts on input emb)")
+    ap.add_argument("--experts-held", type=int, default=0,
+                    help="a DeepSeek-V3 arch: hold and compute experts "
+                         "[0, N) of its router's, one expert-parallel "
+                         "rank's share (0: all)")
     ap.add_argument("--ckpt", default="")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
@@ -131,6 +144,11 @@ def main(argv=None):
         cfg = cfg.reduced()
     if args.untied:
         cfg = dataclasses.replace(cfg, tie_embeddings=False)
+    deepseek = isinstance(cfg, DeepSeekV3Config)
+    if args.experts_held:
+        if not deepseek:
+            raise ValueError("--experts-held: a DeepSeek-V3 arch only")
+        cfg = dataclasses.replace(cfg, experts_held=args.experts_held)
 
     mc = mesh_ctx(args.data_axis, args.model_axis, device=args.device)
     dead = {int(x) for x in args.dead.split(",") if x} or None
@@ -143,6 +161,7 @@ def main(argv=None):
     step, _ = make_train_step(
         cfg, mc, sync=args.sync, opt=AdamW(lr=args.lr),
         microbatch=args.microbatch, dp_degrees=parse_degrees(args.dp_degrees),
+        aux_weight=cfg.aux_alpha if deepseek else 0.01,
         sparse_tokens_hint=max(8, args.batch * args.seq // mc.dp),
         sync_merge=args.merge, sync_wire=args.wire,
         replication=args.replication, dead=dead, retune=args.retune,

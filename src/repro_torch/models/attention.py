@@ -120,10 +120,11 @@ def _merge_pos(t: torch.Tensor) -> torch.Tensor:
 
 
 def _group_scores_to_out(q, k, v, mask, cfg: ModelConfig, tp: int):
-    """q [B,T,Hl,hd], k/v [B,S,KVl,hd], mask [T,S] or [B,T,S] ->
-    [B,T,Hl*hd]: each group of Hl/KVl query heads shares one kv head."""
+    """q [B,T,Hl,hd], k [B,S,KVl,hd], v [B,S,KVl,vd], mask [T,S] or
+    [B,T,S] -> [B,T,Hl*vd]: each group of Hl/KVl query heads shares one kv
+    head (vd = hd but for latent attention's values)."""
     b, t, hl, hd = q.shape
-    kvl = k.shape[2]
+    kvl, vd = k.shape[2], v.shape[-1]
     g = hl // kvl if hl % kvl == 0 else 0
     scale = math.sqrt(float(hd))
     if g == 0:  # padded heads not divisible by kv: map head -> kv by ratio
@@ -144,8 +145,8 @@ def _group_scores_to_out(q, k, v, mask, cfg: ModelConfig, tp: int):
         scores = torch.where(m[:, None, None], scores,
                              torch.full_like(scores, NEG))
         w = torch.softmax(scores, dim=-1).to(q.dtype)
-        out = torch.einsum("bkgts,bskd->btkgd", w, v).reshape(b, t, hl, hd)
-    return out.reshape(b, t, hl * hd)
+        out = torch.einsum("bkgts,bskd->btkgd", w, v).reshape(b, t, hl, vd)
+    return out.reshape(b, t, hl * vd)
 
 
 def attn_mask(t: int, window: int, causal: bool = True,

@@ -186,6 +186,104 @@ class ModelConfig:
             + moe_total * self.top_k / self.n_experts
 
 
+@dataclasses.dataclass(frozen=True)
+class DeepSeekV3Config(ModelConfig):
+    """A DeepSeek-V3-style decoder (Moonlight, Kimi): the port's own
+    configuration kind, kept apart from the reference's ``ModelConfig``
+    fields.
+
+    ``n_layers`` counts every layer: ``lead_dense`` leading layers of
+    latent attention and a dense SwiGLU of width ``lead_d_ff``, then the
+    repeated period (``pattern`` ``("mla",)``, ``ffn_pattern``
+    ``("moe+dense",)``: the shared experts are the dense FFN of width
+    ``d_ff`` beside the MoE).  Latent attention (``models.mla``): queries
+    of ``q_nope_dim + q_rope_dim`` a head, a ``kv_rank``-wide latent and
+    one ``q_rope_dim``-wide rope key shared by the heads, values of
+    ``v_dim`` a head.  The router is a float32 sigmoid over
+    ``n_experts`` outputs; experts are chosen by score plus
+    ``router_bias`` (the held correction bias, ``n_periods * n_experts``
+    floats, period-major; empty = zeros), and their weights are the
+    chosen scores normalised and times ``router_scale``.  The layer
+    holds and computes experts ``[expert_first, expert_first +
+    experts_held)`` of them (``experts_held`` 0: all), the expert
+    parallel share; routes to the others add nothing.  The MoE aux loss
+    is DeepSeek-V3's sequence-wise balance, which the train step weighs
+    by ``aux_alpha``.  tp = 1 only."""
+    q_nope_dim: int = 128
+    q_rope_dim: int = 64
+    kv_rank: int = 512
+    v_dim: int = 128
+    lead_dense: int = 1
+    lead_d_ff: int = 0
+    router_scale: float = 1.0
+    router_bias: Tuple[float, ...] = ()
+    expert_first: int = 0
+    experts_held: int = 0
+    aux_alpha: float = 1e-4
+
+    @property
+    def n_periods(self) -> int:
+        """Repeats of the block pattern after the leading dense layers."""
+        rest = self.n_layers - self.lead_dense
+        assert rest >= 0 and rest % len(self.pattern) == 0, \
+            f"{self.n_layers} layers, {self.lead_dense} leading, period " \
+            f"{len(self.pattern)}"
+        return rest // len(self.pattern)
+
+    def lead_config(self) -> "DeepSeekV3Config":
+        """The leading dense layers' view: the pattern with a dense FFN of
+        width ``lead_d_ff``."""
+        return dataclasses.replace(
+            self, ffn_pattern=("dense",) * len(self.pattern),
+            d_ff=self.lead_d_ff)
+
+    @property
+    def held(self) -> int:
+        """Experts this layer holds and computes (the expert leaves'
+        leading dim; the router keeps ``n_experts`` outputs)."""
+        return self.experts_held or self.n_experts
+
+    def reduced(self, **kw) -> "DeepSeekV3Config":
+        """Smoke-test variant: the leading dense layer and two MoE layers,
+        small widths, 8 experts top-2 all held, f32."""
+        small = dict(n_layers=self.lead_dense + 2, d_model=128, n_heads=4,
+                     n_kv=4, d_ff=96, lead_d_ff=192, vocab=512, head_dim=0,
+                     q_nope_dim=16, q_rope_dim=8, kv_rank=32, v_dim=16,
+                     n_experts=8, top_k=2, expert_d_ff=48, router_bias=(),
+                     expert_first=0, experts_held=0, dtype=torch.float32,
+                     fsdp=False)
+        small.update(kw)
+        return dataclasses.replace(self, **small)
+
+    def mla_param_count(self) -> int:
+        """One latent attention block's parameters."""
+        d, h = self.d_model, self.n_heads
+        qk = self.q_nope_dim + self.q_rope_dim
+        return (d * h * qk + d * (self.kv_rank + self.q_rope_dim)
+                + self.kv_rank + self.kv_rank * h * (self.q_nope_dim
+                                                     + self.v_dim)
+                + h * self.v_dim * d)
+
+    def param_count(self) -> float:
+        """Parameters held: the embedding, head and final norm, the
+        leading dense layers, and each MoE layer's attention, shared
+        experts, router and held experts, norms included."""
+        d = self.d_model
+        lead = self.mla_param_count() + 3 * d * self.lead_d_ff + 2 * d
+        moe = (self.mla_param_count() + 3 * d * self.d_ff + 2 * d
+               + d * self.n_experts + self.held * 3 * d * self.expert_d_ff)
+        return (self.lead_dense * lead + self.n_periods * moe + d
+                + self.vocab * d * (1 if self.tie_embeddings else 2))
+
+    def active_param_count(self) -> float:
+        """Parameters a token uses: top_k of n_experts routed experts, of
+        which ``held / n_experts`` are held here."""
+        routed = self.n_periods * self.held * 3 * self.d_model \
+            * self.expert_d_ff
+        return self.param_count() - routed + routed * self.top_k \
+            / self.n_experts
+
+
 # ---------------------------------------------------------------------------
 # Elementwise pieces
 # ---------------------------------------------------------------------------

@@ -22,7 +22,9 @@ its ``experts_local`` experts on what it received (its shard of the
 expert leaves is a view), the results return by the same
 ``all_to_all``, and the tiled ``all_gather`` lays the slices end to end
 again.  At tp = 1 the same code runs with the exchanges left out
-(identities).  The aux loss and the dropped fraction are each
+(identities) and so does the bucketing by model position: a position's
+bucket is then its route order, the first ``cap_dev`` copies kept.
+The aux loss and the dropped fraction are each
 position's own, [M, tp]; the train objective takes the mean of the aux
 over the model positions (``models.transformer``).  The group-by, the
 dispatch scatters and the combine gathers are plain torch ops, as the
@@ -33,16 +35,30 @@ clamped slots of dropped copies) only ever receives a zero gradient, and
 every other index one value, so the sums are exact in any order.
 (Advanced indexing's sort-based backward took 284 of a granite-moe
 step's 1,039 device ms on an H100, ``tools/train_step_profile.py``.)
+
+A DeepSeek-V3 configuration (``common.DeepSeekV3Config``, tp = 1) runs
+the same dispatch.  It routes by :func:`router_sigmoid` and computes its
+expert share: the router keeps its ``n_experts`` outputs and top-k (the
+capacities are those over them), the layer holds experts
+``[expert_first, expert_first + held)``, and copies to the others join
+the empty slots' group, so they add nothing (on one card the
+expert-parallel layer without its exchange).  Its aux loss is the
+sequence-wise balance (:func:`seq_balance`).  Every MoE block's forward
+is the span
+``model.moe`` (:mod:`repro_torch.obs`), again in the backward's
+recompute.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig, act_fn, linear
+from repro_torch import obs
+
+from .common import DeepSeekV3Config, ModelConfig, act_fn, linear
 
 
 def router_topk(logits: torch.Tensor, cfg: ModelConfig
@@ -107,6 +123,49 @@ def _fill(slot: torch.Tensor, keep: torch.Tensor, vals: torch.Tensor,
                                               torch.zeros_like(vals)))[:-1]
 
 
+def router_sigmoid(logits: torch.Tensor, bias: Optional[torch.Tensor],
+                   cfg: DeepSeekV3Config
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """DeepSeek-V3's ``noaux_tc`` routing (one group): ``logits`` [...,
+    E] float32 -> ``(scores [..., E], wk [..., K], ek [..., K])``.
+    Scores are the sigmoid of the logits; the top k of score plus
+    ``bias`` (the correction bias, selection only, no gradient) by a
+    stable descending sort choose the experts; their weights are the
+    chosen scores over their sum (``+ 1e-20``) times
+    ``cfg.router_scale``."""
+    scores = torch.sigmoid(logits)
+    choice = scores.detach() if bias is None else scores.detach() + bias
+    ek = torch.sort(choice, dim=-1, descending=True,
+                    stable=True).indices[..., :cfg.top_k]
+    wk = torch.gather(scores, -1, ek)
+    wk = wk / (torch.sum(wk, dim=-1, keepdim=True) + 1e-20) \
+        * cfg.router_scale
+    return scores, wk, ek
+
+
+def seq_balance(scores: torch.Tensor, cfg: DeepSeekV3Config
+                ) -> torch.Tensor:
+    """DeepSeek-V3's sequence-wise balance term (arXiv:2412.19437
+    §2.1.2) without its alpha, each row's ``sum_i f_i P_i`` averaged over
+    the rows: ``scores`` [..., B, T, E] -> [...].  ``f_i`` is E / (K T)
+    times the tokens whose top k by raw score hold expert i, ``P_i`` the
+    row's mean of the scores normalised over the experts."""
+    e, k = scores.shape[-1], cfg.top_k
+    t = scores.shape[-2]
+    top = torch.sort(scores.detach(), dim=-1, descending=True,
+                     stable=True).indices[..., :k]
+    lead = scores.shape[:-2]
+    hits = torch.zeros(lead + (e,), dtype=torch.float32,
+                       device=scores.device).scatter_add_(
+        -1, top.reshape(lead + (t * k,)),
+        torch.ones(lead + (t * k,), dtype=torch.float32,
+                   device=scores.device))
+    f = hits * (e / (k * t))
+    pn = torch.mean(scores / torch.sum(scores, dim=-1, keepdim=True), dim=-2)
+    return torch.mean(torch.sum(f * pn, dim=-1), dim=-1)
+
+
+@obs.span("model.moe")
 def moe_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig, tp: int = 1,
             capacity_factor: float = 2.0, model=None
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -117,21 +176,25 @@ def moe_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig, tp: int = 1,
     the model axis, :class:`repro_torch.core.transport.ModelAxis`) aux
     and dropped are [M, tp], each model position's on its token slice.
     The aux loss is the switch-style load balance ``sum(mean probs *
-    top-1 share) * E``; the dropped fraction counts the copies that found
-    no dispatch slot."""
+    top-1 share) * E`` (a DeepSeek-V3 configuration: :func:`seq_balance`);
+    the dropped fraction counts the copies that found no dispatch slot."""
     stacked = p["router"].ndim == 3
     xs = x if stacked else x.unsqueeze(0)
     m, d = xs.shape[0], xs.shape[-1]
     n_full = math.prod(xs.shape[1:-1])
     el, e_pad, k_top = cfg.experts_local(tp), cfg.n_experts_padded(tp), \
         cfg.top_k
+    deepseek = isinstance(cfg, DeepSeekV3Config)
+    # the experts a position computes: its el, or a DeepSeek-V3 share
+    first, held = (cfg.expert_first, cfg.held) if deepseek else (0, el)
     router = p["router"] if stacked else p["router"].unsqueeze(0)
     w1, w3, w2 = (p[k] if stacked else p[k].unsqueeze(0)
                   for k in ("w1", "w3", "w2"))
     dev = x.device
-    if tp > 1 and model is None:
+    if tp > 1 and (model is None or deepseek):
         raise ValueError("moe_ffn at tp > 1 exchanges over the mesh's model "
-                         "axis: pass model= (train.step.mesh_ctx gives it)")
+                         "axis: pass model= (train.step.mesh_ctx gives it); "
+                         "a DeepSeek-V3 configuration runs at tp = 1")
     # model position j of data row i is position i * tp + j, P in all,
     # holding its ceil(n / tp) token slice (the whole row at tp = 1)
     n = -(-n_full // tp)
@@ -142,61 +205,76 @@ def moe_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig, tp: int = 1,
     xf = xp.reshape(npos, n, d)
 
     # ---- route (per token, each position's aux on its slice) --------------
-    probs, wk, ek = router_topk(
-        linear(xp.to(torch.float32), router).reshape(npos, n, -1), cfg)
-    me = torch.mean(probs, dim=1)                               # [P, E]
-    top1 = F.one_hot(ek[..., 0], e_pad).to(torch.float32)
-    ce = torch.mean(top1, dim=1)
-    aux = torch.sum(me * ce, dim=-1) * cfg.n_experts            # [P]
+    logits = linear(xp.to(torch.float32), router).reshape(npos, n, -1)
+    if deepseek:
+        scores, wk, ek = router_sigmoid(logits, p.get("bias"), cfg)
+        aux = seq_balance(scores.reshape((npos,) + tuple(xs.shape[1:-1])
+                                         + (cfg.n_experts,)), cfg)
+    else:
+        probs, wk, ek = router_topk(logits, cfg)
+        me = torch.mean(probs, dim=1)                           # [P, E]
+        top1 = F.one_hot(ek[..., 0], e_pad).to(torch.float32)
+        ce = torch.mean(top1, dim=1)
+        aux = torch.sum(me * ce, dim=-1) * cfg.n_experts        # [P]
 
     # ---- dispatch: bucket by owning model position ------------------------
     cap_dev, cap_e = capacities(cfg, n, tp, capacity_factor)
-    off = torch.arange(npos, device=dev)[:, None]
     flat_e = ek.reshape(npos, n * k_top)
-    dest_dev = flat_e // el
-    slot, keep = _group_by((dest_dev + off * tp).reshape(-1), npos * tp,
-                           cap_dev)
     xk = torch.repeat_interleave(xf, k_top, dim=1).reshape(npos * n * k_top, d)
-    rows_dev = npos * tp * cap_dev
-    rx = _fill(slot, keep, xk, rows_dev)              # [P * tp * cap, d]
-    re = torch.full((rows_dev + 1,), -1, dtype=torch.int64, device=dev)
-    re = re.index_put((slot,), torch.where(
-        keep, (flat_e % el).reshape(-1), torch.full_like(slot, -1)))[:-1]
-    if tp > 1:      # [M, tp_src, tp_dst, cap] -> received [M, tp_dst, tp_src]
+    if tp > 1:
+        off = torch.arange(npos, device=dev)[:, None]
+        slot, keep = _group_by((flat_e // el + off * tp).reshape(-1),
+                               npos * tp, cap_dev)
+        rows = tp * cap_dev                    # received slots a position
+        rx = _fill(slot, keep, xk, npos * rows)          # [P * tp * cap, d]
+        re = torch.full((npos * rows + 1,), -1, dtype=torch.int64, device=dev)
+        re = re.index_put((slot,), torch.where(
+            keep, (flat_e % el).reshape(-1), torch.full_like(slot, -1)))[:-1]
+        # [M, tp_src, tp_dst, cap] -> received [M, tp_dst, tp_src]
         rx = model.all_to_all(rx.reshape(m, tp, tp, cap_dev, d)).reshape(
-            rows_dev, d)
+            npos * rows, d)
         re = model.all_to_all(re.reshape(m, tp, tp, cap_dev)).reshape(-1)
+    else:
+        # one position owns every expert: its bucket is the route order,
+        # the first cap_dev copies kept; copies to experts outside the
+        # held share get -1, as empty slots do
+        rows = n * k_top
+        keep = (torch.arange(rows, device=dev) < cap_dev).repeat(npos)
+        local = flat_e.reshape(-1) - first
+        rx, re = xk, torch.where(keep & (local >= 0) & (local < held), local,
+                                 torch.full_like(local, -1))
 
     # ---- local expert compute: group received copies by local expert ------
-    # each position's empty slots go to a group of their own (el), after
+    # each position's empty slots go to a group of their own (held), after
     # its experts, so they never take an expert's capacity
-    g = el + 1
-    rpos = torch.arange(rows_dev, device=dev) // (tp * cap_dev)
-    edest = torch.where(re >= 0, re, el) + rpos * g
+    g = held + 1
+    rpos = torch.arange(npos * rows, device=dev) // rows
+    edest = torch.where(re >= 0, re, held) + rpos * g
     eslot, ekeep = _group_by(edest, npos * g, cap_e)
     live = ekeep & (re >= 0)
     ex = _fill(eslot, live, rx, npos * g * cap_e).reshape(npos, g, cap_e, d)
-    # position j's experts are its shard of the held [M, E_pad, ...] leaves
-    ex = ex[:, :el].reshape(m, e_pad, cap_e, d)
+    # position j's experts are its shard of the held [M, tp * held, ...]
+    # leaves
+    ex = ex[:, :held].reshape(m, tp * held, cap_e, d)
     h = act_fn(torch.matmul(ex, w1), cfg.act) * torch.matmul(ex, w3)
-    ey = torch.matmul(h, w2)                                   # [M, E, cap, d]
+    ey = torch.matmul(h, w2)                              # [M, E, cap, d]
     # back to received-slot order; dropped and empty slots read their
     # position's last expert slot and are masked
     local = eslot - rpos * (g * cap_e)
-    safe_es = torch.clamp(local, max=el * cap_e - 1) + rpos * (el * cap_e)
-    y_slots = torch.index_select(ey.reshape(npos * el * cap_e, d), 0,
+    safe_es = torch.clamp(local, max=held * cap_e - 1) + rpos * (held * cap_e)
+    y_slots = torch.index_select(ey.reshape(npos * held * cap_e, d), 0,
                                  safe_es) * live[:, None].to(ey.dtype)
-    if tp > 1:      # the return route: the same all_to_all
-        y_slots = model.all_to_all(y_slots.reshape(m, tp, tp, cap_dev, d)) \
-            .reshape(rows_dev, d)
 
     # ---- combine ----------------------------------------------------------
-    spos = torch.arange(npos * n * k_top, device=dev) // (n * k_top)
-    safe_slot = torch.clamp(slot - spos * (tp * cap_dev),
-                            max=tp * cap_dev - 1) + spos * (tp * cap_dev)
-    per_assign = torch.index_select(y_slots, 0, safe_slot) \
-        * keep[:, None].to(y_slots.dtype)
-    y = torch.sum(per_assign.reshape(npos, n, k_top, d)
+    if tp > 1:      # the return route: the same all_to_all
+        y_slots = model.all_to_all(y_slots.reshape(m, tp, tp, cap_dev, d)) \
+            .reshape(npos * rows, d)
+        spos = torch.arange(npos * n * k_top, device=dev) // (n * k_top)
+        safe_slot = torch.clamp(slot - spos * rows, max=rows - 1) \
+            + spos * rows
+        y_slots = torch.index_select(y_slots, 0, safe_slot) \
+            * keep[:, None].to(y_slots.dtype)
+    y = torch.sum(y_slots.reshape(npos, n, k_top, d)
                   * wk[..., None].to(x.dtype), dim=2)           # [P, n, d]
     dropped = 1.0 - torch.mean(keep.reshape(npos, -1).to(torch.float32),
                                dim=1)

@@ -29,7 +29,7 @@ from typing import Any, Dict
 
 import torch
 
-from .common import ModelConfig
+from .common import DeepSeekV3Config, ModelConfig
 
 Tree = Dict[str, Any]
 
@@ -47,6 +47,10 @@ def check_ported(cfg: ModelConfig, tp: int = 1) -> None:
             "reference's encoder-decoder forward never gathers FSDP leaves")
     if tp < 1:
         raise ValueError(f"tp must be >= 1, got {tp}")
+    if isinstance(cfg, DeepSeekV3Config) and (tp > 1 or cfg.fsdp):
+        raise ValueError(f"{cfg.name}: a DeepSeek-V3 decoder runs at tp = 1 "
+                         f"without FSDP (its expert share is the expert "
+                         f"parallel layer); got tp={tp}, fsdp={cfg.fsdp}")
     if tp == 1:
         return
     kinds = set(cfg.pattern)
@@ -77,6 +81,14 @@ def attn_spec(cfg: ModelConfig, tp: int) -> Tree:
         s["bk"] = ("model" if kv_sh else None,)
         s["bv"] = ("model" if kv_sh else None,)
     return s
+
+
+def mla_spec(cfg: ModelConfig, tp: int) -> Tree:
+    """Latent attention leaves (tp = 1: heads over the model axis where a
+    product's columns or rows are per head)."""
+    return {"wq": ("fsdp", "model"), "wkv_a": ("fsdp", None),
+            "kv_ln": (None,), "wkv_b": (None, "model"),
+            "wo": ("model", "fsdp")}
 
 
 def ffn_spec(cfg: ModelConfig, tp: int) -> Tree:
@@ -115,7 +127,7 @@ def slstm_spec(cfg: ModelConfig, tp: int) -> Tree:
             "out": ("fsdp", None), "bias": (None,)}
 
 
-BLOCK_SPECS = {"attn": attn_spec, "mamba": mamba_spec,
+BLOCK_SPECS = {"attn": attn_spec, "mla": mla_spec, "mamba": mamba_spec,
                "mlstm": mlstm_spec, "slstm": slstm_spec}
 
 
@@ -147,6 +159,8 @@ def model_spec(cfg: ModelConfig, tp: int) -> Tree:
         s["enc_ln"] = (None,)
         s["cross"] = attn_spec(cfg, tp)       # per-period cross attention
         s["ln_cross"] = (None,)
+    if isinstance(cfg, DeepSeekV3Config) and cfg.lead_dense:
+        s["lead"] = period_spec(cfg.lead_config(), tp)
     return s
 
 
@@ -170,6 +184,8 @@ def full_model_spec_tuples(cfg: ModelConfig, tp: int) -> Tree:
         out["enc_ln"] = tuple(spec["enc_ln"])
         out["cross"] = _stack_spec(spec["cross"])
         out["ln_cross"] = tuple(spec["ln_cross"])
+    if "lead" in spec:
+        out["lead"] = _stack_spec(spec["lead"])
     return out
 
 

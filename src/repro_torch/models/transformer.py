@@ -14,6 +14,14 @@ backward under ``remat_policy="full"`` (``torch.utils.checkpoint``, the
 reference's per-block ``jax.checkpoint``); ``"dots"`` keeps the
 activations, which gives the same values.
 
+A DeepSeek-V3 configuration (``common.DeepSeekV3Config``, tp = 1) has
+latent attention blocks (``mla``, :mod:`models.mla`) and adds ``lead``:
+its ``lead_dense`` leading layers (latent attention and a dense FFN of
+width ``lead_d_ff``, stacked over them), run before the periods.  Its
+held correction bias, a buffer of the configuration and not a
+parameter, is handed to each period's MoE block as ``bias``.  Serving
+refuses it (:func:`check_servable`): the port has no latent cache.
+
 The frontend stubs: an encoder-decoder (whisper) adds ``enc_blocks``
 (stacked over ``enc_layers``), ``enc_ln``, ``cross`` (stacked over the
 periods) and ``ln_cross``; :func:`encoder_fwd` runs the frame embeddings
@@ -45,6 +53,7 @@ the two packages exactly, at any tp.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -54,11 +63,12 @@ from torch.utils.checkpoint import checkpoint
 from torch.utils.weak import WeakIdKeyDictionary
 
 from . import attention as A
+from . import mla as MLA
 from . import moe as MOE
 from . import serve2d as S2D
 from . import ssm as SSM
-from .common import (ModelConfig, act_fn, dense_init, embed, linear,
-                     lm_head_loss, rmsnorm)
+from .common import (DeepSeekV3Config, ModelConfig, act_fn, dense_init,
+                     embed, linear, lm_head_loss, rmsnorm)
 from .sharding import (check_ported, fsdp_block_paths, fsdp_gather,
                        period_spec)
 
@@ -99,6 +109,9 @@ def _block_builders(cfg: ModelConfig, tp: int, draw, zeros):
     def attn():
         return A.attn_params(cfg, tp, draw, zeros)
 
+    def mla():
+        return MLA.mla_params(cfg, draw, zeros)
+
     def mamba():
         di, n = 2 * d, cfg.ssm_state
         p = {"in_x": draw((d, di)), "in_z": draw((d, di)),
@@ -125,13 +138,30 @@ def _block_builders(cfg: ModelConfig, tp: int, draw, zeros):
 
     def moe():
         ep, eff = cfg.n_experts_padded(tp), cfg.expert_d_ff
+        held = cfg.held if isinstance(cfg, DeepSeekV3Config) else ep
         return {"router": draw((d, ep), dtype=f32),
-                "w1": draw((ep, d, eff), scale_axis=1),
-                "w3": draw((ep, d, eff), scale_axis=1),
-                "w2": draw((ep, eff, d), scale_axis=1)}
+                "w1": draw((held, d, eff), scale_axis=1),
+                "w3": draw((held, d, eff), scale_axis=1),
+                "w2": draw((held, eff, d), scale_axis=1)}
 
-    return ({"attn": attn, "mamba": mamba, "mlstm": mlstm, "slstm": slstm},
-            ffn, moe)
+    return ({"attn": attn, "mla": mla, "mamba": mamba, "mlstm": mlstm,
+             "slstm": slstm}, ffn, moe)
+
+
+def _period_blocks(cfg: ModelConfig, mixers, ffn_params, moe_params, zeros):
+    """One period's block trees ``{"b<j>": ...}`` in pattern order."""
+    d = cfg.d_model
+    blocks = {}
+    for j, (blk, ffn) in enumerate(zip(cfg.pattern, cfg.ffn_pattern)):
+        e = {"ln1": zeros(d), blk: mixers[blk]()}
+        if ffn != "none":
+            e["ln2"] = zeros(d)
+        if ffn in ("dense", "moe+dense"):
+            e["ffn"] = ffn_params()
+        if ffn in ("moe", "moe+dense"):
+            e["moe"] = moe_params()
+        blocks[f"b{j}"] = e
+    return blocks
 
 
 def init_params(cfg: ModelConfig, tp: int = 1, seed: int = 0,
@@ -164,17 +194,8 @@ def init_params(cfg: ModelConfig, tp: int = 1, seed: int = 0,
         return draw, zeros
 
     draw, zeros = stacked(cfg.n_periods)
-    mixers, ffn_params, moe_params = _block_builders(cfg, tp, draw, zeros)
-    blocks = {}
-    for j, (blk, ffn) in enumerate(zip(cfg.pattern, cfg.ffn_pattern)):
-        e = {"ln1": zeros(d), blk: mixers[blk]()}
-        if ffn != "none":
-            e["ln2"] = zeros(d)
-        if ffn in ("dense", "moe+dense"):
-            e["ffn"] = ffn_params()
-        if ffn in ("moe", "moe+dense"):
-            e["moe"] = moe_params()
-        blocks[f"b{j}"] = e
+    blocks = _period_blocks(cfg, *_block_builders(cfg, tp, draw, zeros),
+                            zeros)
     p: Params = {"emb": dense_init(gen, (vp, d), scale_axis=1, dtype=dt),
                  "final_ln": torch.zeros(d, dtype=torch.float32,
                                          device=device),
@@ -190,6 +211,11 @@ def init_params(cfg: ModelConfig, tp: int = 1, seed: int = 0,
         p["enc_ln"] = torch.zeros(d, dtype=torch.float32, device=device)
         p["cross"] = A.cross_attn_params(cfg, tp, draw, zeros)
         p["ln_cross"] = torch.zeros(d, dtype=torch.float32, device=device)
+    if isinstance(cfg, DeepSeekV3Config) and cfg.lead_dense:
+        ldraw, lzeros = stacked(cfg.lead_dense)
+        lcfg = cfg.lead_config()
+        p["lead"] = _period_blocks(
+            lcfg, *_block_builders(lcfg, tp, ldraw, lzeros), lzeros)
     return p
 
 
@@ -288,6 +314,9 @@ def _period_fwd(pp: Params, x: torch.Tensor, cfg: ModelConfig, ax: AxisCtx,
 
         def mixer(pm, ln1, x, blk=blk, w=w):
             h = rmsnorm(x, ln1, cfg.norm_eps)
+            if blk == "mla":
+                return x + MLA.mla_train(pm, h, cfg, positions=positions,
+                                         causal=causal)
             if blk == "attn":
                 return x + A.attn_train_any(pm, h, cfg, tp, w,
                                             positions=positions,
@@ -359,6 +388,40 @@ def _decoder_periods(params: Params, cfg: ModelConfig, ax: AxisCtx,
     return views, cross
 
 
+def _lead_fwd(params: Params, x: torch.Tensor, cfg: DeepSeekV3Config,
+              ax: AxisCtx, positions: torch.Tensor) -> torch.Tensor:
+    """The leading dense layers (``lead``, stacked over ``lead_dense``)."""
+    stacked = params["emb"].ndim == 3
+    lcfg = cfg.lead_config()
+    for pp in _period_views(params["lead"], cfg.lead_dense,
+                            dim=1 if stacked else 0):
+        x, _ = _period_fwd(pp, x, lcfg, ax, positions)
+    return x
+
+
+@functools.lru_cache(maxsize=8)
+def _router_bias(cfg: DeepSeekV3Config, device: torch.device
+                 ) -> Optional[torch.Tensor]:
+    """``cfg.router_bias`` as a float32 [n_periods, n_experts] tensor on
+    ``device``, or None where it is empty (zeros)."""
+    if not cfg.router_bias:
+        return None
+    return torch.tensor(cfg.router_bias, dtype=torch.float32,
+                        device=device).reshape(cfg.n_periods, cfg.n_experts)
+
+
+def _put_router_bias(views, cfg: DeepSeekV3Config, device) -> None:
+    """Each period view's MoE blocks read their row of the held correction
+    bias as ``bias`` (a buffer of the configuration, not a parameter)."""
+    bias = _router_bias(cfg, torch.device(device))
+    if bias is None:
+        return
+    for i, pp in enumerate(views):
+        for e in pp.values():
+            if "moe" in e:
+                e["moe"] = dict(e["moe"], bias=bias[i])
+
+
 def encoder_fwd(params: Params, frames: torch.Tensor, cfg: ModelConfig,
                 ax: Optional[AxisCtx] = None) -> torch.Tensor:
     """The encoder over stub frame embeddings [B, S, d] (position-stacked:
@@ -425,6 +488,9 @@ def forward_loss(params: Params, tokens: torch.Tensor, labels: torch.Tensor,
     views, cross = _decoder_periods(params, cfg, ax)
     if cfg.enc_layers:
         enc_out = encoder_fwd(params, enc_frames.to(cfg.dtype), cfg, ax)
+    if isinstance(cfg, DeepSeekV3Config):
+        x = _lead_fwd(params, x, cfg, ax, positions)
+        _put_router_bias(views, cfg, x.device)
     for pp, cp in zip(views, cross):
         if cp is None:
             x, a = _period_fwd(pp, x, cfg, ax, positions)
@@ -550,6 +616,7 @@ def forward_prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     the float32 head (:func:`head_f32`).  No gradient is kept."""
     ax = ax or AxisCtx()
     check_ported(cfg, ax.tp)
+    check_servable(cfg)
     x = embed(params["emb"], tokens).to(cfg.dtype)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(cfg.dtype), x], dim=-2)
@@ -588,6 +655,15 @@ def forward_prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
                 x = _ffn_out(e, x, cfg, ax)
     x = rmsnorm(x[..., -1, :], params["final_ln"], cfg.norm_eps)
     return torch.matmul(x.to(torch.float32), head32), cache
+
+
+def check_servable(cfg: ModelConfig) -> None:
+    """``ValueError`` for a configuration the serving path does not run:
+    a DeepSeek-V3 decoder needs a latent-attention cache, which the port
+    does not have (training only)."""
+    if isinstance(cfg, DeepSeekV3Config):
+        raise ValueError(f"{cfg.name}: serving a DeepSeek-V3 decoder (latent "
+                         f"attention) is not ported; the port trains it only")
 
 
 def _check_decode_layout(cfg: ModelConfig, seq_axis, serve2d: bool) -> None:
@@ -635,6 +711,7 @@ def forward_decode(params: Params, token: torch.Tensor, pos: torch.Tensor,
     fractions of this step, one tensor a block."""
     ax = ax or AxisCtx()
     check_ported(cfg, ax.tp)
+    check_servable(cfg)
     _check_decode_layout(cfg, seq_axis, serve2d)
     axes = None if mesh_sizes is None or not ax.fsdp_axes else \
         tuple(mesh_sizes[a] for a in ax.fsdp_axes)

@@ -1771,3 +1771,90 @@ def test_union_reduce_launches_trim_runs_once_on_gpu(cuda):
     for a, b in zip(out["cpu"], out["cuda"]):
         assert torch.equal(a, b.cpu())
     obs.reset()
+
+
+def _moonlight_reference():
+    """``portbench/reference/moonlight.py`` (plain torch, float32) and the
+    port's configuration of Moonlight at its published widths."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from portbench.reference import moonlight
+    return moonlight
+
+
+@pytest.mark.gpu
+def test_moonlight_published_widths_match_reference_on_gpu(cuda):
+    """Moonlight at its published widths on the card, float32: layer 0
+    (MLA and the 11,264-wide SwiGLU) and one MoE layer (MLA, the shared
+    experts, the 64-output sigmoid router with a drawn correction bias, 8
+    held experts), the whole 163,840-row vocabulary, one row of 4,096
+    tokens, against the plain reference on the card (layers recomputed,
+    experts one at a time, TF32 off): the loss and aux within rtol 1e-4
+    and each leaf's gradient norm within rtol 1e-3 (float32 sums in two
+    orders over 4,096 positions and 2,048-wide products; a router tie
+    that flips one route moves no norm by more)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    R = _moonlight_reference()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(get_config("moonlight-16b-a3b"), n_layers=2,
+                              experts_held=8, dtype=torch.float32)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    bias = torch.randn((1, 64), generator=gen, device=cuda) * 0.05
+    cfg = dataclasses.replace(cfg, router_bias=tuple(bias.reshape(-1)
+                                                     .tolist()))
+    params = T.init_params(cfg, 1, seed=1, device=cuda)
+    toks = torch.randint(0, cfg.vocab, (1, 4096), generator=gen, device=cuda)
+    labels = torch.randint(0, cfg.vocab, (1, 4096), generator=gen,
+                           device=cuda)
+    leaves = T.tree_leaves(params)
+    ps = [t.detach().requires_grad_(True) for _, t in leaves]
+    tree = T.tree_from_leaves(params, list(zip([p for p, _ in leaves], ps)))
+    loss, aux = T.forward_loss(tree, toks, labels, cfg)
+    grads = torch.autograd.grad(loss + cfg.aux_alpha * aux, ps)
+    got = {p: float(torch.linalg.vector_norm(g))
+           for (p, _), g in zip(leaves, grads)}
+    loss, aux = float(loss), float(aux)
+    del tree, ps, grads
+    rcfg = {"hidden_size": 2048, "num_attention_heads": 16,
+            "qk_nope_head_dim": 128, "qk_rope_head_dim": 64,
+            "kv_lora_rank": 512, "v_head_dim": 128,
+            "first_k_dense_replace": 1, "num_hidden_layers": 2,
+            "published_n_routed_experts": 64, "n_routed_experts": 8,
+            "held_experts_first": 0, "num_experts_per_tok": 6,
+            "routed_scaling_factor": 2.446, "rope_theta": 5e4,
+            "rms_norm_eps": 1e-5, "seq_aux_alpha": 1e-4,
+            "moe_capacity_factor": 2.0, "expert_capacity_slack": 1.25}
+    model = R.Model(rcfg, bias)
+    rp = {p: t.detach().requires_grad_(True) for p, t in leaves}
+    rloss, raux = model.objective(rp, toks, labels)
+    (rloss + model.aux_weight * raux).backward()
+    assert loss == pytest.approx(float(rloss), rel=1e-4)
+    assert aux == pytest.approx(float(raux), rel=1e-4)
+    worst = max(abs(got[p] - float(torch.linalg.vector_norm(rp[p].grad)))
+                / float(torch.linalg.vector_norm(rp[p].grad)) for p in got)
+    print(f"loss {loss} / {float(rloss)}, aux {aux} / {float(raux)}, worst "
+          f"leaf gradient norm gap {worst:.3e}")
+    assert worst < 1e-3
+
+
+@pytest.mark.gpu
+def test_launch_train_moonlight_on_gpu(cuda):
+    """``python -m repro_torch.launch.train --arch moonlight-16b-a3b``
+    trains two steps on the card: all 27 layers at published widths, 8
+    held experts a layer, two stacked data positions, the sparse sync of
+    the untied embedding."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src"))
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "moonlight-16b-a3b", "--experts-held", "8", "--steps", "2",
+         "--batch", "2", "--seq", "1024", "--data-axis", "2", "--sync",
+         "sparse", "--merge", "fused", "--dp-degrees", "2"],
+        env=env, capture_output=True, text=True, timeout=900)
+    assert r.returncode == 0, r.stdout + r.stderr
+    print(r.stdout)
+    last = [ln for ln in r.stdout.splitlines() if ln.startswith("step")][-1]
+    assert "overflow 0" in last and "nan" not in last
